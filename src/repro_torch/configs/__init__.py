@@ -1,0 +1,36 @@
+"""Architecture registry of the port.
+
+``get_config(name)`` returns the exact published configuration;
+``get_config(name, reduced=True)`` the CPU smoke-test reduction. Only the
+configurations whose serving path is ported have a module here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+ARCHITECTURES = ["paper_demo"]
+
+_ALIASES = {"paper-demo": "paper_demo"}
+
+
+def canonical(name: str) -> str:
+    name = name.replace("-", "_").replace(".", "p")
+    return _ALIASES.get(name, name)
+
+
+def get_config(name: str, reduced: bool = False, **overrides) -> ModelConfig:
+    name = canonical(name)
+    if name not in ARCHITECTURES:
+        raise NotImplementedError(
+            f"config {name!r} is not ported yet; see ROADMAP "
+            f"(ported: {ARCHITECTURES})")
+    cfg: ModelConfig = importlib.import_module(
+        f"repro_torch.configs.{name}").config()
+    if reduced:
+        cfg = cfg.reduced()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg

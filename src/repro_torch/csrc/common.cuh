@@ -1,0 +1,156 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel is templated for float and __nv_bfloat16, launches on the
+// stream it is handed, allocates nothing, and its C entry point returns
+// cudaGetLastError() (the Python wrapper raises when that is not 0).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace repro {
+
+// dtype codes shared with kernels/_build.py
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+// returned for an argument the kernel does not take (the wrapper validates
+// first, so this only guards direct C callers)
+constexpr int kBadArgument = 1000;
+
+constexpr float kNegInf = -1e30f;  // the JAX kernels' mask value
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Stage KT key rows of K and V into shared memory as fp32 (row stride
+// HD + 1 floats). `row(t, k, v)` points k and v at key row t's HD elements
+// in device memory and returns true, or returns false for a row that is
+// staged as zeros. Every row is read as 16-byte vectors, and all of a
+// thread's loads are issued before any is used, so a tile costs about one
+// memory latency, not one per element. Row pointers must be 16-byte
+// aligned (HD * sizeof(T) a multiple of 16, aligned base pointers).
+template <typename T, int HD, int KT, int NT, class Row>
+__device__ __forceinline__ void stage_tile(float* Ks, float* Vs, Row row) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = HD / kVec;
+  constexpr int kTotal = KT * kPerRow;
+  constexpr int kIters = (kTotal + NT - 1) / NT;
+  static_assert(HD % kVec == 0, "rows must split into 16-byte vectors");
+  uint4 kbuf[kIters], vbuf[kIters];
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    kbuf[i] = vbuf[i] = make_uint4(0u, 0u, 0u, 0u);
+    const T* kr;
+    const T* vr;
+    if (idx < kTotal && row(idx / kPerRow, kr, vr)) {
+      const int c = idx % kPerRow;
+      kbuf[i] = reinterpret_cast<const uint4*>(kr)[c];
+      vbuf[i] = reinterpret_cast<const uint4*>(vr)[c];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    if (idx < kTotal) {
+      const int t = idx / kPerRow;
+      const int d0 = (idx % kPerRow) * kVec;
+      const T* ke = reinterpret_cast<const T*>(&kbuf[i]);
+      const T* ve = reinterpret_cast<const T*>(&vbuf[i]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        Ks[t * (HD + 1) + d0 + e] = to_float(ke[e]);
+        Vs[t * (HD + 1) + d0 + e] = to_float(ve[e]);
+      }
+    }
+  }
+}
+
+// Online-softmax state of one query row. The row is split over a quad of 4
+// consecutive lanes; lane `sub` of the quad owns output columns
+// d = sub + 4*i (interleaved, so the quad's shared-memory reads of a value
+// row fall in 4 distinct banks).
+template <int HD>
+struct RowState {
+  float m;
+  float l;
+  float acc[HD / 4];
+
+  __device__ __forceinline__ void init() {
+    m = kNegInf;
+    l = 0.f;
+#pragma unroll
+    for (int i = 0; i < HD / 4; ++i) acc[i] = 0.f;
+  }
+};
+
+// Fold one tile of KT keys into a row's state: scores, running max and sum
+// in fp32, with the JAX kernels' guards for fully masked rows (a row whose
+// max is still the mask value contributes p = 0, and a first real score
+// gets alpha = 0). `q` is the thread's whole query row in registers; Ks/Vs
+// are the tile staged in shared memory with row stride HD + 1 floats (the
+// pad keeps the quad's 4 key rows in 4 banks). `visible(c)` says whether
+// tile key c is visible to this row. All 32 lanes of every warp must call
+// this together (quad shuffles).
+template <int HD, int KT, class Visible>
+__device__ __forceinline__ void attend_tile(RowState<HD>& st, const float* q,
+                                            const float* Ks, const float* Vs,
+                                            float scale, int sub,
+                                            Visible visible) {
+  static_assert(KT % 4 == 0, "key tile must split over a quad");
+  float p[KT / 4];
+  float mloc = kNegInf;
+#pragma unroll
+  for (int i = 0; i < KT / 4; ++i) {
+    const int c = sub + 4 * i;
+    const float* kr = Ks + c * (HD + 1);
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) dot = fmaf(q[d], kr[d], dot);
+    p[i] = visible(c) ? dot * scale : kNegInf;
+    mloc = fmaxf(mloc, p[i]);
+  }
+  mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
+  mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
+  const float m_new = fmaxf(st.m, mloc);
+  float psum = 0.f;
+#pragma unroll
+  for (int i = 0; i < KT / 4; ++i) {
+    p[i] = (m_new <= kNegInf) ? 0.f : expf(p[i] - m_new);
+    psum += p[i];
+  }
+  psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+  psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+  const float alpha = (st.m <= kNegInf) ? 0.f : expf(st.m - m_new);
+  st.l = st.l * alpha + psum;
+#pragma unroll
+  for (int i = 0; i < HD / 4; ++i) st.acc[i] *= alpha;
+  const int quad = (threadIdx.x & 31) & ~3;
+#pragma unroll
+  for (int c = 0; c < KT; ++c) {
+    // key c's probability lives in lane (c % 4) of the quad, slot c / 4
+    const float pc = __shfl_sync(0xffffffffu, p[c / 4], quad | (c & 3));
+    const float* vr = Vs + c * (HD + 1);
+#pragma unroll
+    for (int i = 0; i < HD / 4; ++i)
+      st.acc[i] = fmaf(pc, vr[sub + 4 * i], st.acc[i]);
+  }
+  st.m = m_new;
+}
+
+}  // namespace repro

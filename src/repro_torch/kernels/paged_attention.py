@@ -1,0 +1,134 @@
+"""Fused paged attention over one layer's KV page pool: plain PyTorch
+version + CUDA kernel wrapper.
+
+Counterpart of ``repro/kernels/paged_attention/{kernel,ref,ops}.py``; the
+kernel is ``csrc/paged_attention.cu``. The pool layout is the reference's
+contract:
+
+* pool (one layer): ``(total_pages + 1, page_size, KV, head_dim)``; index
+  ``total_pages`` is the scratch ("null") page that table padding names;
+* ``tables (S, T)`` int32: entry ``p`` of a slot's row is the page holding
+  absolute positions ``[p*page_size, (p+1)*page_size)``;
+* ``positions (S,)`` int32: absolute position of window row 0 per slot;
+* ``n_valid (S,)`` int32: window rows written per slot (0 = idle slot).
+
+Both versions update the pool in place and store only the window rows
+``j < n_valid``: rows past ``n_valid`` are written nowhere, not even on the
+null page (the JAX reference parks them there; compare pools on real pages
+only).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches in this process (the wrapper's CUDA path only)
+LAUNCHES = 0
+HEAD_DIMS = (64,)        # the kernels' instantiations (paper_demo)
+
+
+def paged_attention_plain(q: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, tables: torch.Tensor,
+                          positions: torch.Tensor, n_valid: torch.Tensor, *,
+                          page_size: int, scale: Optional[float] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mirror of the JAX ``ref.paged_attention``: scatter the valid new
+    rows, gather each slot's contiguous view, grouped-einsum attention
+    with the same ``-1e30`` mask, ``qpos`` clamp and ``alive`` zeroing.
+
+    q: (S, W, H, hd); k_new/v_new: (S, W, KV, hd); pools (P+1, ps, KV, hd)
+    updated in place. Returns ``(out (S, W, H, hd), k_pages, v_pages)``.
+    """
+    S, W, H, hd = q.shape
+    P1, ps, KV, _ = k_pages.shape
+    T = tables.shape[1]
+    G = H // KV
+    scale = hd ** -0.5 if scale is None else scale
+    dev = q.device
+    tables = tables.long()
+    positions = positions.long()
+    n_valid = n_valid.long()
+
+    offs = torch.arange(W, device=dev)
+    pos_j = positions[:, None] + offs[None, :]                  # (S, W)
+    entry = (pos_j // ps).clamp(0, T - 1)
+    page = torch.gather(tables, 1, entry)
+    valid = offs[None, :] < n_valid[:, None]
+    rows = (page * ps + pos_j % ps)[valid]
+    k_pages.view(P1 * ps, KV, hd)[rows] = k_new[valid]
+    v_pages.view(P1 * ps, KV, hd)[rows] = v_new[valid]
+
+    gk = k_pages[tables].reshape(S, T * ps, KV, hd)
+    gv = v_pages[tables].reshape(S, T * ps, KV, hd)
+    qg = q.reshape(S, W, KV, G, hd)
+    scores = torch.einsum("swkgd,stkd->skgwt", qg, gk).float() * scale
+    idx = torch.arange(T * ps, device=dev)
+    qpos = torch.where(
+        n_valid[:, None] > 0,
+        positions[:, None] + torch.minimum(offs[None, :], n_valid[:, None] - 1),
+        torch.full_like(pos_j, -1))
+    mask = idx[None, None, :] <= qpos[:, :, None]               # (S, W, T*ps)
+    scores = scores.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    alive = mask.any(dim=-1)                                    # (S, W)
+    probs = probs * alive[:, None, None, :, None].to(probs.dtype)
+    o = torch.einsum("skgwt,stkd->swkgd", probs, gv)
+    return o.reshape(S, W, H, hd), k_pages, v_pages
+
+
+def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, tables: torch.Tensor,
+                    positions: torch.Tensor, n_valid: torch.Tensor, *,
+                    page_size: int, scale: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Returns ``(out, k_pages, v_pages)``, the pools updated in place."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_new, v_new, k_pages, v_pages,
+                                     tables, positions, n_valid,
+                                     page_size=page_size, scale=scale)
+    name = "paged_attention"
+    _build.require_cuda(name, q, k_new, v_new, k_pages, v_pages, tables,
+                        positions, n_valid)
+    code = _build.dtype_code(name, q.dtype)
+    S, W, H, hd = q.shape
+    P1, ps, KV, _ = k_pages.shape
+    T = tables.shape[1]
+    if ps != page_size:
+        raise ValueError(f"{name}: pool page size {ps} != {page_size}")
+    if (k_new.shape != (S, W, KV, hd) or v_new.shape != k_new.shape
+            or k_pages.shape != (P1, ps, KV, hd)
+            or v_pages.shape != k_pages.shape):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k_new "
+                         f"{tuple(k_new.shape)} pages {tuple(k_pages.shape)} "
+                         "do not fit together")
+    if tables.shape != (S, T) or positions.shape != (S,) \
+            or n_valid.shape != (S,):
+        raise ValueError(f"{name}: tables (S, T), positions (S,) and "
+                         f"n_valid (S,) expected for S={S}")
+    for t in (k_new, v_new, k_pages, v_pages):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: all K/V tensors must be {q.dtype}")
+    for t in (tables, positions, n_valid):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: tables/positions/n_valid must be int32")
+    if H % KV or hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: needs H % KV == 0 and hd in {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k_new, v_new, k_pages, v_pages)):
+        raise ValueError(f"{name}: q/K/V must be 16-byte aligned")
+    scale = hd ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    rc = _build.lib().repro_paged_attention(
+        code, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+        positions.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
+        S, W, H, KV, hd, ps, T, float(scale), _build.stream_handle(q))
+    _build.check(rc, name)
+    LAUNCHES += 1
+    return out, k_pages, v_pages

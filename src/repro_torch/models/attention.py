@@ -1,0 +1,166 @@
+"""GQA attention for the dense decoder: prefill, dense decode and fused
+paged decode, with RoPE and head padding.
+
+Counterpart of ``repro/models/attention.py`` (``head_mask``,
+``init_kv_cache``, ``_project_qkv``, ``prefill_attention``,
+``decode_attention``, ``paged_decode_attention``). Weights keep the
+reference's layouts: ``wq`` ``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``,
+``wo`` ``(H, hd, d)``. Prefill attention is the flash kernel; paged decode
+the paged kernel; dense decode is plain PyTorch, since it serves only the
+``greedy_generate`` oracle.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.kernels import paged_attention as paged_kernel
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import apply_rope_tables, rope_tables
+
+Rope = Tuple[torch.Tensor, torch.Tensor]
+
+
+def head_mask(cfg: ModelConfig) -> np.ndarray:
+    """Boolean (padded_heads,) mask of REAL q-head slots (padded slots sit
+    at the tail of each kv group)."""
+    Gp = cfg.padded_kv_groups
+    n = np.arange(cfg.padded_heads)
+    return (n // Gp < cfg.n_kv_heads) & (n % Gp < cfg.kv_groups)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  n_layers: Optional[int] = None,
+                  device: Any = "cpu") -> Dict[str, torch.Tensor]:
+    """Zeroed KV cache ``(n_layers?, batch, max_len, KV, hd)``; SWA
+    configurations bound it at the window size."""
+    if cfg.window:
+        max_len = min(max_len, cfg.window)
+    shape = (batch, max_len, cfg.padded_kv_heads, cfg.resolved_head_dim)
+    if n_layers:
+        shape = (n_layers,) + shape
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor) -> Rope:
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope: Rope
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B, S, H, hd), k/v (B, S, KV, hd); ``rope`` = ``rope_tables`` of
+    the rows' absolute positions."""
+    B, S, d = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"].to(cfg.dtype).reshape(d, -1)).view(B, S, -1, hd)
+    k = (x @ params["wk"].to(cfg.dtype).reshape(d, -1)).view(B, S, -1, hd)
+    v = (x @ params["wv"].to(cfg.dtype).reshape(d, -1)).view(B, S, -1, hd)
+    if cfg.rope_theta > 0:
+        cos, sin = rope
+        q = apply_rope_tables(q, cos, sin, lean=cfg.lean_attention)
+        k = apply_rope_tables(k, cos, sin, lean=cfg.lean_attention)
+    return q, k, v
+
+
+def _out_proj(params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    B, S = o.shape[:2]
+    wo = params["wo"].to(cfg.dtype)
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def attention_block(params, x: torch.Tensor, cfg: ModelConfig, *,
+                    rope: Optional[Rope] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (forward without cache)."""
+    if rope is None:
+        rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
+    q, k, v = _project_qkv(params, x, cfg, rope)
+    o = flash_kernel.attention(q, k, v, causal=causal, window=cfg.window)
+    return _out_proj(params, o, cfg)
+
+
+def prefill_attention(params, x: torch.Tensor, cfg: ModelConfig,
+                      cache: Dict[str, torch.Tensor],
+                      rope: Optional[Rope] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill: causal attention (flash kernel) + fill the cache. ``cache``
+    (B, L, KV, hd) is written in place; a sequence longer than L keeps its
+    last L positions (SWA ring)."""
+    S = x.shape[1]
+    if rope is None:
+        rope = _rope(cfg, torch.arange(S, device=x.device)[None])
+    q, k, v = _project_qkv(params, x, cfg, rope)
+    o = flash_kernel.attention(q, k, v, causal=True, window=cfg.window)
+    out = _out_proj(params, o, cfg)
+    L = cache["k"].shape[1]
+    if S >= L:
+        cache["k"].copy_(k[:, S - L:])
+        cache["v"].copy_(v[:, S - L:])
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    return out, cache
+
+
+def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
+                     cache: Dict[str, torch.Tensor], pos: int,
+                     rope: Optional[Rope] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode ``S1`` new tokens at absolute positions ``pos .. pos+S1-1``
+    against a dense cache (B, L, KV, hd), written in place. Grouped-einsum
+    GQA (the cache is never repeated to the q-head count), fp32 softmax
+    with the ``-1e30`` mask. Plain PyTorch: it serves the
+    ``greedy_generate`` oracle only."""
+    B, S1, _ = x.shape
+    if cfg.window:
+        raise NotImplementedError("sliding-window decode is not ported yet")
+    pos = int(pos)
+    offs = torch.arange(S1, device=x.device)
+    if rope is None:
+        rope = _rope(cfg, (pos + offs)[None])
+    q, k, v = _project_qkv(params, x, cfg, rope)
+    L = cache["k"].shape[1]
+    cache["k"][:, pos:pos + S1] = k
+    cache["v"][:, pos:pos + S1] = v
+    ck, cv = cache["k"], cache["v"]
+    KVp = cfg.padded_kv_heads
+    G = cfg.padded_heads // KVp
+    qg = q.reshape(B, S1, KVp, G, -1)
+    idx = torch.arange(L, device=x.device)
+    valid = idx[None, :] <= (pos + offs)[:, None]              # (S1, L)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float() \
+        * cfg.resolved_head_dim ** -0.5
+    scores = scores.masked_fill(~valid, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", probs, cv)
+    o = o.reshape(B, S1, cfg.padded_heads, -1)
+    return _out_proj(params, o, cfg), cache
+
+
+def paged_decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
+                           k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           positions: torch.Tensor, tables: torch.Tensor,
+                           n_valid: torch.Tensor, *, page_size: int,
+                           rope: Optional[Rope] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Fused paged attention over one layer's page pool.
+
+    ``x`` (S, W, d_model): S serve slots, each a W-row query window at
+    absolute positions ``positions[s] + j``. ``tables (S, T)``, ``n_valid
+    (S,)`` as in ``kernels.paged_attention``. Returns ``(out (S, W, d),
+    k_pages, v_pages)``; the pools are updated in place.
+    """
+    S, W, _ = x.shape
+    if rope is None:
+        offs = torch.arange(W, device=x.device, dtype=positions.dtype)
+        rope = _rope(cfg, positions[:, None] + offs[None, :])
+    q, k, v = _project_qkv(params, x, cfg, rope)
+    o, k_pages, v_pages = paged_kernel.paged_attention(
+        q, k, v, k_pages, v_pages, tables, positions, n_valid,
+        page_size=page_size, scale=cfg.resolved_head_dim ** -0.5)
+    return _out_proj(params, o.to(cfg.dtype), cfg), k_pages, v_pages

@@ -1,0 +1,229 @@
+"""Dense decoder-only language model: init, forward, prefill, decode and
+fused paged decode.
+
+Counterpart of ``repro/models/lm.py`` for the dense family. Parameters are
+a plain dict with the reference's layout: per-layer leaves stacked on a
+leading L axis (``params["layers"]["attn"]["wq"]`` is ``(L, d, H, hd)``),
+so ``models.convert.params_from_numpy`` carries the reference's weights
+over unchanged. The reference's ``lax.scan`` over layers is a Python loop
+over per-layer views here. KV caches and the page pool are updated in
+place. MoE, SSM, hybrid and VLM raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import DENSE, ModelConfig
+from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
+                                       rmsnorm, rope_tables)
+from repro_torch.util import resolve_device
+
+Params = Dict[str, Any]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != DENSE or cfg.moe is not None or cfg.frontend_dim:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; see ROADMAP")
+    if cfg.parallel_block:
+        raise NotImplementedError("parallel attn+MLP blocks are not ported "
+                                  "yet; see ROADMAP")
+
+
+# ============================================================ initialization
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype,
+            device) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=device) * scale
+            ).to(dtype)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Any = "cuda") -> Params:
+    """Random weights from ``seed`` with the reference's shapes and scales
+    (normal * fan_in^-1/2, ``wo`` of attention at (H*hd)^-1/2, embedding
+    at 0.02, norm scales 1 in fp32). Draws come from a ``torch.Generator``
+    on ``device``, so they are not the reference's numbers; tests carry
+    the reference's weights over with ``convert.params_from_numpy``."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    Hp, KVp, hd = cfg.padded_heads, cfg.padded_kv_heads, \
+        cfg.resolved_head_dim
+    pd = cfg.param_dtype
+    wq = _normal(gen, (L, d, Hp, hd), d ** -0.5, pd, dev)
+    wk = _normal(gen, (L, d, KVp, hd), d ** -0.5, pd, dev)
+    wv = _normal(gen, (L, d, KVp, hd), d ** -0.5, pd, dev)
+    wo = _normal(gen, (L, Hp, hd, d), (Hp * hd) ** -0.5, pd, dev)
+    if Hp != cfg.n_heads or KVp != cfg.n_kv_heads:
+        # zero q/o weights of padded head slots: the function is exactly
+        # the unpadded architecture
+        mask = torch.as_tensor(attn_mod.head_mask(cfg), device=dev)
+        wq = wq * mask[None, None, :, None].to(pd)
+        wo = wo * mask[None, :, None, None].to(pd)
+    if KVp != cfg.n_kv_heads:
+        wk[:, :, cfg.n_kv_heads:] = 0
+        wv[:, :, cfg.n_kv_heads:] = 0
+    ones = torch.ones((L, d), dtype=torch.float32, device=dev)
+    embed = {"tokens": _normal(gen, (cfg.padded_vocab, d), 0.02, pd, dev)}
+    if not cfg.tied_embeddings:
+        embed["head"] = _normal(gen, (d, cfg.padded_vocab), d ** -0.5, pd,
+                                dev)
+    return {
+        "embed": embed,
+        "layers": {
+            "norm1": {"scale": ones},
+            "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": wo},
+            "norm2": {"scale": ones.clone()},
+            "mlp": {"wi": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
+                    "wg": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
+                    "wo": _normal(gen, (L, ff, d), ff ** -0.5, pd, dev)},
+        },
+        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
+                                           device=dev)},
+    }
+
+
+def layer_views(params: Params) -> List[Dict[str, Any]]:
+    """Per-layer parameter dicts, views into the stacked leaves."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            parts = {k: unbind(v) for k, v in tree.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return tree.unbind(0)
+    return unbind(params["layers"])
+
+
+# ================================================================== blocks
+
+def _block_train(lp, x, cfg: ModelConfig, rope):
+    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    x = x + attn_mod.attention_block(lp["attn"], h, cfg, rope=rope)
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], h2)
+
+
+def _block_prefill(lp, x, cache, cfg: ModelConfig, rope):
+    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    a, cache = attn_mod.prefill_attention(lp["attn"], h, cfg, cache, rope)
+    x = x + a
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], h2), cache
+
+
+def _block_decode(lp, x, cache, pos, cfg: ModelConfig, rope):
+    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    a, cache = attn_mod.decode_attention(lp["attn"], h, cfg, cache, pos,
+                                         rope)
+    x = x + a
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], h2), cache
+
+
+def _block_paged_decode(lp, x, k_pages, v_pages, cfg: ModelConfig,
+                        positions, tables, n_valid, page_size: int, rope):
+    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    a, _, _ = attn_mod.paged_decode_attention(
+        lp["attn"], h, cfg, k_pages, v_pages, positions, tables, n_valid,
+        page_size=page_size, rope=rope)
+    x = x + a
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], h2)
+
+
+def _layer_cache(cache: Dict[str, torch.Tensor], i: int
+                 ) -> Dict[str, torch.Tensor]:
+    return {"k": cache["k"][i], "v": cache["v"][i]}
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+# ============================================================ public forward
+
+def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> torch.Tensor:
+    """Logits for the whole sequence (tests / generation without cache)."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(params["embed"], tokens, cfg)
+    rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
+    for lp in layer_views(params):
+        x = _block_train(lp, x, cfg, rope)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params["embed"], x, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Any = "cpu") -> Dict[str, torch.Tensor]:
+    """Layer-stacked dense KV cache ``(L, batch, max_len, KV, hd)``."""
+    _require_dense(cfg)
+    return attn_mod.init_kv_cache(cfg, batch, max_len,
+                                  n_layers=cfg.n_layers, device=device)
+
+
+def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig, cache: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Process the prompt; returns (last-position logits (B, 1, V), the
+    cache primed in place)."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(params["embed"], tokens, cfg)
+    rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
+    for i, lp in enumerate(layer_views(params)):
+        x, _ = _block_prefill(lp, x, _layer_cache(cache, i), cfg, rope)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :].contiguous(),
+                cfg.norm_eps)
+    return lm_logits(params["embed"], x, cfg), cache
+
+
+def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
+                   cache: Dict[str, torch.Tensor], pos: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode ``token`` (B, S1) at absolute positions ``pos ..`` against a
+    dense cache, written in place."""
+    _require_dense(cfg)
+    x = embed_tokens(params["embed"], token, cfg)
+    pos = int(pos)
+    rope = _rope(cfg, torch.arange(pos, pos + token.shape[1],
+                                   device=x.device)[None])
+    for i, lp in enumerate(layer_views(params)):
+        x, _ = _block_decode(lp, x, _layer_cache(cache, i), pos, cfg, rope)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params["embed"], x, cfg), cache
+
+
+def lm_paged_decode(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                    pool: Dict[str, torch.Tensor], positions: torch.Tensor,
+                    tables: torch.Tensor, n_valid: torch.Tensor, *,
+                    page_size: int,
+                    layers: Optional[List[Dict[str, Any]]] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Fused paged decode over ALL serve slots in one call.
+
+    ``tokens (S, W)`` int — each slot's query window (W=1 decode, W=padded
+    tail for suffix prefill); ``pool`` the layer-stacked page pool
+    ``{"k","v": (L, P+1, ps, KVp, hd)}``, updated in place layer by layer;
+    ``positions``/``n_valid`` (S,) int32; ``tables`` (S, T) int32.
+    ``layers`` may pass ``layer_views(params)`` computed once by a caller
+    that steps many times. Returns ``(logits (S, W, vocab), pool)``.
+    """
+    _require_dense(cfg)
+    x = embed_tokens(params["embed"], tokens, cfg)
+    W = tokens.shape[1]
+    offs = torch.arange(W, device=x.device, dtype=positions.dtype)
+    rope = _rope(cfg, positions[:, None] + offs[None, :])
+    for i, lp in enumerate(layers if layers is not None
+                           else layer_views(params)):
+        x = _block_paged_decode(lp, x, pool["k"][i], pool["v"][i], cfg,
+                                positions, tables, n_valid, page_size, rope)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params["embed"], x, cfg), pool

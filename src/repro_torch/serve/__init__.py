@@ -1,0 +1,40 @@
+"""Serving subsystem of the port: continuation-driven continuous batching.
+
+Layers (counterparts of ``repro.serve``):
+
+* ``serve.steps``    — prefill / dense decode / fused paged decode and
+  suffix steps, the prefill scatter, and the ``greedy_generate`` oracle.
+* ``serve.config``   — ``GenerationConfig``: per-request knobs validated
+  once at admission.
+* ``serve.request``  — request lifecycle; each ``Request`` is a
+  ``Completable``, and per-token delivery runs in the engine's
+  step-completion continuations.
+* ``serve.batcher``  — thread-safe admission on a ``poll_only +
+  enqueue_complete`` CR.
+* ``serve.kv_cache`` — paged KV block pool with content-hashed prefix
+  reuse.
+* ``serve.engine``   — the decode loop: each step's output is a
+  ``TensorOp`` (a CUDA event) whose continuation delivers tokens and
+  retires slots.
+* ``serve.metrics``  — ``ServeMetrics``, the typed metrics mapping.
+"""
+from repro_torch.serve.batcher import Batcher
+from repro_torch.serve.config import DeadlineExceeded, GenerationConfig
+from repro_torch.serve.engine import ServeEngine, serve_requests
+from repro_torch.serve.kv_cache import (PagePool, pages_for,
+                                        paged_supported, prefix_keys)
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.request import Request, RequestState, summarize
+from repro_torch.serve.steps import (greedy_generate, make_decode_step,
+                                     make_fused_paged_decode_step,
+                                     make_fused_paged_suffix_step,
+                                     make_prefill_scatter, make_prefill_step)
+
+__all__ = [
+    "Batcher", "DeadlineExceeded", "GenerationConfig", "ServeEngine",
+    "serve_requests", "PagePool", "pages_for", "paged_supported",
+    "prefix_keys", "ServeMetrics", "Request", "RequestState", "summarize",
+    "greedy_generate", "make_decode_step", "make_fused_paged_decode_step",
+    "make_fused_paged_suffix_step", "make_prefill_scatter",
+    "make_prefill_step",
+]

@@ -1,0 +1,619 @@
+"""Continuation-driven continuous-batching decode engine (paged, fused).
+
+Counterpart of ``repro/serve/engine.py`` in its paged + fused mode. The
+decode loop keeps a fixed set of *slots*, each holding one in-flight
+sequence whose KV lives in a shared ``PagePool`` behind a per-slot page
+table:
+
+* **admission** — requests queue on the ``Batcher``'s ``poll_only +
+  enqueue_complete`` CR (paper §3.5) and are admitted into free slots at
+  step boundaries; a cold prompt is prefilled (flash kernel) and its
+  pages copied into the pool, a prompt that starts with resident pages
+  runs only its tail through the fused paged kernel (suffix prefill).
+* **decode** — one fused paged step advances every occupied slot by one
+  token. The step's next-token tensor is wrapped in a ``TensorOp`` whose
+  continuation delivers the tokens and retires finished slots (releasing
+  their pages) when the device work has *actually* finished. The host
+  loop never blocks on device work.
+
+What keeps the loop from blocking, in PyTorch terms:
+
+* every device op goes on one stream, so the in-place pool updates, the
+  prefill scatter and every later read are ordered by the stream itself
+  (this replaces JAX's data dependencies and donation);
+* host data goes up with ``pin_memory()`` + ``non_blocking=True`` (a
+  blocking upload would wait for every step in flight);
+* a step's tokens come down the same way, started right after the step
+  and before the op's event is recorded; continuations read only that
+  host copy, never a CUDA tensor (``int()``/``.item()``/``.cpu()`` there
+  would sync the stream behind the next step already queued).
+
+``paged=False``, ``fused=False`` and ``speculate > 0`` are not ported yet.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, List, Optional, Sequence, Set, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import (ContinueFlags, Engine, Promise, Scheduler,
+                              TensorOp)
+from repro_torch.models import lm
+from repro_torch.models.common import ModelConfig
+from repro_torch.obs import events as _obs_events
+from repro_torch.obs import tracer as _obs
+from repro_torch.serve.batcher import Batcher
+from repro_torch.serve.kv_cache import PagePool, paged_supported, pages_for
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.request import Request, RequestState, summarize
+from repro_torch.serve.steps import (make_fused_paged_decode_step,
+                                     make_fused_paged_suffix_step,
+                                     make_prefill_scatter, make_prefill_step)
+from repro_torch.util import resolve_device
+
+_NOT_PORTED = "not yet ported; see ROADMAP"
+
+# every step/prefill registration: never take the immediate-completion
+# fast path, so bookkeeping always runs through the continuation machinery
+# even when the device raced ahead
+_STEP_FLAGS = ContinueFlags(enqueue_complete=True)
+# steps carrying priority>0 requests additionally jump the scheduler's
+# ready queue; cached per level, bounded (priorities are caller ints)
+_PRIO_FLAGS: dict = {}
+_PRIO_FLAGS_MAX = 64
+
+
+def _step_flags(priority: int) -> ContinueFlags:
+    if priority <= 0:
+        return _STEP_FLAGS
+    flags = _PRIO_FLAGS.get(priority)
+    if flags is None:
+        flags = ContinueFlags(enqueue_complete=True, priority=priority)
+        if len(_PRIO_FLAGS) < _PRIO_FLAGS_MAX:
+            _PRIO_FLAGS[priority] = flags
+    return flags
+
+
+class ServeEngine:
+    """Continuous-batching engine over ``max_batch`` decode slots.
+
+    Single-consumer: exactly one thread drives ``step()``/``run()``; any
+    thread may ``submit()``. ``params`` must live on ``device`` (default
+    ``"cuda"``; ``"cpu"`` runs the kernels' plain versions).
+
+    Paged knobs: ``page_size`` tokens per KV page, ``max_seq_len`` (prompt
+    + generation bound per request, default ``max_cache_len``),
+    ``total_pages`` in the pool (default ``max_batch * ceil(max_seq_len /
+    page_size)``).
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any, *,
+                 device: Any = "cuda",
+                 max_batch: int = 4,
+                 max_cache_len: int = 256,
+                 max_inflight: int = 2,
+                 engine: Optional[Engine] = None,
+                 scheduler: Union[str, Scheduler] = "fifo",
+                 paged: Optional[bool] = None,
+                 page_size: int = 16,
+                 total_pages: Optional[int] = None,
+                 max_seq_len: Optional[int] = None,
+                 speculate: int = 0,
+                 fused: Optional[bool] = None) -> None:
+        if paged is False or fused is False or speculate:
+            raise NotImplementedError(
+                f"paged=False, fused=False and speculate>0 are {_NOT_PORTED}")
+        if not paged_supported(cfg):
+            raise NotImplementedError(
+                f"serving {cfg.name!r} (family {cfg.family!r}) is "
+                f"{_NOT_PORTED}")
+        self.device = resolve_device(device)
+        emb = params["embed"]["tokens"]
+        if emb.device.type != self.device.type:
+            raise ValueError(f"params live on {emb.device}, the engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self._layers = lm.layer_views(params)
+        self.max_batch = int(max_batch)
+        self.max_cache_len = int(max_cache_len)
+        self.max_inflight = max(1, int(max_inflight))
+        self.paged = True
+        self.fused = True
+        self.speculate = 0
+        self._own_engine = engine is None
+        self.engine = engine if engine is not None else \
+            Engine(scheduler=scheduler)
+        self.batcher = Batcher(self.engine)
+        self.cr_steps = self.engine.continue_init()
+
+        S = self.max_batch
+        self.page_size = int(page_size)
+        self.max_seq_len = int(max_seq_len or max_cache_len)
+        self.max_pages = pages_for(self.max_seq_len, self.page_size)
+        self._table_pages = self.max_pages
+        n_pool = int(total_pages) if total_pages is not None \
+            else S * self.max_pages
+        self.pool = PagePool(cfg, n_pool, self.page_size, device=self.device)
+        self._tables = np.full((S, self._table_pages), self.pool.null_page,
+                               np.int32)
+        # device copy of _tables, re-uploaded (non-blocking) only when a
+        # placement or eviction changed a row since the last dispatch
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._tables_dirty = True
+        self._decode_fn = make_fused_paged_decode_step(
+            cfg, self.page_size, self._layers)
+        self._suffix_fn = make_fused_paged_suffix_step(
+            cfg, self.page_size, self._layers)
+        self._scatter_fn = make_prefill_scatter(cfg, self.page_size)
+
+        # -- slot state (loop thread only) --
+        self._slots: List[Optional[Request]] = [None] * S
+        self._draining: Set[int] = set()      # token budget met, step in flight
+        self._pos = np.zeros(S, np.int32)     # next write position per slot
+        self._tokens: Optional[torch.Tensor] = None  # next inputs (S, 1, 1)
+        self._inflight = 0                    # dispatched, not-yet-complete steps
+        self._stalled_at: Optional[int] = None  # pages_in_use at last deferral
+        self._retired: List[Request] = []
+        self._lock = threading.Lock()         # guards _retired for readers
+        self.stats = {"steps": 0, "prefills": 0, "retired": 0,
+                      "slot_steps": 0, "padded_steps": 0, "cancelled": 0,
+                      "suffix_steps": 0, "suffix_tokens": 0, "deferred": 0,
+                      "max_active": 0, "stopped": 0, "expired": 0,
+                      # host seconds spent enqueueing decode steps
+                      "dispatch_s": 0.0}
+
+    # ------------------------------------------------------------- clients
+    def submit(self, request: Request) -> Request:
+        """Thread-safe request intake (delegates to the Batcher CR)."""
+        plen = int(np.asarray(request.prompt).reshape(-1).shape[0])
+        total = plen + request.max_new_tokens
+        if total > self.max_seq_len:
+            raise ValueError(f"request needs {total} tokens > max_seq_len="
+                             f"{self.max_seq_len}")
+        if pages_for(total, self.page_size) > self.pool.total_pages:
+            raise ValueError(f"request needs more pages than the pool holds "
+                             f"({self.pool.total_pages})")
+        if request.speculate:
+            raise NotImplementedError(f"speculate>0 is {_NOT_PORTED}")
+        tr = _obs.TRACE
+        if tr is not None and tr.want(request.req_id):
+            tr.evt(_obs_events.REQ_SUBMIT, request.req_id, "engine")
+        return self.batcher.submit(request)
+
+    def submit_async(self, request: Request) -> Promise:
+        """Submit and get an awaitable ``Promise`` resolving with the
+        generated tokens at retirement."""
+        self.submit(request)
+        return self.engine.wrap(request)
+
+    def close_intake(self) -> None:
+        self.batcher.close()
+
+    @property
+    def retired(self) -> List[Request]:
+        with self._lock:
+            return list(self._retired)
+
+    # ------------------------------------------------------- host <-> device
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Host ints to the device without waiting for the stream: copied
+        into pinned memory, then a non-blocking copy. The caching host
+        allocator keeps that pinned block until the copy has run."""
+        t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _download(self, t: torch.Tensor) -> torch.Tensor:
+        """Start a device→host copy of a step's tokens; valid once the
+        TensorOp created after this call completes."""
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.to("cpu", non_blocking=True)
+
+    # ---------------------------------------------------------- slot state
+    def _ensure_state(self) -> None:
+        if self._tokens is None:
+            self._tokens = torch.zeros((self.max_batch, 1, 1),
+                                       dtype=torch.int32, device=self.device)
+        self.pool.ensure_arrays()
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self._slots) if r is None]
+
+    @property
+    def active(self) -> int:
+        return sum(1 for r in self._slots if r is not None)
+
+    # ------------------------------------------------------------ admission
+    def _admit(self) -> int:
+        # after a capacity deferral, admission can only succeed once a
+        # retirement or cancellation has returned pages to the pool
+        if self._stalled_at is not None:
+            if self.pool.pages_in_use >= self._stalled_at:
+                return 0
+            self._stalled_at = None
+        free = self._free_slots()
+        reqs = self.batcher.admit(len(free))
+        admitted = 0
+        for i, req in enumerate(reqs):
+            if not self._place(req, free):
+                # the pool can't cover the request's worst case yet: return
+                # it (and everything behind it, in order) to the queue head
+                self.stats["deferred"] += 1
+                self._stalled_at = self.pool.pages_in_use
+                for r in reversed(reqs[i:]):
+                    self.batcher.requeue(r)
+                break
+            admitted += 1
+        return admitted
+
+    def _place(self, req: Request, free: List[int]) -> bool:
+        """Prefill ``req`` and seat it in a slot. False = defer (paged
+        capacity); True = placed (or answered outright by prefill)."""
+        prompt_np = np.asarray(req.prompt, np.int32).reshape(1, -1)
+        plen = prompt_np.shape[1]
+        tr = _obs.TRACE
+        t0 = None
+        if tr is not None and tr.want(req.req_id):
+            t0 = tr.now()
+            tr.evt(_obs_events.REQ_ADMIT, req.req_id, "engine",
+                   ts=req.arrival_time, dur=t0 - req.arrival_time)
+        self._ensure_state()
+        if req.max_new_tokens == 1:
+            # single-token request: prefill answers it outright; it never
+            # occupies a decode slot nor any pages
+            logits, _ = make_prefill_step(self.cfg, plen)(
+                self.params, {"tokens": self._upload(prompt_np)})
+            first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            first_host = self._download(first)
+            req.push_device_token(first_host[0])
+            self.stats["prefills"] += 1
+            self.engine.continue_when(
+                TensorOp(first, payload=first_host), self._on_prefill_done,
+                (req, True, None, first_host, t0), cr=self.cr_steps,
+                flags=_step_flags(req.priority))
+            return True
+
+        first = self._prefill_paged(req, prompt_np)
+        if first is None:
+            return False
+        first_host = self._download(first)
+        slot = free.pop(0)
+        req.push_device_token(first_host[0])
+        self.stats["prefills"] += 1
+        self._seat_slot(slot, req, first, plen)
+        self.engine.continue_when(
+            TensorOp(first, payload=first_host), self._on_prefill_done,
+            (req, False, slot, first_host, t0), cr=self.cr_steps,
+            flags=_step_flags(req.priority))
+        return True
+
+    def _seat_slot(self, slot: int, req: Request, token0: torch.Tensor,
+                   plen: int) -> None:
+        """Seat a prefilled request into decode slot ``slot``: its page
+        table row, next input token (device (1,) tensor, written in place
+        behind the prefill on the stream) and position."""
+        tr = _obs.TRACE
+        if tr is not None and tr.want(req.req_id):
+            tr.evt(_obs_events.REQ_SEAT, req.req_id, "engine", meta=slot)
+        self._tables[slot, :] = self.pool.null_page
+        self._tables[slot, :len(req.page_ids)] = req.page_ids
+        self._tables_dirty = True
+        self._tokens[slot, 0, 0] = token0[0]
+        self._pos[slot] = plen
+        self._slots[slot] = req
+
+    def _prefill_paged(self, req: Request,
+                       prompt_np: np.ndarray) -> Optional[torch.Tensor]:
+        """Allocate pages, reuse any cached prefix, fill the prompt KV.
+
+        Returns the first-token tensor (1,) int32 on the device, or None
+        when the pool can't cover the worst-case footprint (defer —
+        nothing was allocated)."""
+        pool, ps = self.pool, self.page_size
+        plen = prompt_np.shape[1]
+        n_pages = pages_for(plen + req.max_new_tokens, ps)
+        shared = pool.match_prefix(req.prompt)
+        owned = pool.alloc(n_pages - len(shared))
+        if owned is None:
+            return None
+        for p in shared:
+            pool.retain(p)
+        table = shared + owned
+        req.page_ids = table
+        req.shared_prefix_tokens = len(shared) * ps
+        tr = _obs.TRACE
+        if tr is not None and tr.want(req.req_id):
+            tr.evt(_obs_events.REQ_PAGES_ALLOC, req.req_id, "engine",
+                   meta=len(table))
+
+        if shared:
+            # prefix hit: shared pages already hold positions [0, m*ps);
+            # one suffix-prefill call runs the remaining prompt tokens
+            # against them. The tail is padded to a page multiple; the
+            # kernel writes rows [0, tail) only, all into owned pages.
+            pool.stats["prefix_hits"] += 1
+            pool.stats["prefix_tokens_reused"] += len(shared) * ps
+            start = len(shared) * ps
+            tail = plen - start
+            padded = pages_for(tail, ps) * ps
+            # one upload for all operands: tokens | position | table | n
+            ops = np.zeros(padded + 2 + self._table_pages, np.int32)
+            ops[:tail] = prompt_np[0, start:]
+            ops[padded] = start
+            ops[padded + 1] = tail
+            ops[padded + 2:] = self.pool.null_page
+            ops[padded + 2:padded + 2 + len(table)] = table
+            dev = self._upload(ops)
+            logits, _ = self._suffix_fn(
+                self.params, pool.arrays, dev[:padded].view(1, padded),
+                dev[padded:padded + 1], dev[padded + 2:].view(1, -1),
+                dev[padded + 1:padded + 2])
+            self.stats["suffix_steps"] += 1
+            self.stats["suffix_tokens"] += tail
+            first = torch.argmax(logits[:, tail - 1], dim=-1)
+        else:
+            # cold: dense prefill over the prompt's pages, then one copy of
+            # those pages into the pool
+            n_prompt = pages_for(plen, ps)
+            ops = np.concatenate([prompt_np[0],
+                                  np.asarray(table[:n_prompt], np.int32)])
+            dev = self._upload(ops)
+            logits, cache = make_prefill_step(self.cfg, n_prompt * ps)(
+                self.params, {"tokens": dev[:plen].view(1, plen)})
+            first = torch.argmax(logits[:, -1], dim=-1)
+            self._scatter_fn(pool.arrays, cache, dev[plen:].long())
+        pool.register_prefix(req.prompt, table)
+        return first.to(torch.int32)
+
+    def _device_tables(self) -> torch.Tensor:
+        """Device copy of the page tables; re-uploaded without blocking
+        only after a placement or eviction changed a row."""
+        if self._tables_dirty or self._tables_dev is None:
+            self._tables_dev = self._upload(self._tables)
+            self._tables_dirty = False
+        return self._tables_dev
+
+    def _on_prefill_done(self, statuses, meta) -> None:
+        req, retire_now, slot, first_host, t0 = meta
+        if t0 is not None:
+            tr = _obs.TRACE
+            if tr is not None:
+                tr.evt(_obs_events.REQ_PREFILL, req.req_id, "engine",
+                       ts=t0, dur=tr.now() - t0)
+        req.on_first_token()
+        # the host copy is complete by continuation time: reading it never
+        # touches the device
+        finished = req.deliver([int(first_host[0])])
+        if retire_now:
+            self._retire(req, stopped=finished == "stop")
+            return
+        if req.req_state in (RequestState.PREFILLING, RequestState.DECODING):
+            if finished == "stop":
+                self._finish_slot(slot, req, "stop")
+            elif req.past_deadline():
+                self._finish_slot(slot, req, "expired")
+
+    # --------------------------------------------------------------- decode
+    def _sweep_dead(self, live: List[Tuple[int, Request]]) -> None:
+        """Drop cancellations and already-missed deadlines before paying
+        for a step."""
+        now = time.monotonic()
+        for i, r in list(live):
+            if r.req_state is RequestState.CANCELLED:
+                self._evict_slot(i, r)
+                self.stats["cancelled"] += 1
+                live.remove((i, r))
+            elif r.past_deadline(now):
+                self._evict_slot(i, r)
+                self._expire(r)
+                live.remove((i, r))
+
+    def _dispatch_step(self) -> bool:
+        t_host = time.perf_counter()
+        live = [(i, r) for i, r in enumerate(self._slots)
+                if r is not None and i not in self._draining]
+        self._sweep_dead(live)
+        if not live:
+            return False
+        S = self.max_batch
+        # n_valid: 1 = write this slot's token, 0 = idle/draining slot (the
+        # kernel writes nothing for it and outputs zeros); one upload
+        meta = np.zeros(2 * S, np.int32)
+        meta[:S] = self._pos
+        meta[[S + i for i, _ in live]] = 1
+        dev = self._upload(meta)
+        nxt, _ = self._decode_fn(self.params, self.pool.arrays,
+                                 self._tokens, dev[:S],
+                                 self._device_tables(), dev[S:])
+        host = self._download(nxt)
+        self._tokens = nxt[..., None]                       # (S, 1, 1)
+        stepped: List[Tuple[int, Request, bool]] = []
+        prio = 0
+        for i, r in live:
+            r.push_device_token(host[i, 0])
+            self._pos[i] += 1
+            done = r.remaining == 0
+            if done:
+                self._draining.add(i)
+            stepped.append((i, r, done))
+            prio = max(prio, r.priority)
+        self._inflight += 1
+        self.stats["steps"] += 1
+        self.stats["slot_steps"] += len(live)
+        self.stats["padded_steps"] += S - len(live)
+        self.stats["max_active"] = max(self.stats["max_active"], len(live))
+        tr = _obs.TRACE
+        t0 = tr.now() if tr is not None else None
+        self.engine.continue_when(TensorOp(nxt, payload=host),
+                                  self._on_step_done, (stepped, host, t0),
+                                  cr=self.cr_steps, flags=_step_flags(prio))
+        self.stats["dispatch_s"] += time.perf_counter() - t_host
+        return True
+
+    def _on_step_done(self, statuses, meta) -> None:
+        """Per-token bookkeeping once the step (and its token copy) has
+        finished on the device: deliver each slot's token, then retire
+        slots that finished — by budget, stop sequence or deadline —
+        releasing their pages in this same continuation."""
+        stepped, host, t0 = meta
+        self._inflight -= 1
+        arr = host.numpy()
+        now = time.monotonic()
+        tr = _obs.TRACE
+        if tr is not None and t0 is not None:
+            for slot, req, _ in stepped:
+                if tr.want(req.req_id):
+                    tr.evt(_obs_events.REQ_STEP, req.req_id, "engine",
+                           ts=t0, dur=now - t0, meta=slot)
+        for slot, req, done in stepped:
+            if done:
+                self._draining.discard(slot)
+            finished = req.deliver([int(arr[slot, 0])])
+            state = req.req_state
+            if state is RequestState.FINISHED or \
+                    state is RequestState.EXPIRED:
+                continue
+            if state is RequestState.CANCELLED:
+                # a draining slot sees no further dispatch: free it here
+                if done and self._slots[slot] is req:
+                    self._evict_slot(slot, req)
+                    self.stats["cancelled"] += 1
+                continue
+            if finished == "stop":
+                self._finish_slot(slot, req, "stop")
+            elif done:
+                self._finish_slot(slot, req, "retire")
+            elif req.past_deadline(now):
+                self._finish_slot(slot, req, "expired")
+
+    def _finish_slot(self, slot: Optional[int], req: Request,
+                     kind: str) -> None:
+        """Terminal transition from a step-completion continuation: free
+        the slot, releasing the request's pages, and finish the request.
+        A step already queued for this slot may still write the released
+        pages; the stream runs it before any later prefill into them."""
+        if slot is not None and self._slots[slot] is req:
+            self._draining.discard(slot)
+            self._evict_slot(slot, req)
+        else:
+            self._release_pages(req)
+        if kind == "expired":
+            self._expire(req)
+        else:
+            self._retire(req, stopped=kind == "stop")
+
+    def _evict_slot(self, slot: int, req: Request) -> None:
+        """Free a slot and return the request's pages to the pool (every
+        exit path funnels through here, so pages can never leak)."""
+        self._slots[slot] = None
+        self._pos[slot] = 0
+        self._tables[slot, :] = self.pool.null_page
+        self._tables_dirty = True
+        self._release_pages(req)
+
+    def _release_pages(self, req: Request) -> None:
+        if req.page_ids:
+            tr = _obs.TRACE
+            if tr is not None and tr.want(req.req_id):
+                tr.evt(_obs_events.REQ_PAGES_RELEASE, req.req_id, "engine",
+                       meta=len(req.page_ids))
+            self.pool.release(req.page_ids)
+            req.page_ids = []
+
+    def _retire(self, req: Request, stopped: bool = False) -> None:
+        if not req.retire():
+            if req.req_state is RequestState.CANCELLED:
+                self.stats["cancelled"] += 1
+            return
+        if stopped:
+            self.stats["stopped"] += 1
+        with self._lock:
+            self._retired.append(req)
+        self.stats["retired"] += 1
+
+    def _expire(self, req: Request) -> None:
+        """Deadline-expired: fail the request (partial tokens kept)."""
+        if req.expire():
+            self.stats["expired"] += 1
+        elif req.req_state is RequestState.CANCELLED:
+            self.stats["cancelled"] += 1
+
+    # ----------------------------------------------------------------- loop
+    def step(self) -> bool:
+        """One loop iteration: admit, dispatch (windowed), progress.
+        Returns True if any work was started or completed."""
+        admitted = self._admit()
+        dispatched = False
+        if self._inflight < self.max_inflight:
+            dispatched = self._dispatch_step()
+        before = self.stats["retired"]
+        self.engine.tick()   # discover step completions, run continuations
+        return bool(admitted) or dispatched or \
+            self.stats["retired"] != before
+
+    @property
+    def idle(self) -> bool:
+        """Nothing queued, occupied, or in flight — including prefill/step
+        continuations still registered on the step CR."""
+        return (not self._pending_intake() and self.active == 0
+                and self._inflight == 0
+                and self.cr_steps.active_count == 0)
+
+    def _pending_intake(self) -> bool:
+        return bool(self.batcher.queued or self.batcher.cr.active_count)
+
+    def run(self, timeout: Optional[float] = None,
+            idle_sleep: float = 5e-5, until=None) -> List[Request]:
+        """Drive the loop until intake is closed and everything retired
+        (or until ``until()`` is true, when given)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        done = until if until is not None else \
+            (lambda: self.batcher.closed and self.idle)
+        while not done():
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"serve loop timed out: active={self.active} "
+                    f"inflight={self._inflight} queued={self.batcher.queued}")
+            if not self.step():
+                time.sleep(idle_sleep)
+        return self.retired
+
+    def _metrics_flat(self) -> dict:
+        out = summarize(self.retired)
+        out.update(self.stats)
+        out["paged"] = self.paged
+        out["fused"] = self.fused
+        out["speculate"] = self.speculate
+        out.update(self.pool.metrics())
+        return out
+
+    def metrics(self) -> ServeMetrics:
+        return ServeMetrics.from_flat(self._metrics_flat())
+
+    def shutdown(self) -> None:
+        self.batcher.close()
+        if self._own_engine:
+            self.engine.shutdown()
+
+
+def serve_requests(cfg: ModelConfig, params: Any,
+                   requests: Sequence[Request], *,
+                   max_batch: int = 4, max_cache_len: int = 256,
+                   timeout: float = 300.0, **kwargs: Any) -> List[Request]:
+    """Convenience: serve a fixed request list to completion, in order."""
+    eng = ServeEngine(cfg, params, max_batch=max_batch,
+                      max_cache_len=max_cache_len, **kwargs)
+    try:
+        for r in requests:
+            eng.submit(r)
+        eng.close_intake()
+        eng.run(timeout=timeout)
+    finally:
+        eng.shutdown()
+    return list(requests)
