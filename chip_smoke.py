@@ -30,9 +30,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the card finished the step, so it had not waited for it;
 6. profile — the bf16 workload again, with ``torch.profiler`` over a
    window of decode steps: the card's busy share and its time by kernel
-   family.
+   family;
+7. mamba2 fp32 identity — ``mamba2_370m`` at full width (48 layers) in
+   fp32, served by the engine in dense mode (chosen automatically: the
+   SSM family has no paged cache), must emit the tokens of
+   ``greedy_generate`` up to the first near tie, on prompts of prime
+   lengths among others; ``lm_forward``'s last row on a 512-token prompt
+   must equal ``lm_prefill``'s logits to 1e-3;
+8. mamba2 bf16 serve — 16 requests of 64–512 prompt tokens (two of
+   prime length) and 32–64 new tokens through ``ServeEngine`` in dense
+   mode under sync debug mode "error"; every prefill must have launched
+   the SSD kernel once a layer (48 × prefills) and rmsnorm 49 times a
+   prefill and a decode step;
+8b. its card-bound loop, as 5b but with the sleep queued behind each
+   step's kernels: a mamba2 decode step launches more kernels than the
+   card's launch queue holds, so with the sleep ahead of them the host's
+   enqueue stalls until the card has nearly caught up, and the steps are
+   not pending at their first poll (5b's check in 5b's form fails for
+   mamba2). With the sleep behind, the phase checks the poll and
+   continuation path only; it prints the host's stall on the full launch
+   queue (its enqueue time a step beyond phase 8's);
+9. its profile, as 6.
 
-The next-to-last line is the kernels JSON, the last line the device JSON.
+Each serve phase sets the kernels' launch counts to 0 just before it
+drives its path and reads them just after. The kernels JSON reports
+``launches`` from the path that runs the kernel (phase 5 for
+``paper_demo``'s kernels, phase 8 for the SSD scan). The next-to-last
+line is the kernels JSON, the last line the device JSON.
 """
 from __future__ import annotations
 
@@ -53,6 +77,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
               torch.float32: 67e12}        # fp32 outside the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the SSD scan's final state is fp32 on both sides, from the same inputs
+STATE_TOL = 1e-4
 TIMED_RUNS = 50
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
@@ -61,6 +87,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:105"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention/kernel.py:141"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:68"),
 }
 
 
@@ -116,10 +144,9 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # ----------------------------------------------------------------- kernels
-def check_rmsnorm(dtype, rows, gen, dev):
+def check_rmsnorm(dtype, rows, D, gen, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as K
-    D = 768
     x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
     scale = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev))
     out = K.rmsnorm(x, scale)
@@ -242,8 +269,79 @@ def check_paged(kind, dtype, gen, dev):
                 shape=shape)
 
 
+def busy_ms(fn, runs: int = 5):
+    """The card's busy time for one call of ``fn``: the sum of the device
+    times of the kernels it ran, under ``torch.profiler``, over ``runs``
+    calls, and its split by kernel family (shares). For calls that launch
+    more kernels than the launch queue holds, where events around the call
+    (``median_ms``) measure the host's pace past the queue's depth."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    by_family: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            fam = kernel_family(e.name)
+            by_family[fam] = by_family.get(fam, 0.0) \
+                + e.time_range.elapsed_us()
+    us = sum(by_family.values())
+    if us <= 0:
+        raise AssertionError("busy_ms: the profiler saw no device time")
+    return us / runs / 1e3, {f: t / us for f, t in sorted(
+        by_family.items(), key=lambda kv: -kv[1])}
+
+
+def ssd_inputs(gen, dev, B, T, dtype, H=32, P=64, G=1, N=128):
+    """mamba2-370m's SSD shapes with inputs distributed like the model's:
+    dt ~ softplus(N(-3, 0.5)), A = -linspace(1, 16) (the init's A_log),
+    |y| below 4 so one bf16 rounding step stays within the tolerance; D
+    differs per head, so a kernel reading another head's D disagrees."""
+    import torch.nn.functional as F
+    x = (0.5 * torch.randn((B, T, H, P), generator=gen, device=dev)
+         ).to(dtype)
+    dt = F.softplus(0.5 * torch.randn((B, T, H), generator=gen, device=dev)
+                    - 3)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm = (torch.randn((B, T, G, N), generator=gen, device=dev)
+          * N ** -0.25).to(dtype)
+    Cm = (torch.randn((B, T, G, N), generator=gen, device=dev)
+          * N ** -0.25).to(dtype)
+    D = 1 + 0.1 * torch.randn((H,), generator=gen, device=dev)
+    return x, dt, A, Bm, Cm, D
+
+
+def check_ssd(dtype, B, T, gen, dev):
+    from repro_torch.kernels import ssd_scan as K
+    args = ssd_inputs(gen, dev, B, T, dtype)
+    x, dt, _, Bm, _, _ = args
+    H, P, N, Q = x.shape[2], x.shape[3], Bm.shape[3], K.CHUNK
+    y, final = K.ssd_scan(*args, return_state=True)
+    y_ref, final_ref = K.ssd_scan_plain(*args, return_state=True)
+    err_y, err_state = max_err(y, y_ref), max_err(final, final_ref)
+    item = x.element_size()
+    # x, B, C, dt (and A, D) read once; y and the fp32 state written once
+    n_bytes = (2 * x.numel() + 2 * Bm.numel()) * item + 4 * dt.numel() \
+        + 8 * H + 4 * final.numel()
+    # per (batch, head) and chunk of q real rows: C.B^T and scores.x over
+    # the q x q products, the inter-chunk term and the state update
+    rows = [min(Q, T - t0) for t0 in range(0, T, Q)]
+    flops = B * H * sum(2 * q * q * N + 2 * q * q * P + 4 * q * P * N
+                        for q in rows)
+    return dict(err=max(err_y, err_state), err_y=err_y, err_state=err_state,
+                ms=median_ms(lambda: K.ssd_scan(*args, return_state=True)),
+                plain_ms=median_ms(lambda: K.ssd_scan_plain(
+                    *args, return_state=True)),
+                library_ms=None, bound=bound_ms(n_bytes, flops, dtype),
+                shape=f"B={B} T={T} H={H} P={P} G=1 N={N} (y, final state)")
+
+
 def phase_kernels(dev, label):
-    from repro_torch.kernels import flash_attention, paged_attention, rmsnorm
+    from repro_torch.kernels import (flash_attention, paged_attention,
+                                     rmsnorm, ssd_scan)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("phase 3: kernels vs plain versions; fp32 with TF32 off "
@@ -253,17 +351,27 @@ def phase_kernels(dev, label):
     gen.manual_seed(0)
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
-        cases = [("rmsnorm", check_rmsnorm(dtype, 8, gen, dev)),
-                 ("rmsnorm", check_rmsnorm(dtype, 512, gen, dev)),
+        # rmsnorm at paper_demo's width (768) and mamba2's (1024)
+        cases = [("rmsnorm", check_rmsnorm(dtype, 8, 768, gen, dev)),
+                 ("rmsnorm", check_rmsnorm(dtype, 512, 768, gen, dev)),
+                 ("rmsnorm", check_rmsnorm(dtype, 8, 1024, gen, dev)),
+                 ("rmsnorm", check_rmsnorm(dtype, 512, 1024, gen, dev)),
                  ("flash_attention", check_flash(dtype, gen, dev)),
                  ("paged_attention", check_paged("decode", dtype, gen, dev)),
-                 ("paged_attention", check_paged("suffix", dtype, gen, dev))]
+                 ("paged_attention", check_paged("suffix", dtype, gen, dev)),
+                 ("ssd_scan", check_ssd(dtype, 1, 512, gen, dev)),
+                 ("ssd_scan", check_ssd(dtype, 1, 509, gen, dev)),
+                 ("ssd_scan", check_ssd(dtype, 4, 256, gen, dev))]
         for name, r in cases:
             tol = TOL[dtype]
-            ok = r["err"] <= tol and r.get("pools_exact", True)
+            ok = r.get("err_y", r["err"]) <= tol \
+                and r.get("err_state", 0.0) <= STATE_TOL \
+                and r.get("pools_exact", True)
             lib = r["library_ms"]
             log(f"  {name:16s} {str(dtype):15s} {r['shape']}: max_abs_err "
-                f"{r['err']:.3g} (tol {tol:g})"
+                + (f"y {r['err_y']:.3g} (tol {tol:g}), final state "
+                   f"{r['err_state']:.3g} (tol {STATE_TOL:g})"
+                   if "err_y" in r else f"{r['err']:.3g} (tol {tol:g})")
                 + (f" pools_exact={r['pools_exact']}"
                    if "pools_exact" in r else "")
                 + f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -273,17 +381,25 @@ def phase_kernels(dev, label):
                 raise AssertionError(f"{name} {dtype} disagrees with its "
                                      f"plain version: {r}")
             # the JSON line reports the bf16 run at the decode-step shape
-            # (rmsnorm rows 8, paged W=1) and the prefill shape for flash
+            # (rmsnorm rows 8 at width 768, paged W=1) and the prefill
+            # shape for flash and the SSD scan (one 512-token prompt)
             if dtype is torch.bfloat16 and name not in summary:
                 summary[name] = r
     log("kernels: " + json.dumps({
         "rmsnorm": rmsnorm.LAUNCHES, "flash_attention":
         flash_attention.LAUNCHES, "paged_attention":
-        paged_attention.LAUNCHES}))
+        paged_attention.LAUNCHES, "ssd_scan": ssd_scan.LAUNCHES}))
     return summary
 
 
 # ------------------------------------------------------------------ serving
+def ttft_ms(reqs) -> str:
+    """TTFT p50 and p99 of finished requests, for the log."""
+    t = sorted(r.ttft for r in reqs)
+    p99 = t[min(len(t) - 1, round(0.99 * (len(t) - 1)))]
+    return f"p50 {t[len(t) // 2] * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms"
+
+
 def near_tie_prefix(cfg, params, prompt, tokens, margin=1e-3) -> int:
     """Leading generated positions whose top-2 logit margin (teacher-forced
     over the oracle's own sequence) is at least ``margin``: past the first
@@ -424,16 +540,13 @@ def phase_serve(dev, label):
     m = eng.metrics()
     hits = m["prefix_hits"] - hits0
     n_tokens = sum(len(r.tokens) for r in reqs)
-    ttfts = sorted(r.ttft for r in reqs)
     steps = eng.stats["steps"] - steps0
     slot_steps = eng.stats["slot_steps"] - slot_steps0
     dev_ms = decode_step_device_ms(eng)
     host_ms = (eng.stats["dispatch_s"] - dispatch0) / max(steps, 1) * 1e3
     log(f"phase 5: bf16 serve on {label}: 24 requests, {n_tokens} tokens "
-        f"in {wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT p50 "
-        f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms p99 "
-        f"{ttfts[min(len(ttfts) - 1, round(0.99 * (len(ttfts) - 1)))] * 1e3:.1f}"
-        f" ms (all submitted at t=0); {steps} decode steps, "
+        f"in {wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT "
+        f"{ttft_ms(reqs)} (all submitted at t=0); {steps} decode steps, "
         f"{wall / max(steps, 1) * 1e3:.3f} ms/step wall incl. prefills, "
         f"{slot_steps / max(steps, 1):.2f} slots/step; host enqueue of a "
         f"decode step {host_ms:.3f} ms (mean); "
@@ -480,21 +593,32 @@ def sleep_cycles_per_ms() -> float:
     return n / start.elapsed_time(end)
 
 
-def phase_card_bound(cfg, params, dev, host_ms, label):
+def phase_card_bound(cfg, params, dev, host_ms, label, make_engine=None,
+                     phase="5b", sleep_after=False):
     """The loop must run ahead of the card when the card is the slower
-    side. A sleep kernel queued ahead of every decode step holds the card
-    for several times the host's enqueue of a step; then every step but a
-    host hiccup's worth must still be running at its op's first poll."""
+    side. A sleep kernel queued with every decode step holds the card for
+    several times the host's enqueue of a step; then every step but a
+    host hiccup's worth must still be running at its op's first poll.
+
+    The sleep goes ahead of the step's kernels, or with ``sleep_after``
+    behind them (before the step's token copy and event): a step that
+    launches more kernels than the card's launch queue holds (mamba2's
+    ~2,600) would otherwise stall the host's enqueue behind the sleep
+    until the card had nearly caught up."""
     from repro_torch.core import TensorOp
     from repro_torch.serve import Request, RequestState
-    eng = serve_engine(cfg, params, dev)
+    eng = (make_engine or serve_engine)(cfg, params, dev)
     sleep_ms = max(50.0, 4 * host_ms)
     cycles = int(sleep_ms * sleep_cycles_per_ms())
     decode = eng._decode_fn
 
     def held_step(*args):
-        torch.cuda._sleep(cycles)
-        return decode(*args)
+        if not sleep_after:
+            torch.cuda._sleep(cycles)
+        out = decode(*args)
+        if sleep_after:
+            torch.cuda._sleep(cycles)
+        return out
 
     eng._decode_fn = held_step
     rng = np.random.default_rng(3)
@@ -518,12 +642,15 @@ def phase_card_bound(cfg, params, dev, host_ms, label):
     step_host_ms = eng.stats["dispatch_s"] / max(steps, 1) * 1e3
     m = eng.metrics()
     eng.shutdown()
-    log(f"phase 5b: card-bound loop on {label}: {sleep_ms:.1f} ms of sleep "
-        f"queued ahead of each decode step, host enqueue {step_host_ms:.3f} "
-        f"ms a step (mean); {steps} decode steps in {wall * 1e3:.1f} ms "
+    log(f"phase {phase}: card-bound loop on {label}: {sleep_ms:.1f} ms of "
+        f"sleep queued {'behind' if sleep_after else 'ahead of'} each decode "
+        f"step's kernels, host enqueue {step_host_ms:.3f} "
+        f"ms a step (mean) against {host_ms:.3f} ms with no sleep: the "
+        f"host waited {step_host_ms - host_ms:.3f} ms a step on the launch "
+        f"queue; {steps} decode steps in {wall * 1e3:.1f} ms "
         f"wall; PENDING_AT_FIRST_POLL {pending} of {steps} steps")
     if not all(r.req_state is RequestState.FINISHED for r in reqs) \
-            or m["pages_in_use"] != 0:
+            or m.get("pages_in_use", 0) != 0:
         raise AssertionError(f"card-bound serve did not complete: {dict(m)}")
     if wall * 1e3 < 0.9 * steps * sleep_ms:
         raise AssertionError("card-bound serve: the card was not the slower "
@@ -536,9 +663,12 @@ def phase_card_bound(cfg, params, dev, host_ms, label):
 
 FAMILIES = [("paged_attention", ("paged_attn",)),
             ("flash_attention", ("flash_fwd",)),
+            ("ssd_scan", ("ssd_scan_kernel",)),
+            ("depthwise conv", ("depthwise", "cudnn", "fprop", "conv1d",
+                                "conv2d")),
             ("rmsnorm", ("rmsnorm_kernel",)),
             ("gemm", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
-            ("argmax", ("reduce_kernel",)),
+            ("reductions (argmax, sum, mean)", ("reduce_kernel",)),
             ("copies", ("memcpy", "memset", "Memcpy", "Memset"))]
 
 
@@ -549,18 +679,22 @@ def kernel_family(name: str) -> str:
     return "elementwise and other"
 
 
-def phase_profile(cfg, params, dev, label, window_steps: int = 40):
+def phase_profile(cfg, params, dev, label, window_steps: int = 40,
+                  make_engine=None, work=None, seated: int = 16,
+                  phase="6"):
     """The bf16 workload again, ``torch.profiler`` over ``window_steps``
     decode steps once most requests are seated: the card's busy share of
     the window and its busy time by kernel family."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Request
-    eng = serve_engine(cfg, params, dev)
-    for prompt, n in serve_workload(cfg, np.random.default_rng(2)):
+    eng = (make_engine or serve_engine)(cfg, params, dev)
+    if work is None:
+        work = serve_workload(cfg, np.random.default_rng(2))
+    for prompt, n in work:
         eng.submit(Request(prompt, n))
     eng.close_intake()
-    eng.run(until=lambda: eng.stats["prefills"] >= 16, timeout=300)
+    eng.run(until=lambda: eng.stats["prefills"] >= seated, timeout=300)
     steps0 = eng.stats["steps"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -574,24 +708,189 @@ def phase_profile(cfg, params, dev, label, window_steps: int = 40):
     eng.run(timeout=600)
     eng.shutdown()
     by_family: dict = {}
+    by_name: dict = {}
     ops = 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = evt.time_range.elapsed_us()
             fam = kernel_family(evt.name)
-            by_family[fam] = (by_family.get(fam, 0.0)
-                              + evt.time_range.elapsed_us())
+            by_family[fam] = by_family.get(fam, 0.0) + us
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + us
             ops += 1
     busy_us = sum(by_family.values())
     if busy_us <= 0:
         raise AssertionError("profile: no device time in the traced window")
-    log(f"phase 6: profiled window on {label}: {steps} decode steps in "
+    log(f"phase {phase}: profiled window on {label}: {steps} decode steps in "
         f"{window * 1e3:.1f} ms wall ({window / steps * 1e3:.3f} ms/step, "
         f"profiler on); card busy {busy_us / 1e3:.1f} ms = "
         f"{busy_us / 1e6 / window:.1%} of the window; "
         f"{ops / steps:.0f} device ops per step")
     for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam:22s} {us / 1e3:8.3f} ms  {us / busy_us:6.1%} of the "
+        log(f"  {fam:30s} {us / 1e3:8.3f} ms  {us / busy_us:6.1%} of the "
             "card's busy time")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {us / busy_us:6.1%}  {name[:90]}")
+
+
+# ------------------------------------------------------------ mamba2 (SSM)
+MAMBA_LAYERS = 48
+
+
+def phase_mamba_identity(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine, greedy_generate
+    cfg = get_config("mamba2_370m", dtype=torch.float32,
+                     param_dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(4)
+    # 131 and 509 are prime: the kernel's masked tail chunk runs
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (64, 131, 200,
+                                                             509)]
+    eng = ServeEngine(cfg, params, device=dev, max_batch=4)
+    if eng.paged:
+        raise AssertionError("mamba2 must be served in dense mode")
+    reqs = [Request(p, 16) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    eng.close_intake()
+    eng.run(timeout=300)
+    eng.shutdown()
+    checked = 0
+    for p, r in zip(prompts, reqs):
+        want = greedy_generate(cfg, params, p[None], 16, 1024,
+                               device=dev)[0].tolist()
+        n = near_tie_prefix(cfg, params, p, want)
+        if r.tokens[:n] != want[:n]:
+            raise AssertionError(f"mamba2 fp32 identity: engine {r.tokens} "
+                                 f"!= greedy {want} within {n} tokens")
+        checked += n
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 512)),
+                           dtype=torch.int32, device=dev)
+    full = lm.lm_forward(params, {"tokens": toks}, cfg)[:, -1]
+    last, _ = lm.lm_prefill(params, {"tokens": toks}, cfg,
+                            lm.init_cache(cfg, 1, 512, device=dev))
+    err = max_err(full, last[:, -1])
+    log(f"phase 7: mamba2 fp32 identity OK: engine in dense mode, 4 "
+        f"requests (prompts 64, 131, 200, 509), {checked}/64 tokens equal "
+        f"to greedy_generate (the rest past a near tie); lm_forward vs "
+        f"lm_prefill last-row logits on 512 tokens: max_abs_err {err:.3g} "
+        "(tol 1e-3)")
+    if err > 1e-3:
+        raise AssertionError("mamba2: lm_forward and lm_prefill disagree")
+
+
+def mamba_workload(cfg, rng):
+    """16 requests, 64–512 prompt tokens (the first two of prime length,
+    67 and 509), 32–64 new tokens each."""
+    lengths = [67, 509] + [int(n) for n in rng.integers(64, 513, 14)]
+    return [(rng.integers(0, cfg.vocab_size, n), int(rng.integers(32, 65)))
+            for n in lengths]
+
+
+def mamba_engine(cfg, params, dev):
+    from repro_torch.serve import ServeEngine
+    return ServeEngine(cfg, params, device=dev, max_batch=8, max_inflight=2)
+
+
+def phase_mamba_serve(dev, label):
+    from repro_torch.configs import get_config
+    from repro_torch.core import TensorOp
+    from repro_torch.kernels import (flash_attention, paged_attention,
+                                     rmsnorm, ssd_scan)
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, RequestState
+    cfg = get_config("mamba2_370m")
+    if cfg.n_layers != MAMBA_LAYERS:
+        raise AssertionError("mamba2_370m is not at full depth")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    work = mamba_workload(cfg, np.random.default_rng(5))
+    eng = mamba_engine(cfg, params, dev)
+    for prompt, n in work[:2]:        # warm-up, outside the counts
+        eng.submit(Request(prompt, 4))
+    eng.run(until=lambda: len(eng.retired) == 2, timeout=300)
+    steps0, prefills0 = eng.stats["steps"], eng.stats["prefills"]
+    slot_steps0, dispatch0 = eng.stats["slot_steps"], eng.stats["dispatch_s"]
+
+    rmsnorm.LAUNCHES = ssd_scan.LAUNCHES = 0
+    flash_attention.LAUNCHES = paged_attention.LAUNCHES = 0
+    TensorOp.PENDING_AT_FIRST_POLL = 0
+    reqs = [Request(p, n) for p, n in work]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.close_intake()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run(timeout=600)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ssd_scan": ssd_scan.LAUNCHES, "rmsnorm": rmsnorm.LAUNCHES,
+                "flash_attention": flash_attention.LAUNCHES,
+                "paged_attention": paged_attention.LAUNCHES}
+    pending = TensorOp.PENDING_AT_FIRST_POLL
+    steps = eng.stats["steps"] - steps0
+    prefills = eng.stats["prefills"] - prefills0
+    slot_steps = eng.stats["slot_steps"] - slot_steps0
+    host_ms = (eng.stats["dispatch_s"] - dispatch0) / max(steps, 1) * 1e3
+    n_tokens = sum(len(r.tokens) for r in reqs)
+    S = eng.max_batch
+    toks = torch.zeros((S, 1, 1), dtype=torch.int32, device=dev)
+    prompt = torch.as_tensor(np.resize(work[1][0], 512)[None],
+                             dtype=torch.int32, device=dev)
+
+    def decode():
+        eng._decode_fn(eng.params, eng._cache, toks, None)
+
+    slot0 = {name: t[:, :1] for name, t in eng._cache.items()}
+
+    def prefill():
+        lm.lm_prefill(eng.params, {"tokens": prompt}, cfg, slot0)
+
+    # events around a call of ~2,600 (decode) or ~1,500 (prefill)
+    # launches time the host past the launch queue's depth; the profiler's
+    # kernel times give the card's own share
+    step_ev, prefill_ev = median_ms(decode, runs=10), median_ms(prefill,
+                                                                runs=10)
+    (step_ms, step_split), (prefill_ms, prefill_split) = busy_ms(decode), \
+        busy_ms(prefill)
+    log(f"phase 8: mamba2 bf16 serve on {label}: dense mode, 16 requests, "
+        f"{n_tokens} tokens in {wall:.3f} s = {n_tokens / wall:.1f} "
+        f"tokens/s; TTFT {ttft_ms(reqs)} (all submitted at t=0); {steps} "
+        f"decode steps, "
+        f"{wall / max(steps, 1) * 1e3:.3f} ms/step wall incl. prefills, "
+        f"{slot_steps / max(steps, 1):.2f} slots/step, {prefills} prefills; "
+        f"host enqueue of a decode step {host_ms:.3f} ms (mean); card busy "
+        f"(kernel times, torch.profiler) for one 8-slot decode step "
+        f"{step_ms:.3f} ms, one 512-token prefill {prefill_ms:.3f} ms "
+        f"(event-timed with a sleep ahead: {step_ev:.3f} ms, "
+        f"{prefill_ev:.3f} ms); PENDING_AT_FIRST_POLL {pending}")
+    for what, split in (("decode step", step_split),
+                        ("512-token prefill", prefill_split)):
+        log(f"  card busy of one {what} by kernel family: " + ", ".join(
+            f"{fam} {share:.1%}" for fam, share in split.items()))
+    log(f"mamba2 path kernels: {json.dumps(launches)}")
+    if not all(r.req_state is RequestState.FINISHED for r in reqs):
+        raise AssertionError("mamba2 serve: not every request finished")
+    if any(len(r.tokens) != n for r, (_, n) in zip(reqs, work)):
+        raise AssertionError("mamba2 serve: token budgets not met")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
+        raise AssertionError("mamba2 serve: token outside the vocabulary")
+    if prefills != len(reqs) or \
+            launches["ssd_scan"] != MAMBA_LAYERS * prefills:
+        raise AssertionError(f"mamba2 serve: {launches['ssd_scan']} SSD "
+                             f"launches for {prefills} prefills")
+    if launches["rmsnorm"] != (MAMBA_LAYERS + 1) * (prefills + steps):
+        raise AssertionError(f"mamba2 serve: {launches['rmsnorm']} rmsnorm "
+                             f"launches for {prefills} prefills and {steps} "
+                             "decode steps")
+    if launches["flash_attention"] or launches["paged_attention"]:
+        raise AssertionError("mamba2 serve ran an attention kernel")
+    eng.shutdown()
+    return cfg, params, launches, host_ms
 
 
 def main() -> int:
@@ -614,6 +913,16 @@ def main() -> int:
     cfg, params, launches, host_ms = phase_serve(dev, label)
     phase_card_bound(cfg, params, dev, host_ms, label)
     phase_profile(cfg, params, dev, label)
+    del params
+    phase_mamba_identity(dev)
+    mcfg, mparams, mlaunches, mhost_ms = phase_mamba_serve(dev, label)
+    launches["ssd_scan"] = mlaunches["ssd_scan"]
+    phase_card_bound(mcfg, mparams, dev, mhost_ms, label,
+                     make_engine=mamba_engine, phase="8b", sleep_after=True)
+    phase_profile(mcfg, mparams, dev, label, window_steps=12,
+                  make_engine=mamba_engine,
+                  work=mamba_workload(mcfg, np.random.default_rng(5)),
+                  seated=8, phase="9")
     kernels = []
     for name, r in summary.items():
         src, replaces = SOURCES[name]

@@ -11,9 +11,9 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCHITECTURES = ["paper_demo"]
+ARCHITECTURES = ["paper_demo", "mamba2_370m"]
 
-_ALIASES = {"paper-demo": "paper_demo"}
+_ALIASES = {"paper-demo": "paper_demo", "mamba2-370m": "mamba2_370m"}
 
 
 def canonical(name: str) -> str:

@@ -1,0 +1,135 @@
+"""Mamba-2 SSD chunked scan: plain PyTorch version + CUDA kernel wrapper.
+
+Counterpart of ``repro/kernels/ssd_scan/{kernel,ref,ops}.py``; the kernel
+is ``csrc/ssd_scan.cu``. Shapes (the reference's):
+
+* x  ``(B, T, H, P)``  per-head inputs, fp32 or bf16
+* dt ``(B, T, H)``     fp32 positive step sizes (softplus + bias applied)
+* A  ``(H,)``          fp32 negative per-head decay
+* Bm ``(B, T, G, N)``  input projections, like x; head ``h`` reads group
+  ``h // (H / G)``
+* Cm ``(B, T, G, N)``  output projections, like x
+* D  ``(H,)``          fp32 skip gain
+
+Returns ``y (B, T, H, P)`` in ``x.dtype`` and, with ``return_state``, the
+fp32 final state ``(B, H, P, N)``, as the reference's ``ssd_chunked`` does
+(its Pallas kernel drops the state). ``T`` need not be a multiple of
+``chunk``: the last chunk is padded with ``dt = 0`` rows, which neither
+decay nor add to the state, and their ``y`` is dropped.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches in this process (the wrapper's CUDA path only)
+LAUNCHES = 0
+#: the kernel's instantiations: (head_dim P, state_dim N) and chunk
+SHAPES = ((64, 128),)
+CHUNK = 64
+
+Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _expand_groups(m: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, T, G, N) → (B, T, H, N) by repeating groups over their heads."""
+    return m.repeat_interleave(n_heads // m.shape[2], dim=2)
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+                   chunk: int = CHUNK, return_state: bool = False) -> Out:
+    """The chunked SSD formulation of the reference ``ssd_chunked``, in
+    fp32, cast to ``x.dtype`` at the end."""
+    B_, T, H, P = x.shape
+    nC = -(-T // chunk)
+    pad = nC * chunk - T
+
+    def padded(t: torch.Tensor) -> torch.Tensor:
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((B_, pad) + tuple(t.shape[2:]))],
+                          dim=1)
+        return t
+
+    xf = padded(x).reshape(B_, nC, chunk, H, P)
+    dtf = padded(dt).reshape(B_, nC, chunk, H)
+    Bh = padded(_expand_groups(Bm, H)).reshape(B_, nC, chunk, H, -1)
+    Ch = padded(_expand_groups(Cm, H)).reshape(B_, nC, chunk, H, -1)
+    N = Bh.shape[-1]
+
+    cum = torch.cumsum(dtf * A.float(), dim=2)         # (B, C, Q, H)
+    total = cum[:, :, -1, :]                           # (B, C, H)
+
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j; the exponent
+    # is taken only there (above the diagonal it can overflow)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, None, :, :, None]
+    ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    L = torch.where(tri, ldiff, ldiff.new_full((), -float("inf"))).exp()
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * L \
+        * dtf[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xf)
+
+    # chunk states, decayed to the chunk end, then the inter-chunk scan
+    decay_to_end = torch.exp(total[:, :, None, :] - cum)
+    S = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", dtf * decay_to_end, xf, Bh)
+    state = x.new_zeros((B_, H, P, N), dtype=torch.float32)
+    entering = []
+    for c in range(nC):
+        entering.append(state)
+        state = state * torch.exp(total[:, c])[..., None, None] + S[:, c]
+    entering = torch.stack(entering, dim=1)            # (B, C, H, P, N)
+    y = y + torch.einsum("bcqhn,bchpn->bcqhp",
+                         Ch * torch.exp(cum)[..., None], entering)
+    y = y.reshape(B_, nC * chunk, H, P)[:, :T] \
+        + x.float() * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = CHUNK, return_state: bool = False) -> Out:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel
+    (one block per (batch, head) walking the chunks in order)."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk,
+                              return_state=return_state)
+    _build.require_cuda("ssd_scan", x, dt, A, Bm, Cm, D)
+    code = _build.dtype_code("ssd_scan", x.dtype)
+    B_, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if (P, N) not in SHAPES or chunk != CHUNK:
+        raise ValueError(f"ssd_scan: no kernel for head_dim {P}, state_dim "
+                         f"{N}, chunk {chunk}; instantiated: {SHAPES} at "
+                         f"chunk {CHUNK}")
+    if H % G or Bm.shape != Cm.shape or tuple(Bm.shape[:2]) != (B_, T):
+        raise ValueError(f"ssd_scan: B/C {tuple(Bm.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError("ssd_scan: B and C must have x's dtype")
+    if tuple(dt.shape) != (B_, T, H) or any(
+            t.dtype != torch.float32 or tuple(t.shape) != (H,)
+            for t in (A, D)) or dt.dtype != torch.float32:
+        raise ValueError("ssd_scan: dt (B, T, H), A and D (H,) must be "
+                         "fp32")
+    if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
+        raise ValueError("ssd_scan: x, B and C must be 16-byte aligned")
+    y = torch.empty_like(x)
+    final: Optional[torch.Tensor] = None
+    if return_state:
+        final = torch.empty((B_, H, P, N), dtype=torch.float32,
+                            device=x.device)
+    rc = _build.lib().repro_ssd_scan(
+        code, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
+        final.data_ptr() if final is not None else None, B_, T, H, G, P, N,
+        _build.stream_handle(x))
+    _build.check(rc, "ssd_scan")
+    LAUNCHES += 1
+    return (y, final) if return_state else y

@@ -12,7 +12,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import SSM, ModelConfig
 from repro_torch.util import resolve_device
 
 
@@ -45,8 +45,10 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
     if emb != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"embedding {emb} does not fit {cfg.name}: "
                          f"expected {(cfg.padded_vocab, cfg.d_model)}")
-    wq = out["layers"]["attn"]["wq"]
-    if wq.shape[0] != cfg.n_layers:
-        raise ValueError(f"{wq.shape[0]} stacked layers, {cfg.name} has "
+    # a stacked leaf every layer of the family has
+    probe = out["layers"]["ssm"]["wx"] if cfg.family == SSM \
+        else out["layers"]["attn"]["wq"]
+    if probe.shape[0] != cfg.n_layers:
+        raise ValueError(f"{probe.shape[0]} stacked layers, {cfg.name} has "
                          f"{cfg.n_layers}")
     return out

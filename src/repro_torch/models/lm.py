@@ -1,13 +1,14 @@
-"""Dense decoder-only language model: init, forward, prefill, decode and
-fused paged decode.
+"""Decoder-only language models of the dense and SSM families: init,
+forward, prefill, decode and (dense) fused paged decode.
 
-Counterpart of ``repro/models/lm.py`` for the dense family. Parameters are
+Counterpart of ``repro/models/lm.py`` for those families. Parameters are
 a plain dict with the reference's layout: per-layer leaves stacked on a
-leading L axis (``params["layers"]["attn"]["wq"]`` is ``(L, d, H, hd)``),
-so ``models.convert.params_from_numpy`` carries the reference's weights
-over unchanged. The reference's ``lax.scan`` over layers is a Python loop
-over per-layer views here. KV caches and the page pool are updated in
-place. MoE, SSM, hybrid and VLM raise ``NotImplementedError``.
+leading L axis (``params["layers"]["attn"]["wq"]`` is ``(L, d, H, hd)``,
+``params["layers"]["ssm"]["wx"]`` ``(L, d, inner)``), so
+``models.convert.params_from_numpy`` carries the reference's weights over
+unchanged. The reference's ``lax.scan`` over layers is a Python loop over
+per-layer views here. KV caches, SSM states and the page pool are updated
+in place. MoE, hybrid and VLM raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import DENSE, ModelConfig
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import DENSE, SSM, ModelConfig
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
                                        rmsnorm, rope_tables)
 from repro_torch.util import resolve_device
@@ -24,10 +26,14 @@ from repro_torch.util import resolve_device
 Params = Dict[str, Any]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE or cfg.moe is not None or cfg.frontend_dim:
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    run yet (families other than dense and SSM, MoE, frontends, parallel
+    blocks)."""
+    if cfg.family not in (DENSE, SSM) or cfg.moe is not None \
+            or cfg.frontend_dim:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP")
+            f"family {cfg.family!r} is not yet ported; see ROADMAP")
     if cfg.parallel_block:
         raise NotImplementedError("parallel attn+MLP blocks are not ported "
                                   "yet; see ROADMAP")
@@ -48,10 +54,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     at 0.02, norm scales 1 in fp32). Draws come from a ``torch.Generator``
     on ``device``, so they are not the reference's numbers; tests carry
     the reference's weights over with ``convert.params_from_numpy``."""
-    _require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    if cfg.family == SSM:
+        return _init_ssm_params(cfg, gen, dev)
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     Hp, KVp, hd = cfg.padded_heads, cfg.padded_kv_heads, \
         cfg.resolved_head_dim
@@ -89,6 +97,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     }
 
 
+def _init_ssm_params(cfg: ModelConfig, gen: torch.Generator,
+                     dev: torch.device) -> Params:
+    d = cfg.d_model
+    return {
+        "embed": {"tokens": _normal(gen, (cfg.padded_vocab, d), 0.02,
+                                    cfg.param_dtype, dev)},
+        "layers": {
+            "norm": {"scale": torch.ones((cfg.n_layers, d),
+                                         dtype=torch.float32, device=dev)},
+            "ssm": ssm_mod.init_ssm(gen, cfg, cfg.n_layers, dev),
+        },
+        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
+                                           device=dev)},
+    }
+
+
 def layer_views(params: Params) -> List[Dict[str, Any]]:
     """Per-layer parameter dicts, views into the stacked leaves."""
     def unbind(tree):
@@ -103,6 +127,9 @@ def layer_views(params: Params) -> List[Dict[str, Any]]:
 # ================================================================== blocks
 
 def _block_train(lp, x, cfg: ModelConfig, rope):
+    if cfg.family == SSM:
+        return x + ssm_mod.ssm_block(lp["ssm"], rmsnorm(
+            lp["norm"], x, cfg.norm_eps), cfg)
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     x = x + attn_mod.attention_block(lp["attn"], h, cfg, rope=rope)
     h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
@@ -137,12 +164,33 @@ def _block_paged_decode(lp, x, k_pages, v_pages, cfg: ModelConfig,
     return x + mlp(lp["mlp"], h2)
 
 
+def _block_ssm_prefill(lp, x, cache, cfg: ModelConfig):
+    """SSM prefill: the chunked scan yields the final SSD and conv state,
+    copied into the layer's cache views."""
+    y, state = ssm_mod.ssm_block(lp["ssm"], rmsnorm(lp["norm"], x,
+                                                    cfg.norm_eps), cfg,
+                                 return_state=True)
+    for name, t in state.items():
+        cache[name].copy_(t)
+    return x + y
+
+
+def _block_ssm_decode(lp, x, cache, cfg: ModelConfig):
+    y, _ = ssm_mod.ssm_decode_step(lp["ssm"], rmsnorm(lp["norm"], x,
+                                                      cfg.norm_eps),
+                                   cfg, cache)
+    return x + y
+
+
 def _layer_cache(cache: Dict[str, torch.Tensor], i: int
                  ) -> Dict[str, torch.Tensor]:
-    return {"k": cache["k"][i], "v": cache["v"][i]}
+    """Layer ``i``'s views of a layer-stacked cache (KV or SSM state)."""
+    return {name: t[i] for name, t in cache.items()}
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    if cfg.family == SSM:      # attention-free: no rotary tables
+        return None
     return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
@@ -151,7 +199,7 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> torch.Tensor:
     """Logits for the whole sequence (tests / generation without cache)."""
-    _require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
@@ -163,8 +211,14 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Any = "cpu") -> Dict[str, torch.Tensor]:
-    """Layer-stacked dense KV cache ``(L, batch, max_len, KV, hd)``."""
-    _require_dense(cfg)
+    """Layer-stacked dense KV cache ``(L, batch, max_len, KV, hd)``, or for
+    the SSM family the constant-size state ``{"ssm": (L, batch, H, P, N)
+    fp32, "conv_x"/"conv_B"/"conv_C": (L, batch, W-1, C)}`` (``max_len``
+    unused)."""
+    require_ported(cfg)
+    if cfg.family == SSM:
+        return ssm_mod.init_ssm_state(cfg, batch, n_layers=cfg.n_layers,
+                                      device=device)
     return attn_mod.init_kv_cache(cfg, batch, max_len,
                                   n_layers=cfg.n_layers, device=device)
 
@@ -174,28 +228,41 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the prompt; returns (last-position logits (B, 1, V), the
     cache primed in place)."""
-    _require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
     for i, lp in enumerate(layer_views(params)):
-        x, _ = _block_prefill(lp, x, _layer_cache(cache, i), cfg, rope)
+        if cfg.family == SSM:
+            x = _block_ssm_prefill(lp, x, _layer_cache(cache, i), cfg)
+        else:
+            x, _ = _block_prefill(lp, x, _layer_cache(cache, i), cfg, rope)
     x = rmsnorm(params["final_norm"], x[:, -1:, :].contiguous(),
                 cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg), cache
 
 
 def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
-                   cache: Dict[str, torch.Tensor], pos: int
+                   cache: Dict[str, torch.Tensor], pos: Any,
+                   layers: Optional[List[Dict[str, Any]]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode ``token`` (B, S1) at absolute positions ``pos ..`` against a
-    dense cache, written in place."""
-    _require_dense(cfg)
+    dense cache, written in place. The SSM family decodes one token (B, 1)
+    per row from its state and reads no position. ``layers`` may pass
+    ``layer_views(params)`` computed once by a caller that steps many
+    times."""
+    require_ported(cfg)
     x = embed_tokens(params["embed"], token, cfg)
+    views = layers if layers is not None else layer_views(params)
+    if cfg.family == SSM:
+        for i, lp in enumerate(views):
+            x = _block_ssm_decode(lp, x, _layer_cache(cache, i), cfg)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return lm_logits(params["embed"], x, cfg), cache
     pos = int(pos)
     rope = _rope(cfg, torch.arange(pos, pos + token.shape[1],
                                    device=x.device)[None])
-    for i, lp in enumerate(layer_views(params)):
+    for i, lp in enumerate(views):
         x, _ = _block_decode(lp, x, _layer_cache(cache, i), pos, cfg, rope)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg), cache
@@ -216,7 +283,9 @@ def lm_paged_decode(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``layers`` may pass ``layer_views(params)`` computed once by a caller
     that steps many times. Returns ``(logits (S, W, vocab), pool)``.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
+    if cfg.family == SSM:
+        raise NotImplementedError("paged decode requires KV attention")
     x = embed_tokens(params["embed"], tokens, cfg)
     W = tokens.shape[1]
     offs = torch.arange(W, device=x.device, dtype=positions.dtype)

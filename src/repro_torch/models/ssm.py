@@ -1,0 +1,194 @@
+"""Mamba-2 (SSD) block: projections, causal depthwise conv, SSD scan, gated
+RMSNorm, plus the single-token decode recurrence.
+
+Counterpart of ``repro/models/ssm.py`` with the reference's parameter
+layouts (``wz``/``wx`` ``(d, inner)``, ``conv_x`` ``(W, inner)``, ...).
+The full-sequence block runs the SSD kernel (``kernels.ssd_scan``) on both
+of its branches: the kernel returns the final state on request, so serving
+prefill needs no plain version. The decode step is plain PyTorch, as the
+reference's is jnp.
+
+Unlike the reference, the SSD scan keeps its configured chunk for every
+length and pads the last chunk (the reference searches for a chunk that
+divides T, down to 1 for a prime T); the two differ by rounding only. A
+prompt shorter than ``conv_width - 1`` leaves a zero-padded conv state,
+the padding the causal conv itself sees.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ssd_scan as ssd_kernel
+from repro_torch.models.common import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+             device: Any) -> Params:
+    """Layer-stacked SSM weights ``(n_layers, ...)``: the reference's
+    leaves, dtypes and scales (dense weights normal * fan_in^-1/2, conv
+    weights normal * 0.1; ``A_log``, ``D``, ``dt_bias`` and
+    ``norm_scale`` fp32), drawn from ``gen``."""
+    s = cfg.ssm
+    L, d, di = n_layers, cfg.d_model, cfg.ssm_inner
+    H, N, G, W = cfg.ssm_heads, s.state_dim, s.n_groups, s.conv_width
+    pd = cfg.param_dtype
+
+    def normal(shape, scale):
+        return (torch.randn((L,) + shape, generator=gen, device=device)
+                * scale).to(pd)
+
+    def dense(shape):
+        return normal(shape, shape[0] ** -0.5)
+
+    f32 = dict(dtype=torch.float32, device=device)
+    u = torch.rand((L, H), generator=gen, **f32)
+    dt = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min))
+                   + math.log(s.dt_min))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))        # inverse softplus
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, **f32))
+    return {
+        "wz": dense((d, di)), "wx": dense((d, di)),
+        "wB": dense((d, G * N)), "wC": dense((d, G * N)),
+        "wdt": dense((d, H)),
+        "conv_x": normal((W, di), 0.1),
+        "conv_B": normal((W, G * N), 0.1),
+        "conv_C": normal((W, G * N), 0.1),
+        "A_log": a_log.expand(L, H).clone(),
+        "D": torch.ones((L, H), **f32),
+        "dt_bias": dt_bias,
+        "norm_scale": torch.ones((L, di), **f32),
+        "wo": dense((di, d)),
+    }
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor
+                           ) -> torch.Tensor:
+    """x: (B, T, C); w: (W, C) — causal depthwise conv along T."""
+    W, C = w.shape
+    xp = F.pad(x.transpose(1, 2), (W - 1, 0))          # (B, C, W-1+T)
+    out = F.conv1d(xp, w.t()[:, None, :], groups=C)    # (B, C, T)
+    return out.transpose(1, 2)
+
+
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    yf = y.float() * F.silu(z.float())
+    var = (yf * yf).mean(dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(var + eps) * scale).to(y.dtype)
+
+
+def _conv_tail(raw: torch.Tensor, width: int) -> torch.Tensor:
+    """The last ``width - 1`` raw inputs (B, W-1, C), zero-padded on the
+    left when the sequence is shorter."""
+    T = raw.shape[1]
+    if T >= width - 1:
+        return raw[:, T - (width - 1):, :]
+    return F.pad(raw, (0, 0, width - 1 - T, 0))
+
+
+def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              return_state: bool = False):
+    """Full-sequence SSD forward (``lm_forward``; prefill with
+    ``return_state``, which adds the decode state dict)."""
+    s = cfg.ssm
+    B, T, _ = x.shape
+    H, P, N, G = cfg.ssm_heads, s.head_dim, s.state_dim, s.n_groups
+    dtype = cfg.dtype
+    z = x @ params["wz"].to(dtype)
+    xs_raw = x @ params["wx"].to(dtype)
+    Bs_raw = x @ params["wB"].to(dtype)
+    Cs_raw = x @ params["wC"].to(dtype)
+    dt = x @ params["wdt"].to(dtype)
+    xs = F.silu(_causal_depthwise_conv(xs_raw, params["conv_x"].to(dtype)))
+    Bs = F.silu(_causal_depthwise_conv(Bs_raw, params["conv_B"].to(dtype)))
+    Cs = F.silu(_causal_depthwise_conv(Cs_raw, params["conv_C"].to(dtype)))
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    out = ssd_kernel.ssd_scan(
+        xs.reshape(B, T, H, P).contiguous(), dt.contiguous(), A,
+        Bs.reshape(B, T, G, N).contiguous(),
+        Cs.reshape(B, T, G, N).contiguous(), params["D"],
+        chunk=s.chunk_size, return_state=return_state)
+    y, final = out if return_state else (out, None)
+    y = _gated_rmsnorm(y.reshape(B, T, -1), z, params["norm_scale"],
+                       cfg.norm_eps)
+    out = y @ params["wo"].to(dtype)
+    if not return_state:
+        return out
+    W = s.conv_width
+    state = {"ssm": final,
+             "conv_x": _conv_tail(xs_raw, W),
+             "conv_B": _conv_tail(Bs_raw, W),
+             "conv_C": _conv_tail(Cs_raw, W)}
+    return out, state
+
+
+# --------------------------------------------------------------- decode path
+def init_ssm_state(cfg: ModelConfig, batch: int,
+                   n_layers: Optional[int] = None,
+                   device: Any = "cpu") -> Dict[str, torch.Tensor]:
+    s = cfg.ssm
+    H, P, N, G, W = cfg.ssm_heads, s.head_dim, s.state_dim, s.n_groups, \
+        s.conv_width
+    di = cfg.ssm_inner
+    lead = (n_layers,) if n_layers else ()
+
+    def zeros(*dims, dtype=cfg.dtype):
+        return torch.zeros(lead + dims, dtype=dtype, device=device)
+
+    return {"ssm": zeros(batch, H, P, N, dtype=torch.float32),
+            "conv_x": zeros(batch, W - 1, di),
+            "conv_B": zeros(batch, W - 1, G * N),
+            "conv_C": zeros(batch, W - 1, G * N)}
+
+
+def _conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor
+               ) -> torch.Tensor:
+    """state (B, W-1, C), xt (B, C) → conv output (B, C); the state is
+    shifted by one row in place."""
+    full = torch.cat([state, xt[:, None, :]], dim=1)     # (B, W, C)
+    state.copy_(full[:, 1:, :])
+    return (full * w).sum(dim=1)
+
+
+def ssm_decode_step(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                    state: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, 1, d) → (B, 1, d); the constant-size state is updated in
+    place and returned."""
+    s = cfg.ssm
+    B = x.shape[0]
+    H, P, N, G = cfg.ssm_heads, s.head_dim, s.state_dim, s.n_groups
+    dtype = cfg.dtype
+    xt = x[:, 0, :]
+    z = xt @ params["wz"].to(dtype)
+    xs = _conv_step(state["conv_x"], xt @ params["wx"].to(dtype),
+                    params["conv_x"].to(dtype))
+    Bs = _conv_step(state["conv_B"], xt @ params["wB"].to(dtype),
+                    params["conv_B"].to(dtype))
+    Cs = _conv_step(state["conv_C"], xt @ params["wC"].to(dtype),
+                    params["conv_C"].to(dtype))
+    dt = xt @ params["wdt"].to(dtype)
+    xs, Bs, Cs = F.silu(xs), F.silu(Bs), F.silu(Cs)
+    dt = F.softplus(dt.float() + params["dt_bias"])      # (B, H)
+    A = -torch.exp(params["A_log"])
+    xh = xs.reshape(B, H, P).float()
+    # each group's row repeated over its H / G heads
+    Bh = Bs.reshape(B, G, 1, N).expand(B, G, H // G, N).reshape(B, H, N) \
+        .float()
+    Ch = Cs.reshape(B, G, 1, N).expand(B, G, H // G, N).reshape(B, H, N) \
+        .float()
+    decay = torch.exp(dt * A)                            # (B, H)
+    ssm = state["ssm"]
+    ssm.mul_(decay[..., None, None]).add_(
+        (dt[..., None] * xh)[..., None] * Bh[:, :, None, :])
+    y = (ssm @ Ch[..., None])[..., 0] + xh * params["D"][None, :, None]
+    y = _gated_rmsnorm(y.reshape(B, -1).to(dtype), z, params["norm_scale"],
+                       cfg.norm_eps)
+    return (y @ params["wo"].to(dtype))[:, None, :], state

@@ -2,8 +2,9 @@
 
 Layers (counterparts of ``repro.serve``):
 
-* ``serve.steps``    — prefill / dense decode / fused paged decode and
-  suffix steps, the prefill scatter, and the ``greedy_generate`` oracle.
+* ``serve.steps``    — prefill / dense decode / batched slot decode /
+  fused paged decode and suffix steps, the prefill scatter, and the
+  ``greedy_generate`` oracle.
 * ``serve.config``   — ``GenerationConfig``: per-request knobs validated
   once at admission.
 * ``serve.request``  — request lifecycle; each ``Request`` is a
@@ -25,7 +26,9 @@ from repro_torch.serve.kv_cache import (PagePool, pages_for,
                                         paged_supported, prefix_keys)
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.request import Request, RequestState, summarize
-from repro_torch.serve.steps import (greedy_generate, make_decode_step,
+from repro_torch.serve.steps import (greedy_generate,
+                                     make_batched_decode_step,
+                                     make_decode_step,
                                      make_fused_paged_decode_step,
                                      make_fused_paged_suffix_step,
                                      make_prefill_scatter, make_prefill_step)
@@ -34,7 +37,8 @@ __all__ = [
     "Batcher", "DeadlineExceeded", "GenerationConfig", "ServeEngine",
     "serve_requests", "PagePool", "pages_for", "paged_supported",
     "prefix_keys", "ServeMetrics", "Request", "RequestState", "summarize",
-    "greedy_generate", "make_decode_step", "make_fused_paged_decode_step",
+    "greedy_generate", "make_batched_decode_step", "make_decode_step",
+    "make_fused_paged_decode_step",
     "make_fused_paged_suffix_step", "make_prefill_scatter",
     "make_prefill_step",
 ]

@@ -1,20 +1,30 @@
-"""Continuation-driven continuous-batching decode engine (paged, fused).
+"""Continuation-driven continuous-batching decode engine.
 
-Counterpart of ``repro/serve/engine.py`` in its paged + fused mode. The
-decode loop keeps a fixed set of *slots*, each holding one in-flight
-sequence whose KV lives in a shared ``PagePool`` behind a per-slot page
-table:
+Counterpart of ``repro/serve/engine.py`` in its two memory modes:
+
+* *paged* (default where ``paged_supported``: the dense family) — fused
+  paged steps over a shared ``PagePool`` behind per-slot page tables;
+* *dense* (``paged=False``, and automatically where paged caching is not
+  supported) — a layer-stacked per-slot cache with the slots as its
+  batch. In the port it serves the SSM family (mamba2), whose per-slot
+  state has a constant size.
+
+The decode loop keeps a fixed set of *slots*, each holding one in-flight
+sequence:
 
 * **admission** — requests queue on the ``Batcher``'s ``poll_only +
   enqueue_complete`` CR (paper §3.5) and are admitted into free slots at
-  step boundaries; a cold prompt is prefilled (flash kernel) and its
-  pages copied into the pool, a prompt that starts with resident pages
-  runs only its tail through the fused paged kernel (suffix prefill).
-* **decode** — one fused paged step advances every occupied slot by one
-  token. The step's next-token tensor is wrapped in a ``TensorOp`` whose
-  continuation delivers the tokens and retires finished slots (releasing
-  their pages) when the device work has *actually* finished. The host
-  loop never blocks on device work.
+  step boundaries. Paged: a cold prompt is prefilled (flash kernel) and
+  its pages copied into the pool, a prompt that starts with resident
+  pages runs only its tail through the fused paged kernel (suffix
+  prefill). Dense: a batch-1 prefill at the prompt's exact length (SSD
+  kernel), whose state is then copied into the slot's rows.
+* **decode** — one step (fused paged, or the batched dense decode)
+  advances every occupied slot by one token. The step's next-token
+  tensor is wrapped in a ``TensorOp`` whose continuation delivers the
+  tokens and retires finished slots (releasing their pages) when the
+  device work has *actually* finished. The host loop never blocks on
+  device work.
 
 What keeps the loop from blocking, in PyTorch terms:
 
@@ -28,7 +38,8 @@ What keeps the loop from blocking, in PyTorch terms:
   host copy, never a CUDA tensor (``int()``/``.item()``/``.cpu()`` there
   would sync the stream behind the next step already queued).
 
-``paged=False``, ``fused=False`` and ``speculate > 0`` are not ported yet.
+``fused=False``, ``speculate > 0`` and dense mode for families other than
+SSM are not ported yet.
 """
 from __future__ import annotations
 
@@ -42,14 +53,15 @@ import torch
 from repro_torch.core import (ContinueFlags, Engine, Promise, Scheduler,
                               TensorOp)
 from repro_torch.models import lm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import SSM, ModelConfig
 from repro_torch.obs import events as _obs_events
 from repro_torch.obs import tracer as _obs
 from repro_torch.serve.batcher import Batcher
 from repro_torch.serve.kv_cache import PagePool, paged_supported, pages_for
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.request import Request, RequestState, summarize
-from repro_torch.serve.steps import (make_fused_paged_decode_step,
+from repro_torch.serve.steps import (make_batched_decode_step,
+                                     make_fused_paged_decode_step,
                                      make_fused_paged_suffix_step,
                                      make_prefill_scatter, make_prefill_step)
 from repro_torch.util import resolve_device
@@ -84,10 +96,10 @@ class ServeEngine:
     thread may ``submit()``. ``params`` must live on ``device`` (default
     ``"cuda"``; ``"cpu"`` runs the kernels' plain versions).
 
-    Paged knobs: ``page_size`` tokens per KV page, ``max_seq_len`` (prompt
-    + generation bound per request, default ``max_cache_len``),
-    ``total_pages`` in the pool (default ``max_batch * ceil(max_seq_len /
-    page_size)``).
+    ``paged`` defaults to ``paged_supported(cfg)``. Paged knobs:
+    ``page_size`` tokens per KV page, ``max_seq_len`` (prompt + generation
+    bound per request, default ``max_cache_len``), ``total_pages`` in the
+    pool (default ``max_batch * ceil(max_seq_len / page_size)``).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *,
@@ -103,13 +115,22 @@ class ServeEngine:
                  max_seq_len: Optional[int] = None,
                  speculate: int = 0,
                  fused: Optional[bool] = None) -> None:
-        if paged is False or fused is False or speculate:
+        if fused is False or speculate:
             raise NotImplementedError(
-                f"paged=False, fused=False and speculate>0 are {_NOT_PORTED}")
-        if not paged_supported(cfg):
+                f"fused=False and speculate>0 are {_NOT_PORTED}")
+        lm.require_ported(cfg)
+        if paged is None:
+            paged = paged_supported(cfg)
+        elif paged and not paged_supported(cfg):
+            raise ValueError(
+                f"paged KV cache unsupported for {cfg.name!r} "
+                "(needs dense/MoE family, scan_layers, no sliding window)")
+        if fused and not paged:
+            raise ValueError("fused paged-attention steps require paged=True")
+        if not paged and cfg.family != SSM:
             raise NotImplementedError(
-                f"serving {cfg.name!r} (family {cfg.family!r}) is "
-                f"{_NOT_PORTED}")
+                f"dense mode (paged=False) for {cfg.name!r} (family "
+                f"{cfg.family!r}) is {_NOT_PORTED}")
         self.device = resolve_device(device)
         emb = params["embed"]["tokens"]
         if emb.device.type != self.device.type:
@@ -121,8 +142,8 @@ class ServeEngine:
         self.max_batch = int(max_batch)
         self.max_cache_len = int(max_cache_len)
         self.max_inflight = max(1, int(max_inflight))
-        self.paged = True
-        self.fused = True
+        self.paged = bool(paged)
+        self.fused = self.paged
         self.speculate = 0
         self._own_engine = engine is None
         self.engine = engine if engine is not None else \
@@ -131,30 +152,37 @@ class ServeEngine:
         self.cr_steps = self.engine.continue_init()
 
         S = self.max_batch
-        self.page_size = int(page_size)
-        self.max_seq_len = int(max_seq_len or max_cache_len)
-        self.max_pages = pages_for(self.max_seq_len, self.page_size)
-        self._table_pages = self.max_pages
-        n_pool = int(total_pages) if total_pages is not None \
-            else S * self.max_pages
-        self.pool = PagePool(cfg, n_pool, self.page_size, device=self.device)
-        self._tables = np.full((S, self._table_pages), self.pool.null_page,
-                               np.int32)
-        # device copy of _tables, re-uploaded (non-blocking) only when a
-        # placement or eviction changed a row since the last dispatch
-        self._tables_dev: Optional[torch.Tensor] = None
-        self._tables_dirty = True
-        self._decode_fn = make_fused_paged_decode_step(
-            cfg, self.page_size, self._layers)
-        self._suffix_fn = make_fused_paged_suffix_step(
-            cfg, self.page_size, self._layers)
-        self._scatter_fn = make_prefill_scatter(cfg, self.page_size)
+        self.pool: Optional[PagePool] = None
+        if self.paged:
+            self.page_size = int(page_size)
+            self.max_seq_len = int(max_seq_len or max_cache_len)
+            self.max_pages = pages_for(self.max_seq_len, self.page_size)
+            self._table_pages = self.max_pages
+            n_pool = int(total_pages) if total_pages is not None \
+                else S * self.max_pages
+            self.pool = PagePool(cfg, n_pool, self.page_size,
+                                 device=self.device)
+            self._tables = np.full((S, self._table_pages),
+                                   self.pool.null_page, np.int32)
+            # device copy of _tables, re-uploaded (non-blocking) only when a
+            # placement or eviction changed a row since the last dispatch
+            self._tables_dev: Optional[torch.Tensor] = None
+            self._tables_dirty = True
+            self._decode_fn = make_fused_paged_decode_step(
+                cfg, self.page_size, self._layers)
+            self._suffix_fn = make_fused_paged_suffix_step(
+                cfg, self.page_size, self._layers)
+            self._scatter_fn = make_prefill_scatter(cfg, self.page_size)
+        else:
+            self._decode_fn = make_batched_decode_step(cfg, self._layers)
 
         # -- slot state (loop thread only) --
         self._slots: List[Optional[Request]] = [None] * S
         self._draining: Set[int] = set()      # token budget met, step in flight
         self._pos = np.zeros(S, np.int32)     # next write position per slot
         self._tokens: Optional[torch.Tensor] = None  # next inputs (S, 1, 1)
+        # dense mode: layer-stacked caches, the S slots as their batch
+        self._cache: Optional[dict] = None
         self._inflight = 0                    # dispatched, not-yet-complete steps
         self._stalled_at: Optional[int] = None  # pages_in_use at last deferral
         self._retired: List[Request] = []
@@ -169,14 +197,15 @@ class ServeEngine:
     # ------------------------------------------------------------- clients
     def submit(self, request: Request) -> Request:
         """Thread-safe request intake (delegates to the Batcher CR)."""
-        plen = int(np.asarray(request.prompt).reshape(-1).shape[0])
-        total = plen + request.max_new_tokens
-        if total > self.max_seq_len:
-            raise ValueError(f"request needs {total} tokens > max_seq_len="
-                             f"{self.max_seq_len}")
-        if pages_for(total, self.page_size) > self.pool.total_pages:
-            raise ValueError(f"request needs more pages than the pool holds "
-                             f"({self.pool.total_pages})")
+        if self.paged:
+            plen = int(np.asarray(request.prompt).reshape(-1).shape[0])
+            total = plen + request.max_new_tokens
+            if total > self.max_seq_len:
+                raise ValueError(f"request needs {total} tokens > "
+                                 f"max_seq_len={self.max_seq_len}")
+            if pages_for(total, self.page_size) > self.pool.total_pages:
+                raise ValueError(f"request needs more pages than the pool "
+                                 f"holds ({self.pool.total_pages})")
         if request.speculate:
             raise NotImplementedError(f"speculate>0 is {_NOT_PORTED}")
         tr = _obs.TRACE
@@ -220,7 +249,12 @@ class ServeEngine:
         if self._tokens is None:
             self._tokens = torch.zeros((self.max_batch, 1, 1),
                                        dtype=torch.int32, device=self.device)
-        self.pool.ensure_arrays()
+        if self.paged:
+            self.pool.ensure_arrays()
+        elif self._cache is None:
+            self._cache = lm.init_cache(self.cfg, self.max_batch,
+                                        self.max_cache_len,
+                                        device=self.device)
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._slots) if r is None]
@@ -279,11 +313,15 @@ class ServeEngine:
                 flags=_step_flags(req.priority))
             return True
 
-        first = self._prefill_paged(req, prompt_np)
-        if first is None:
-            return False
+        if self.paged:
+            first = self._prefill_paged(req, prompt_np)
+            if first is None:
+                return False
+            slot = free.pop(0)
+        else:
+            slot = free.pop(0)
+            first = self._prefill_dense(slot, prompt_np)
         first_host = self._download(first)
-        slot = free.pop(0)
         req.push_device_token(first_host[0])
         self.stats["prefills"] += 1
         self._seat_slot(slot, req, first, plen)
@@ -296,17 +334,30 @@ class ServeEngine:
     def _seat_slot(self, slot: int, req: Request, token0: torch.Tensor,
                    plen: int) -> None:
         """Seat a prefilled request into decode slot ``slot``: its page
-        table row, next input token (device (1,) tensor, written in place
-        behind the prefill on the stream) and position."""
+        table row (paged), next input token (device (1,) tensor, written in
+        place behind the prefill on the stream) and position."""
         tr = _obs.TRACE
         if tr is not None and tr.want(req.req_id):
             tr.evt(_obs_events.REQ_SEAT, req.req_id, "engine", meta=slot)
-        self._tables[slot, :] = self.pool.null_page
-        self._tables[slot, :len(req.page_ids)] = req.page_ids
-        self._tables_dirty = True
+        if self.paged:
+            self._tables[slot, :] = self.pool.null_page
+            self._tables[slot, :len(req.page_ids)] = req.page_ids
+            self._tables_dirty = True
         self._tokens[slot, 0, 0] = token0[0]
         self._pos[slot] = plen
         self._slots[slot] = req
+
+    def _prefill_dense(self, slot: int,
+                       prompt_np: np.ndarray) -> torch.Tensor:
+        """Batch-1 prefill at the prompt's exact length, writing its state
+        straight into ``slot``'s rows of the stacked cache (views; the
+        writes queue on the stream behind any step still reading the slot's
+        old rows). Returns the first-token tensor (1,) int32 on the
+        device."""
+        views = {name: t[:, slot:slot + 1] for name, t in self._cache.items()}
+        logits, _ = lm.lm_prefill(
+            self.params, {"tokens": self._upload(prompt_np)}, self.cfg, views)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     def _prefill_paged(self, req: Request,
                        prompt_np: np.ndarray) -> Optional[torch.Tensor]:
@@ -422,15 +473,23 @@ class ServeEngine:
         if not live:
             return False
         S = self.max_batch
-        # n_valid: 1 = write this slot's token, 0 = idle/draining slot (the
-        # kernel writes nothing for it and outputs zeros); one upload
-        meta = np.zeros(2 * S, np.int32)
-        meta[:S] = self._pos
-        meta[[S + i for i, _ in live]] = 1
-        dev = self._upload(meta)
-        nxt, _ = self._decode_fn(self.params, self.pool.arrays,
-                                 self._tokens, dev[:S],
-                                 self._device_tables(), dev[S:])
+        if self.paged:
+            # n_valid: 1 = write this slot's token, 0 = idle/draining slot
+            # (the kernel writes nothing for it and outputs zeros); one
+            # upload
+            meta = np.zeros(2 * S, np.int32)
+            meta[:S] = self._pos
+            meta[[S + i for i, _ in live]] = 1
+            dev = self._upload(meta)
+            nxt, _ = self._decode_fn(self.params, self.pool.arrays,
+                                     self._tokens, dev[:S],
+                                     self._device_tables(), dev[S:])
+        else:
+            # every slot steps, as under the reference's vmap; an idle
+            # slot's rows are garbage until a prefill overwrites them. The
+            # SSM decode reads no position, so none is uploaded.
+            nxt, _ = self._decode_fn(self.params, self._cache, self._tokens,
+                                     None)
         host = self._download(nxt)
         self._tokens = nxt[..., None]                       # (S, 1, 1)
         stepped: List[Tuple[int, Request, bool]] = []
@@ -513,12 +572,13 @@ class ServeEngine:
         exit path funnels through here, so pages can never leak)."""
         self._slots[slot] = None
         self._pos[slot] = 0
-        self._tables[slot, :] = self.pool.null_page
-        self._tables_dirty = True
+        if self.paged:
+            self._tables[slot, :] = self.pool.null_page
+            self._tables_dirty = True
         self._release_pages(req)
 
     def _release_pages(self, req: Request) -> None:
-        if req.page_ids:
+        if self.paged and req.page_ids:
             tr = _obs.TRACE
             if tr is not None and tr.want(req.req_id):
                 tr.evt(_obs_events.REQ_PAGES_RELEASE, req.req_id, "engine",
@@ -590,7 +650,8 @@ class ServeEngine:
         out["paged"] = self.paged
         out["fused"] = self.fused
         out["speculate"] = self.speculate
-        out.update(self.pool.metrics())
+        if self.paged:
+            out.update(self.pool.metrics())
         return out
 
     def metrics(self) -> ServeMetrics:

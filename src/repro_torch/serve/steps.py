@@ -1,5 +1,6 @@
-"""Serving step factories: prefill, dense decode, fused paged decode and
-suffix prefill, the prefill scatter, and the ``greedy_generate`` oracle.
+"""Serving step factories: prefill, dense decode, the dense-mode batched
+slot decode, fused paged decode and suffix prefill, the prefill scatter,
+and the ``greedy_generate`` oracle.
 
 Counterpart of ``repro/serve/steps.py``. The reference's steps are jitted
 with donated caches; here they are plain functions that queue work on the
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import SSM, ModelConfig
 from repro_torch.util import resolve_device
 
 
@@ -40,6 +41,32 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     def decode(params, cache, token, pos):
         return lm.lm_decode_step(params, token, cfg, cache, pos)
     return decode
+
+
+def make_batched_decode_step(cfg: ModelConfig,
+                             layers: Optional[list] = None) -> Callable:
+    """Dense-mode slot decode: ``(params, caches, tokens (S,1,1),
+    positions (S,) or None) → (next_tokens (S,1) int32, caches)``, one
+    decode step
+    over every slot with the greedy argmax in the step. ``caches`` is the
+    layer-stacked per-slot cache with the S slots as its batch, updated in
+    place. The reference vmaps a batch-1 decode over the slots; the SSM
+    decode is per row, so one batch of S is the same function. Only the
+    SSM family is served this way (its decode reads no position); a dense
+    decoder's cache is written at one position for the whole batch here,
+    so it raises. ``layers`` are ``lm.layer_views(params)`` computed once
+    by the caller."""
+    if cfg.family != SSM:
+        raise NotImplementedError(
+            f"dense-mode batched decode of family {cfg.family!r} is not "
+            "yet ported; see ROADMAP")
+
+    def step(params, caches, tokens, positions):
+        logits, caches = lm.lm_decode_step(params, tokens[:, 0, :], cfg,
+                                           caches, positions, layers=layers)
+        nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        return nxt, caches
+    return step
 
 
 def make_fused_paged_decode_step(cfg: ModelConfig, page_size: int,

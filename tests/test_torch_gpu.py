@@ -9,14 +9,17 @@ hold the plain versions against the JAX package instead.
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+STATE_TOL = 1e-4
 
 
 @pytest.fixture
@@ -34,7 +37,8 @@ def _randn(gen, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(8, 768), (513, 768), (3, 64)])
+@pytest.mark.parametrize("rows,d", [(8, 768), (513, 768), (3, 64),
+                                    (8, 1024)])
 def test_rmsnorm_kernel(cuda, dtype, rows, d):
     x = _randn(cuda, (rows, d), dtype)
     scale = 1 + 0.1 * torch.randn((d,), generator=cuda, device="cuda")
@@ -93,3 +97,54 @@ def test_paged_attention_kernel(cuda, dtype, W, positions, n_valid):
     # pools bit-exact everywhere: neither version writes the null page
     assert torch.equal(kk, kq) and torch.equal(vk, vq)
     assert torch.equal(kk[P], kp[P])
+
+
+def _ssd_inputs(gen, B, T, H, P, G, N, dtype):
+    """Inputs shaped like mamba2's: dt ~ softplus(N(-3, 0.5)), A from
+    -linspace(1, 16), |y| below 4 so one bf16 rounding step stays within
+    the bf16 tolerance; D differs per head."""
+    x = (0.5 * torch.randn((B, T, H, P), generator=gen, device="cuda")
+         ).to(dtype)
+    dt = F.softplus(0.5 * torch.randn((B, T, H), generator=gen,
+                                      device="cuda") - 3)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = (torch.randn((B, T, G, N), generator=gen, device="cuda")
+          * N ** -0.25).to(dtype)
+    Cm = (torch.randn((B, T, G, N), generator=gen, device="cuda")
+          * N ** -0.25).to(dtype)
+    D = 1 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
+    return x, dt, A, Bm, Cm, D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,G", [
+    (1, 512, 1),      # mamba2-370m prefill of a 512-token prompt
+    (1, 509, 1),      # a prime length: masked tail chunk
+    (4, 256, 1),      # several sequences
+    (2, 100, 4),      # groups, and a tail of 36 rows
+    (1, 7, 1),        # shorter than one chunk
+])
+def test_ssd_scan_kernel(cuda, dtype, B, T, G):
+    args = _ssd_inputs(cuda, B, T, 32, 64, G, 128, dtype)
+    n0 = ssd.LAUNCHES
+    y, final = ssd.ssd_scan(*args, return_state=True)
+    assert ssd.LAUNCHES == n0 + 1
+    y_only = ssd.ssd_scan(*args)
+    y_ref, final_ref = ssd.ssd_scan_plain(*args, return_state=True)
+    assert y.dtype == dtype and final.dtype == torch.float32
+    assert float((y.float() - y_ref.float()).abs().max()) <= TOL[dtype]
+    # the state is fp32 on both sides, from the same inputs
+    assert float((final - final_ref).abs().max()) <= STATE_TOL
+    assert torch.equal(y, y_only)
+
+
+def test_ssd_scan_refuses_uninstantiated_sizes(cuda):
+    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, 1, 64, 4, 32, 1, 16,
+                                      torch.float32)
+    n0 = ssd.LAUNCHES
+    with pytest.raises(ValueError, match="no kernel for head_dim 32"):
+        ssd.ssd_scan(x, dt, A, Bm, Cm, D)
+    args = _ssd_inputs(cuda, 1, 64, 4, 64, 1, 128, torch.float32)
+    with pytest.raises(ValueError, match="chunk 32"):
+        ssd.ssd_scan(*args, chunk=32)
+    assert ssd.LAUNCHES == n0

@@ -17,10 +17,13 @@ from repro.kernels.paged_attention import kernel as pa_kernel
 from repro.kernels.paged_attention import ref as pa_ref
 from repro.kernels.rmsnorm import kernel as rn_kernel
 from repro.kernels.rmsnorm import ref as rn_ref
+from repro.kernels.ssd_scan import kernel as ssd_kernel
+from repro.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 RMS_TOL = dict(atol=1e-6, rtol=1e-6)
 TOL = dict(atol=2e-5, rtol=2e-5)      # the JAX kernel tests' float32 TOL
@@ -184,6 +187,51 @@ def test_paged_shared_page_read_only():
     np.testing.assert_array_equal(k_p[0], arrs["k_pages"][0])
 
 
+# ------------------------------------------------------------------ SSD scan
+@pytest.mark.parametrize("B,T,H,P,G,N,bf16", [
+    (2, 64, 4, 16, 1, 16, False),     # two full chunks
+    (1, 37, 4, 16, 2, 16, False),     # prime T (masked tail chunk), G > 1
+    (2, 20, 4, 8, 4, 8, False),       # T < chunk, one group per head
+    (1, 96, 2, 16, 1, 16, False),     # three chunks
+    (1, 50, 4, 16, 2, 16, True),      # bf16, masked tail
+])
+def test_ssd_scan_matches_jax(B, T, H, P, G, N, bf16):
+    """The port keeps chunk 32 and pads the tail; the reference runs the
+    largest chunk that divides T (1 for a prime T above 32), as the JAX
+    model's chunk search picks it. y and the final state agree to fp32
+    rounding (1e-4), or in bf16 to one rounding step of |y| < 2 (2e-2)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(B, T, H, P))
+    dt = np.log1p(np.exp(rng.normal(size=(B, T, H)))) * 0.1
+    A = -np.exp(rng.normal(size=H)) * 0.5
+    Bm = rng.normal(size=(B, T, G, N)) * N ** -0.25
+    Cm = rng.normal(size=(B, T, G, N)) * N ** -0.25
+    D = rng.normal(size=H) * 0.1
+    f32 = [a.astype(np.float32) for a in (x, dt, A, Bm, Cm, D)]
+    tdt, jdt = (torch.bfloat16, jnp.bfloat16) if bf16 else \
+        (torch.float32, jnp.float32)
+    targs = [_t(a) for a in f32]
+    jargs = [jnp.asarray(a) for a in f32]
+    for i in (0, 3, 4):              # x, B and C in the working dtype
+        targs[i] = targs[i].to(tdt)
+        jargs[i] = jargs[i].astype(jdt)
+    chunk = min(32, T)
+    while T % chunk:
+        chunk -= 1
+    y, final = ssd.ssd_scan(*targs, chunk=32, return_state=True)
+    assert y.dtype == tdt and final.dtype == torch.float32
+    assert torch.equal(ssd.ssd_scan(*targs, chunk=32), y)
+    want_y, want_state = ssd_ref.ssd_chunked(*jargs, chunk=chunk)
+    want_kernel = ssd_kernel.ssd_scan(*jargs, chunk=chunk, interpret=True)
+    tol = dict(atol=2e-2 if bf16 else 1e-4, rtol=0)
+    got = y.float().numpy()
+    assert not bf16 or np.abs(got).max() < 2
+    np.testing.assert_allclose(got, np.asarray(want_y, np.float32), **tol)
+    np.testing.assert_allclose(got, np.asarray(want_kernel, np.float32),
+                               **tol)
+    np.testing.assert_allclose(final.numpy(), np.asarray(want_state), **tol)
+
+
 # ------------------------------------------------------------- no fallback
 def test_wrappers_refuse_devices_without_a_kernel():
     """Only CPU tensors take the plain versions; any other device must
@@ -202,6 +250,14 @@ def test_wrappers_refuse_devices_without_a_kernel():
                            torch.empty((1, 2), **i32),
                            torch.empty((1,), **i32),
                            torch.empty((1,), **i32), page_size=4)
+    f32 = dict(dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd.ssd_scan(torch.empty((1, 64, 32, 64), **meta),
+                     torch.empty((1, 64, 32), **f32),
+                     torch.empty((32,), **f32),
+                     torch.empty((1, 64, 1, 128), **meta),
+                     torch.empty((1, 64, 1, 128), **meta),
+                     torch.empty((32,), **f32))
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -222,5 +278,5 @@ def test_build_digest_tracks_sources():
     """The build directory is keyed by every kernel source."""
     names = {p.name for p in _build.sources()}
     assert names == {"rmsnorm.cu", "flash_attention.cu",
-                     "paged_attention.cu"}
+                     "paged_attention.cu", "ssd_scan.cu"}
     assert len(_build.digest()) == 16

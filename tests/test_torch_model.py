@@ -109,11 +109,19 @@ def test_bf16_leaves_convert_bit_exactly():
 
 
 def test_other_families_not_ported():
+    """Dense and SSM are ported; MoE, hybrid (zamba2), audio enc-dec and
+    VLM still raise, as config and as model."""
     jcfg, tcfg = _cfgs()
+    for family in ("moe", "hybrid", "audio", "vlm"):
+        with pytest.raises(NotImplementedError):
+            lm.init_params(dataclasses.replace(tcfg, family=family),
+                           device="cpu")
     with pytest.raises(NotImplementedError):
-        lm.init_params(dataclasses.replace(tcfg, family="ssm"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        get_config("mamba2_370m")
+        lm.init_params(dataclasses.replace(tcfg, frontend_dim=64),
+                       device="cpu")
+    for name in ("zamba2_1p2b", "qwen3_moe_235b_a22b", "whisper_large_v3"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(name)
 
 
 # ------------------------------------------------------------------ layers

@@ -202,10 +202,24 @@ def test_capacity_deferral_serves_everything(model):
 
 
 def test_unported_options_and_missing_cuda_raise(model):
+    """``fused=False``, ``speculate>0`` and dense mode for the dense family
+    still raise; an SSM config constructs, in dense mode, and refuses the
+    paged cache it has no use for."""
     _, tcfg, _, tp = model
     for kw in (dict(paged=False), dict(fused=False), dict(speculate=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServeEngine(tcfg, tp, device="cpu", **kw)
+    scfg = get_config("mamba2_370m", reduced=True, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    sp = lm.init_params(scfg, seed=0, device="cpu")
+    eng = ServeEngine(scfg, sp, device="cpu")
+    assert not eng.paged and not eng.fused and eng.pool is None
+    eng.shutdown()
+    with pytest.raises(ValueError, match="paged KV cache unsupported"):
+        ServeEngine(scfg, sp, device="cpu", paged=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ServeEngine(dataclasses.replace(tcfg, family="moe"), tp,
+                    device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ServeEngine(tcfg, tp)
