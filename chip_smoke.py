@@ -10,7 +10,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes, in fp32 (TF32 off) and bf16, with its median
    time over CUDA-event-timed runs beside its bound and, where one PyTorch
-   call computes the same function, that call's time;
+   call computes the same function, that call's time and the ratio of the
+   two; paged attention at decode (one idle slot, and all 8 slots at
+   900-1023 positions) and at suffix windows of 16 and 256 rows;
 4. fp32 identity — ``paper_demo`` at full width in fp32 served by the
    engine (paged kernel) must emit the tokens of the port's
    ``greedy_generate`` oracle (dense decode, no paged kernel) up to the
@@ -190,15 +192,22 @@ def check_flash(dtype, gen, dev):
 
 def paged_case(kind, dtype, gen, dev):
     """Main-path paged shapes: ``decode`` S=8, W=1, mixed positions, one
-    idle slot; ``suffix`` S=1, W=16 over 16 shared prefix pages."""
+    idle slot; ``decode_full`` all 8 slots live at 900-1023 positions
+    (where splitting positions over blocks pays most); ``suffix`` S=1,
+    W=16 over 16 shared prefix pages; ``suffix256`` S=1, W=256 (a long
+    page-padded tail, 250 rows valid) over the same 16 prefix pages."""
     ps, T, KV, G, hd = 16, 64, 4, 3, 64
     H = KV * G
     P = 512
     perm = torch.randperm(P, generator=torch.Generator().manual_seed(7))
-    if kind == "decode":
+    if kind in ("decode", "decode_full"):
         S, W = 8, 1
-        positions = [17, 100, 255, 300, 511, 640, 1000, 0]
-        n_valid = [1, 1, 1, 1, 1, 1, 1, 0]
+        if kind == "decode":
+            positions = [17, 100, 255, 300, 511, 640, 1000, 0]
+            n_valid = [1, 1, 1, 1, 1, 1, 1, 0]
+        else:
+            positions = [900, 917, 934, 951, 968, 985, 1002, 1023]
+            n_valid = [1] * S
         tables = np.full((S, T), P, np.int32)
         nxt = 0
         for s in range(S):
@@ -206,10 +215,11 @@ def paged_case(kind, dtype, gen, dev):
             tables[s, :need] = perm[nxt:nxt + need].numpy()
             nxt += need
     else:
-        S, W = 1, 16
-        positions, n_valid = [256], [13]
+        S, W, nv = (1, 16, 13) if kind == "suffix" else (1, 256, 250)
+        positions, n_valid = [256], [nv]
         tables = np.full((S, T), P, np.int32)
-        tables[0, :17] = perm[:17].numpy()   # 16 shared pages + the tail's
+        need = -(-(256 + W) // ps)       # 16 shared pages + the tail's
+        tables[0, :need] = perm[:need].numpy()
     q = torch.randn((S, W, H, hd), generator=gen, device=dev).to(dtype)
     kn = torch.randn((S, W, KV, hd), generator=gen, device=dev).to(dtype)
     vn = torch.randn((S, W, KV, hd), generator=gen, device=dev).to(dtype)
@@ -359,6 +369,10 @@ def phase_kernels(dev, label):
                  ("flash_attention", check_flash(dtype, gen, dev)),
                  ("paged_attention", check_paged("decode", dtype, gen, dev)),
                  ("paged_attention", check_paged("suffix", dtype, gen, dev)),
+                 ("paged_attention", check_paged("decode_full", dtype, gen,
+                                                 dev)),
+                 ("paged_attention", check_paged("suffix256", dtype, gen,
+                                                 dev)),
                  ("ssd_scan", check_ssd(dtype, 1, 512, gen, dev)),
                  ("ssd_scan", check_ssd(dtype, 1, 509, gen, dev)),
                  ("ssd_scan", check_ssd(dtype, 4, 256, gen, dev))]
@@ -375,7 +389,8 @@ def phase_kernels(dev, label):
                 + (f" pools_exact={r['pools_exact']}"
                    if "pools_exact" in r else "")
                 + f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-                + (f", library {lib:.4f} ms" if lib is not None else "")
+                + (f", library {lib:.4f} ms (kernel/library "
+                   f"{r['ms'] / lib:.2f}x)" if lib is not None else "")
                 + f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
             if not ok:
                 raise AssertionError(f"{name} {dtype} disagrees with its "

@@ -38,7 +38,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 // Stage KT key rows of K and V into shared memory as fp32 (row stride
-// HD + 1 floats). `row(t, k, v)` points k and v at key row t's HD elements
+// HD + 1 floats). Used by the paged kernel (both dtypes) and the fp32
+// flash kernel. `row(t, k, v)` points k and v at key row t's HD elements
 // in device memory and returns true, or returns false for a row that is
 // staged as zeros. Every row is read as 16-byte vectors, and all of a
 // thread's loads are issued before any is used, so a tile costs about one
@@ -81,6 +82,9 @@ __device__ __forceinline__ void stage_tile(float* Ks, float* Vs, Row row) {
   }
 }
 
+// RowState and attend_tile serve only the fp32 flash kernel (the bf16 one
+// runs on tensor cores, the paged one spreads keys over threads).
+//
 // Online-softmax state of one query row. The row is split over a quad of 4
 // consecutive lanes; lane `sub` of the quad owns output columns
 // d = sub + 4*i (interleaved, so the quad's shared-memory reads of a value

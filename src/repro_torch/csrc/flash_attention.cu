@@ -6,26 +6,53 @@
 // carries (m, l, acc) in VMEM scratch. Here that axis becomes a loop inside
 // the block, and the state lives in registers.
 //
-// What bounds it here: at prefill shapes (Sq = Sk = 512, H = 12, D = 64)
-// the work is ~0.4 GFLOP on ~2.4 MB of q/k/v/o, so the tensor-core bound is
-// well under a microsecond and the bytes bound about one; this first
-// version does its products with fp32 FMAs (no mma/wgmma), so it is bound
-// by FMA issue, not by either. It also runs only (Sq / 64) * H * B blocks
-// (96 at the shape above) on 132 SMs.
+// What bounds it on the H100: at prefill shapes (Sq = Sk = 512, H = 12,
+// D = 64) the work is ~0.4 GFLOP on ~2.4 MB of q/k/v/o, so the tensor-core
+// bound is under a microsecond and the bytes bound about one. What the
+// kernel actually waits on is the serial walk of the last causal q tiles
+// over the KV tiles: each tile's two products and its softmax lie on that
+// path, and with loads cut out the kernel takes nearly as long, so each
+// warp's chain of dependent instructions, not memory, is the limit. The
+// first version (PR 11) ran both products on fp32 FMAs from fp32-staged
+// shared memory: 0.0897 ms against 0.0136 ms for
+// scaled_dot_product_attention (PR 13's chip run, NVIDIA H100 80GB HBM3,
+// 700 W). This design: 0.0125 ms against SDPA's 0.0132 ms in the same
+// run (0.94x), B = 1, Sq = Sk = 512 (chip_smoke.py phase 3, PR 14's chip
+// run, same card and power limit).
 //
-// Design: one 256-thread block per (64-row q tile, q head, batch). Each
-// quad of 4 lanes owns one query row: the whole row sits in registers
-// (fp32), and lane `sub` keeps output columns sub + 4*i. The block loops
-// over 64-row K/V tiles of kv head h / G, read as 16-byte vectors and
-// staged in shared memory as fp32, and stops at the causal horizon; tiles
-// wholly outside a sliding window are skipped. Scores, running max and
-// running sum are fp32 with the JAX kernel's -1e30 mask and its guards for
-// fully masked rows.
+// bf16 design (tensor cores): one block per (32-row q tile, head, batch)
+// of 2 x 4 warps; each row warp owns 16 query rows, and the four KV
+// groups of warps walk every fourth 32-key KV tile, so each warp's serial
+// chain is a quarter of the walk; group 0 merges the four (m, l, acc)
+// through shared memory at the end. QK^T and PV run as mma.sync.m16n8k16
+// bf16 -> fp32, operands loaded with ldmatrix from bf16 shared memory
+// (rows of 128 bytes, 16-byte chunks XOR-swizzled by row so ldmatrix is
+// free of bank conflicts). The probabilities stay in registers: the QK^T
+// accumulators are rounded to bf16 and reused as the A operand of PV (the
+// plain version also rounds probabilities to q's dtype); the softmax runs
+// in base 2 with the scale folded in. Rounds of four K/V tiles are
+// double-buffered with cp.async, so the next round's loads overlap this
+// round's products. Blocks are ordered heaviest-first (the last causal q
+// tiles get the lowest block index) to shorten the causal tail. wgmma
+// with TMA (the Hopper-native shape) would raise the tensor-core rate, but
+// at these sizes (0.4 GFLOP a call) the serial latency of the KV walk, not
+// the rate, bounds the kernel.
+//
+// fp32 design (FMAs; tensor cores would mean TF32, which breaks the fp32
+// tolerance): one 256-thread block per (64-row q tile, head, batch); each
+// quad of 4 lanes owns one query row in registers; 64-row K/V tiles are
+// staged in shared memory as fp32 (common.cuh stage_tile / attend_tile).
+//
+// Both: scores, running max and running sum in fp32 with the JAX kernel's
+// -1e30 mask and its guards for fully masked rows; tiles wholly in the
+// causal future end the loop, tiles wholly before every row's window are
+// skipped.
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
+// ----------------------------------------------------------- fp32 (FMAs)
 constexpr int kRows = 64;     // query rows per block
 constexpr int kKeys = 64;     // keys per staged tile
 constexpr int kThreads = 4 * kRows;
@@ -100,33 +127,430 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, causal,
-      window, q_offset, scale);
+// ------------------------------------------------- bf16 (tensor cores)
+using bf16 = __nv_bfloat16;
+constexpr int kMmaHD = 64;      // head_dim of the tensor-core kernel
+constexpr int kMmaKeys = 32;    // keys per K/V tile
+constexpr int kChunks = kMmaHD * 2 / 16;   // 16-byte chunks per row (8)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// element offset of 16-byte chunk c of row r in a [rows][64] bf16 tile,
+// the chunk index XORed with the row's low 3 bits
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kMmaHD + ((c ^ (r & 7)) << 3);
+}
+
+// 16-byte global -> shared copy; with `full` false it writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a * b for one m16n8k16 tile, bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU instruction (inputs of -1e30 give 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t. A holds
+// rows g and g + 8, columns 2t, 2t + 1 (+ 8); B holds k rows 2t, 2t + 1
+// (+ 8) of column g; the accumulator holds rows g (c0, c1) and g + 8
+// (c2, c3), columns 2t, 2t + 1. Each thread so owns two query rows.
+//
+// Block: kRowWarps x kGroups warps. Row warp rw owns query rows
+// 16rw .. 16rw + 15 of the q tile; KV group grp walks the tile's KV tiles
+// t_begin + grp, t_begin + grp + kGroups, ..., so the serial chain of each
+// warp is 1 / kGroups of the walk. All warps load each round's kGroups
+// tiles together (cp.async, two rounds in flight); at the end the groups'
+// (m, l, acc) are merged through shared memory by group 0. The shape
+// (2 row warps, 4 groups, 32-key tiles) is the fastest of those measured
+// at the prefill shape (B = 1, Sq = 512): 32-row q tiles give 192 blocks
+// on 132 SMs where 64-row ones give 96, and four groups of short tiles
+// cut each warp's serial chain to a quarter of the walk.
+constexpr int kRowWarps = 2;
+constexpr int kGroups = 4;
+constexpr int kMmaThreads = kRowWarps * kGroups * 32;
+constexpr int kMmaSmemBytes =
+    (16 * kRowWarps * kMmaHD + 2 * kGroups * 2 * kMmaKeys * kMmaHD)
+    * static_cast<int>(sizeof(bf16));
+
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         int Sq, int Sk, int H, int KV, int causal,
+                         int window, int q_offset, float scale) {
+  constexpr int HD = kMmaHD;
+  constexpr int kQRows = 16 * kRowWarps;
+  constexpr int kNT = kMmaThreads;
+  constexpr int kTile = kMmaKeys * HD;          // elements of one K tile
+  constexpr int kState = HD / 8 * 4 + 4;        // acc, m[2], l[2] a lane
+  static_assert((kGroups - 1) * kRowWarps * kState * 32 * 4
+                    <= 2 * kGroups * 2 * kTile * 2,
+                "the merge must fit in the K/V buffers");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KVs = Qs + kQRows * HD;   // [stage][group][K, V][kMmaKeys][HD]
+  auto k_tile = [&](int stage, int grp) {
+    return KVs + (stage * kGroups + grp) * 2 * kTile;
+  };
+
+  // heaviest first: the q tile is the slowest grid index, counted down
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int rw = warp % kRowWarps;
+  const int grp = warp / kRowWarps;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q_row0 = qt * kQRows;              // first row of the tile
+  const int q_start = q_row0 + q_offset;       // its absolute position
+  const int q_last = min(q_row0 + kQRows, Sq) - 1 + q_offset;
+  const int w_first = q_start + rw * 16;       // this warp's rows
+  const int w_last = w_first + 15;
+  // scores are kept as s * scale * log2(e), so exp(x) becomes 2^x
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  const size_t q_stride = static_cast<size_t>(H) * HD;
+  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const bf16* qb = q + static_cast<size_t>(b) * Sq * q_stride
+                   + static_cast<size_t>(h) * HD;
+  const bf16* kb = k + static_cast<size_t>(b) * Sk * kv_stride
+                   + static_cast<size_t>(kvh) * HD;
+  const bf16* vb = v + static_cast<size_t>(b) * Sk * kv_stride
+                   + static_cast<size_t>(kvh) * HD;
+
+  // the KV tiles this q tile visits, with the JAX kernel's skips
+  const int n_tiles = (Sk + kMmaKeys - 1) / kMmaKeys;
+  int t_end = n_tiles;
+  if (causal) t_end = q_last < 0 ? 0 : min(n_tiles, q_last / kMmaKeys + 1);
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q_start - window - kMmaKeys + 1;  // last skipped k_start
+    t_begin = x < 0 ? 0 : x / kMmaKeys + 1;
+  }
+  const int n_rounds = max(0, (t_end - t_begin + kGroups - 1) / kGroups);
+
+#pragma unroll
+  for (int i = 0; i < kQRows * kChunks / kNT; ++i) {
+    const int idx = tid + i * kNT;
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const bool ok = q_row0 + r < Sq;
+    cp_async16(smem_u32(&Qs[swz(r, c)]),
+               qb + (ok ? q_row0 + r : 0) * q_stride + c * 8, ok);
+  }
+  auto load_round = [&](int round, int stage) {
+#pragma unroll
+    for (int i = 0; i < kGroups * kMmaKeys * kChunks / kNT; ++i) {
+      const int idx = tid + i * kNT;
+      const int gi = idx / (kMmaKeys * kChunks);
+      const int r = (idx / kChunks) % kMmaKeys;
+      const int c = idx % kChunks;
+      const int t = t_begin + round * kGroups + gi;
+      if (t >= t_end) continue;                // this group idles
+      const int kp = t * kMmaKeys + r;
+      const bool ok = kp < Sk;                 // KV tail: zeros
+      const size_t off = (ok ? kp : 0) * kv_stride + c * 8;
+      bf16* kt = k_tile(stage, gi);
+      cp_async16(smem_u32(&kt[swz(r, c)]), kb + off, ok);
+      cp_async16(smem_u32(&kt[kTile + swz(r, c)]), vb + off, ok);
+    }
+  };
+  if (n_rounds > 0) load_round(0, 0);
+  cp_async_commit();
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_row[2] = {kNegInf, kNegInf};
+  float l_part[2] = {0.f, 0.f};   // this thread's share of the row sums
+  uint32_t qf[HD / 16][4];        // the warp's Q as A fragments
+
+  for (int round = 0; round < n_rounds; ++round) {
+    const int stage = round & 1;
+    if (round + 1 < n_rounds) {
+      load_round(round + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (round == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ldsm_x4(qf[kk], smem_u32(&Qs[swz(rw * 16 + (lane & 7)
+                                              + ((lane >> 3) & 1) * 8,
+                                          kk * 2 + (lane >> 4))]));
+    }
+    const int t = t_begin + round * kGroups + grp;
+    const int k0 = t * kMmaKeys;
+    // a tile past the walk, or wholly in this warp's causal future, leaves
+    // the warp's state as it is
+    if (t < t_end && !(causal && k0 > w_last)) {
+      const bf16* Kt = k_tile(stage, grp);
+      const bf16* Vt = Kt + kTile;
+      float s[kMmaKeys / 8][4];
+#pragma unroll
+      for (int n = 0; n < kMmaKeys / 8; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // all fragments of this half first, then the products
+        uint32_t kf[kMmaKeys / 8][4];
+#pragma unroll
+        for (int n = 0; n < kMmaKeys / 8; ++n)
+          ldsm_x4(kf[n], smem_u32(&Kt[swz(n * 8 + (lane & 7),
+                                          half * 4 + (lane >> 3))]));
+#pragma unroll
+        for (int n = 0; n < kMmaKeys / 8; ++n)
+          mma_bf16(s[n], qf[2 * half], kf[n][0], kf[n][1]);
+#pragma unroll
+        for (int n = 0; n < kMmaKeys / 8; ++n)
+          mma_bf16(s[n], qf[2 * half + 1], kf[n][2], kf[n][3]);
+      }
+      // scale and mask; a tile that every row of the warp sees whole
+      // skips the per-element test
+      const bool whole = k0 + kMmaKeys <= Sk
+                         && (!causal || k0 + kMmaKeys - 1 <= w_first)
+                         && (window <= 0 || k0 > w_last - window);
+#pragma unroll
+      for (int n = 0; n < kMmaKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
+          const int qpos = w_first + g + (e >> 1) * 8;
+          bool ok = whole;
+          if (!whole) {
+            ok = kpos < Sk;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && kpos > qpos - window;
+          }
+          s[n][e] = ok ? s[n][e] * scale_log2 : kNegInf;
+        }
+      }
+      // online softmax for the thread's two rows (a row spans a quad), in
+      // the base-2 domain; max and sum as trees, not serial chains
+      float mx[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float t[kMmaKeys / 8];
+#pragma unroll
+        for (int n = 0; n < kMmaKeys / 8; ++n)
+          t[n] = fmaxf(s[n][2 * i], s[n][2 * i + 1]);
+#pragma unroll
+        for (int w = kMmaKeys / 16; w > 0; w >>= 1)
+#pragma unroll
+          for (int n = 0; n < w; ++n) t[n] = fmaxf(t[n], t[n + w]);
+        mx[i] = fmaxf(t[0], __shfl_xor_sync(0xffffffffu, t[0], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      }
+      float alpha[2], m_use[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m_row[i], mx[i]);
+        alpha[i] = (m_row[i] <= kNegInf) ? 0.f : exp2_approx(m_row[i] - m_new);
+        m_row[i] = m_new;
+        // a fully masked row subtracts 0, so its -1e30 scores give p = 0
+        // (exp(NEG_INF - NEG_INF) = 1 otherwise): the JAX kernel's guard
+        m_use[i] = (m_new <= kNegInf) ? 0.f : m_new;
+      }
+      float rs[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float t[kMmaKeys / 8];
+#pragma unroll
+        for (int n = 0; n < kMmaKeys / 8; ++n) {
+          s[n][2 * i] = exp2_approx(s[n][2 * i] - m_use[i]);
+          s[n][2 * i + 1] = exp2_approx(s[n][2 * i + 1] - m_use[i]);
+          t[n] = s[n][2 * i] + s[n][2 * i + 1];
+        }
+#pragma unroll
+        for (int w = kMmaKeys / 16; w > 0; w >>= 1)
+#pragma unroll
+          for (int n = 0; n < w; ++n) t[n] += t[n + w];
+        rs[i] = t[0];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_part[i] = l_part[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // PV: the probabilities of keys 16kk..16kk+15 as an A fragment
+#pragma unroll
+      for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t vf[HD / 16][4];
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np)
+          ldsm_x4_trans(vf[np], smem_u32(&Vt[swz(kk * 16 + (lane & 7)
+                                                     + ((lane >> 3) & 1) * 8,
+                                                 np * 2 + (lane >> 4))]));
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          mma_bf16(acc[2 * np], pa, vf[np][0], vf[np][1]);
+          mma_bf16(acc[2 * np + 1], pa, vf[np][2], vf[np][3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block (a tile-less q tile)
+
+  float l_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_row[i] = l_part[i];
+    l_row[i] += __shfl_xor_sync(0xffffffffu, l_row[i], 1);
+    l_row[i] += __shfl_xor_sync(0xffffffffu, l_row[i], 2);
+  }
+  {
+    // groups 1.. hand their state to group 0 through the K/V buffers
+    float* red = reinterpret_cast<float*>(KVs);
+    __syncthreads();
+    if (grp > 0) {
+      float* mine = red + ((grp - 1) * kRowWarps + rw) * kState * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = acc[n][e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mine[(HD / 2 + i) * 32] = m_row[i];
+        mine[(HD / 2 + 2 + i) * 32] = l_row[i];
+      }
+    }
+    __syncthreads();
+    if (grp > 0) return;
+#pragma unroll
+    for (int og = 1; og < kGroups; ++og) {
+      const float* theirs =
+          red + ((og - 1) * kRowWarps + rw) * kState * 32 + lane;
+      float a_me[2], a_them[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_them = theirs[(HD / 2 + i) * 32];
+        const float m_new = fmaxf(m_row[i], m_them);
+        a_me[i] = (m_row[i] <= kNegInf) ? 0.f : exp2_approx(m_row[i] - m_new);
+        a_them[i] = (m_them <= kNegInf) ? 0.f : exp2_approx(m_them - m_new);
+        l_row[i] = l_row[i] * a_me[i]
+                   + theirs[(HD / 2 + 2 + i) * 32] * a_them[i];
+        m_row[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = acc[n][e] * a_me[e >> 1]
+                      + theirs[(4 * n + e) * 32] * a_them[e >> 1];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float inv = 1.f / fmaxf(l_row[i], 1e-30f);
+    const int qi = q_row0 + rw * 16 + g + 8 * i;
+    if (qi >= Sq) continue;
+    bf16* op = o + (static_cast<size_t>(b) * Sq + qi) * q_stride
+               + static_cast<size_t>(h) * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t4) =
+          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Sk, int H, int KV, int causal, int window,
+               int q_offset, float scale, cudaStream_t stream) {
+  // once per process: allow more than 48 KB of shared memory
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMmaSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_qt = (Sq + 16 * kRowWarps - 1) / (16 * kRowWarps);
+  if (n_qt > 65535 || B > 65535) return kBadArgument;
+  const dim3 grid(H, B, n_qt);
+  flash_fwd_mma_kernel<<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV,
+      causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(int D, const void* q, const void* k, const void* v, void* o,
-                int B, int Sq, int Sk, int H, int KV, int causal, int window,
-                int q_offset, float scale, cudaStream_t s) {
-  // paper_demo's head_dim; add an instantiation when a ported config needs one
-  if (D != 64) return kBadArgument;
-  return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                       q_offset, scale, s);
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Sk, int H, int KV, int causal, int window,
+                int q_offset, float scale, cudaStream_t stream) {
+  const dim3 grid((Sq + kRows - 1) / kRows, H, B);
+  flash_fwd_kernel<float, 64><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
+      causal, window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro
 
 // q, o: (B, Sq, H, D); k, v: (B, Sk, KV, D); all contiguous; H % KV == 0;
-// D == 64.
+// D == 64 (paper_demo's head_dim; add an instantiation when a ported
+// config needs another).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o, int B, int Sq,
                                      int Sk, int H, int KV, int D, int causal,
@@ -134,13 +558,13 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (KV <= 0 || H % KV != 0) return kBadArgument;
+  if (KV <= 0 || H % KV != 0 || D != 64) return kBadArgument;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_hd<float>(D, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                              q_offset, scale, s);
+    return launch_fp32(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                       q_offset, scale, s);
   if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, H, KV, causal,
-                                      window, q_offset, scale, s);
+    return launch_mma(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                      q_offset, scale, s);
   return kBadArgument;
 }

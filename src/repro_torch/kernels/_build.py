@@ -36,8 +36,8 @@ _SIGNATURES = {
     "repro_rmsnorm": [_I, _P, _P, _P, _I, _I, _F, _P],
     "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P],
-    "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, _I, _I, _F, _P],
+    "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _P],
 }

@@ -2,7 +2,9 @@
 version + CUDA kernel wrapper.
 
 Counterpart of ``repro/kernels/paged_attention/{kernel,ref,ops}.py``; the
-kernel is ``csrc/paged_attention.cu``. The pool layout is the reference's
+kernel is ``csrc/paged_attention.cu``: a split kernel over position
+ranges of ``SPLIT_LEN`` and a merge kernel, two CUDA launches per call
+(``LAUNCHES`` counts calls). The pool layout is the reference's
 contract:
 
 * pool (one layer): ``(total_pages + 1, page_size, KV, head_dim)``; index
@@ -28,6 +30,9 @@ from repro_torch.kernels import _build
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
 HEAD_DIMS = (64,)        # the kernels' instantiations (paper_demo)
+#: positions per split of the kernel (``kSplit`` in the .cu, which refuses
+#: any other value)
+SPLIT_LEN = 64
 
 
 def paged_attention_plain(q: torch.Tensor, k_new: torch.Tensor,
@@ -80,6 +85,61 @@ def paged_attention_plain(q: torch.Tensor, k_new: torch.Tensor,
     return o.reshape(S, W, H, hd), k_pages, v_pages
 
 
+def _paged_split_merge_plain(q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, tables: torch.Tensor,
+                             positions: torch.Tensor, n_valid: torch.Tensor,
+                             *, page_size: int, split_len: int = SPLIT_LEN,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """The CUDA kernel's partition in plain fp32 PyTorch, for the tests:
+    window rows ``j < n_valid`` read from ``k_new``/``v_new`` (the pools
+    are not written), each range of ``split_len`` positions reduced to its
+    own ``(m, l, acc)``, a split with no visible key to ``(-1e30, 0, 0)``,
+    then merged by rescaling with ``exp(m - max m)``; a row with no live
+    split is 0. Returns ``out (S, W, H, hd)`` in fp32."""
+    S, W, H, hd = q.shape
+    ps, KV = k_pages.shape[1], k_pages.shape[2]
+    T = tables.shape[1]
+    G = H // KV
+    n_pos = T * ps
+    scale = hd ** -0.5 if scale is None else scale
+    f32, dev = torch.float32, q.device
+    pos = positions.long()
+    nv = n_valid.long().clamp(max=W)
+    gk = k_pages[tables.long()].reshape(S, n_pos, KV, hd).float()
+    gv = v_pages[tables.long()].reshape(S, n_pos, KV, hd).float()
+    idx = torch.arange(n_pos, device=dev)
+    jj = idx[None, :] - pos[:, None]                          # (S, n_pos)
+    window = ((jj >= 0) & (jj < nv[:, None]))[:, :, None, None]
+    at = jj.clamp(0, W - 1)[:, :, None, None].expand(S, n_pos, KV, hd)
+    gk = torch.where(window, torch.gather(k_new.float(), 1, at), gk)
+    gv = torch.where(window, torch.gather(v_new.float(), 1, at), gv)
+    offs = torch.arange(W, device=dev)
+    qpos = pos[:, None] + torch.minimum(offs[None, :], nv[:, None] - 1)
+    visible = (idx[None, None, :] <= qpos[:, :, None]) \
+        & (nv[:, None, None] > 0)                             # (S, W, n_pos)
+    scores = torch.einsum("swkgd,stkd->swkgt",
+                          q.reshape(S, W, KV, G, hd).to(f32), gk) * scale
+    scores = scores.masked_fill(~visible[:, :, None, None, :], -1e30)
+    ms, ls, accs = [], [], []
+    for lo in range(0, n_pos, split_len):
+        sc = scores[..., lo:lo + split_len]
+        m = sc.max(dim=-1).values
+        dead = m <= -1e30
+        p = torch.where(dead[..., None], torch.zeros_like(sc),
+                        torch.exp(sc - m[..., None]))
+        ms.append(torch.where(dead, torch.full_like(m, -1e30), m))
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("swkgt,stkd->swkgd", p,
+                                 gv[:, lo:lo + split_len]))
+    m = torch.stack(ms)
+    w = torch.where(m <= -1e30, torch.zeros_like(m),
+                    torch.exp(m - m.max(dim=0).values))
+    l = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
+    return (acc / l.clamp_min(1e-30)[..., None]).reshape(S, W, H, hd)
+
+
 def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
                     v_new: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, tables: torch.Tensor,
@@ -124,11 +184,17 @@ def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
         raise ValueError(f"{name}: q/K/V must be 16-byte aligned")
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
+    # the split count comes from host-known sizes only (no device read):
+    # each split leaves (acc[hd], m, l) per output row in fp32
+    n_split = -(-(T * ps) // SPLIT_LEN)
+    partials = torch.empty(n_split * S * W * H * (hd + 2),
+                           dtype=torch.float32, device=q.device)
     rc = _build.lib().repro_paged_attention(
         code, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
         positions.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-        S, W, H, KV, hd, ps, T, float(scale), _build.stream_handle(q))
+        partials.data_ptr(), S, W, H, KV, hd, ps, T, SPLIT_LEN,
+        float(scale), _build.stream_handle(q))
     _build.check(rc, name)
     LAUNCHES += 1
     return out, k_pages, v_pages

@@ -56,33 +56,48 @@ def test_rmsnorm_kernel(cuda, dtype, rows, d):
     (64, 100, 4, 2, 64, False, 0, 0),
     (96, 96, 4, 4, 64, True, 33, 0),
     (1, 77, 6, 2, 64, True, 0, 76),
+    (1024, 1024, 12, 4, 64, True, 0, 0),     # max_seq_len, 64-row q tiles
+    (100, 612, 12, 4, 64, True, 0, 512),     # a prompt chunk past 512 keys
 ])
 def test_flash_attention_kernel(cuda, dtype, Sq, Sk, H, KV, D, causal,
                                 window, q_offset):
+    """B = 2 throughout; in bf16, grids under one block per SM take 32-row
+    q tiles and larger ones 64-row tiles (both tensor-core paths)."""
     q = _randn(cuda, (2, Sq, H, D), dtype)
     k = _randn(cuda, (2, Sk, KV, D), dtype)
     v = _randn(cuda, (2, Sk, KV, D), dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    err = (fa.attention(q, k, v, **kw).float()
-           - fa.attention_plain(q, k, v, **kw).float()).abs().max()
+    n0 = fa.LAUNCHES
+    out = fa.attention(q, k, v, **kw)
+    assert fa.LAUNCHES == n0 + 1
+    err = (out.float() - fa.attention_plain(q, k, v, **kw).float()).abs().max()
     assert float(err) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("W,positions,n_valid", [
-    (1, [17, 100, 255, 0], [1, 1, 1, 0]),
-    (16, [256], [13]),
-    (40, [32], [40]),
+@pytest.mark.parametrize("W,positions,n_valid,shared", [
+    (1, [17, 100, 255, 0], [1, 1, 1, 0], 0),
+    (16, [256], [13], 0),
+    (40, [32], [40], 0),
+    # 8 slots at mixed positions up to T * ps - 1, one idle
+    (1, [1023, 0, 64, 127, 500, 900, 17, 300], [1, 1, 1, 1, 1, 1, 1, 0], 0),
+    # windows starting on a split boundary (64), ending on one, and one
+    # straddling it (the kernel's splits are 64 positions)
+    (2, [64, 126, 63], [2, 2, 2], 0),
+    # a W=256 suffix over 16 prefix pages that both slots share
+    (256, [256, 256], [250, 7], 16),
 ])
-def test_paged_attention_kernel(cuda, dtype, W, positions, n_valid):
-    S, KV, G, hd, ps, T, P = len(positions), 4, 3, 64, 16, 24, 96
+def test_paged_attention_kernel(cuda, dtype, W, positions, n_valid, shared):
+    S, KV, G, hd, ps, T = len(positions), 4, 3, 64, 16, 64
+    needs = [-(-(p + W) // ps) for p in positions]
+    P = shared + sum(n - shared for n in needs) + 8   # 8 pages nobody names
     tables = torch.full((S, T), P, dtype=torch.int32)
-    perm = torch.randperm(P)
-    nxt = 0
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(0))
+    tables[:, :shared] = perm[:shared]
+    nxt = shared
     for s in range(S):
-        need = -(-(positions[s] + W) // ps)
-        tables[s, :need] = perm[nxt:nxt + need]
-        nxt += need
+        tables[s, shared:needs[s]] = perm[nxt:nxt + needs[s] - shared]
+        nxt += needs[s] - shared
     args = [_randn(cuda, (S, W, KV * G, hd), dtype),
             _randn(cuda, (S, W, KV, hd), dtype),
             _randn(cuda, (S, W, KV, hd), dtype)]
@@ -91,12 +106,17 @@ def test_paged_attention_kernel(cuda, dtype, W, positions, n_valid):
     ints = [tables.cuda(), torch.tensor(positions, dtype=torch.int32).cuda(),
             torch.tensor(n_valid, dtype=torch.int32).cuda()]
     kk, vk, kq, vq = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    n0 = pa.LAUNCHES
     o, _, _ = pa.paged_attention(*args, kk, vk, *ints, page_size=ps)
+    assert pa.LAUNCHES == n0 + 1
     ref, _, _ = pa.paged_attention_plain(*args, kq, vq, *ints, page_size=ps)
     assert float((o.float() - ref.float()).abs().max()) <= TOL[dtype]
     # pools bit-exact everywhere: neither version writes the null page
     assert torch.equal(kk, kq) and torch.equal(vk, vq)
-    assert torch.equal(kk[P], kp[P])
+    assert torch.equal(kk[P], kp[P]) and torch.equal(vk[P], vp[P])
+    for s, n in enumerate(n_valid):
+        if n == 0:
+            assert bool((o[s] == 0).all()), "idle slot output not 0"
 
 
 def _ssd_inputs(gen, B, T, H, P, G, N, dtype):

@@ -187,6 +187,41 @@ def test_paged_shared_page_read_only():
     np.testing.assert_array_equal(k_p[0], arrs["k_pages"][0])
 
 
+@pytest.mark.parametrize("S,W,ps,T,positions,n_valid,split_len", [
+    pytest.param(2, 1, 4, 8, [3, 9], [1, 1], 8, id="split-no-visible-key"),
+    pytest.param(3, 2, 4, 6, [5, 0, 12], [2, 0, 1], 8, id="idle-slot"),
+    pytest.param(1, 6, 4, 6, [13], [6], 8, id="window-straddles-split"),
+    pytest.param(2, 5, 4, 8, [6, 17], [3, 2], 8, id="n-valid-below-W"),
+    pytest.param(2, 1, 4, 4, [15, 7], [1, 1], 8, id="position-T-ps-minus-1"),
+    pytest.param(2, 3, 4, 5, [14, 4], [3, 3], 8, id="split-not-dividing"),
+    pytest.param(4, 1, 16, 8, [0, 63, 64, 127], [1, 1, 1, 1], 64,
+                 id="kernel-split-decode"),
+    pytest.param(2, 3, 4, 3, [2, 5], [3, 2], 1, id="one-position-splits"),
+])
+def test_paged_split_merge_matches_plain_and_jax(S, W, ps, T, positions,
+                                                 n_valid, split_len):
+    """The CUDA kernel's partition (per-split (m, l, acc) over position
+    ranges, merged by rescaling) against the plain version and the JAX
+    reference, fp32 at 1e-5."""
+    n_real = sum(min(T, -(-(p + W) // ps)) for p in positions)
+    arrs, ints, _ = _scenario(6, S, W, 4, 2, 16, ps, T, n_real, positions,
+                              n_valid)
+    both = {**arrs, **ints}
+    got = pa._paged_split_merge_plain(
+        **{k: _t(v) for k, v in both.items()}, page_size=ps,
+        split_len=split_len).numpy()
+    want, _, _ = pa.paged_attention_plain(
+        **{k: _t(v) for k, v in both.items()}, page_size=ps)
+    want_jax, _, _ = pa_ref.paged_attention(
+        **{k: jnp.asarray(v) for k, v in both.items()}, page_size=ps)
+    tol = dict(atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, want.numpy(), **tol)
+    np.testing.assert_allclose(got, np.asarray(want_jax), **tol)
+    for s, n in enumerate(n_valid):
+        if n == 0:
+            assert np.all(got[s] == 0)
+
+
 # ------------------------------------------------------------------ SSD scan
 @pytest.mark.parametrize("B,T,H,P,G,N,bf16", [
     (2, 64, 4, 16, 1, 16, False),     # two full chunks
