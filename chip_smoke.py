@@ -11,8 +11,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the main path's shapes, in fp32 (TF32 off) and bf16, with its median
    time over CUDA-event-timed runs beside its bound and, where one PyTorch
    call computes the same function, that call's time and the ratio of the
-   two; paged attention at decode (one idle slot, and all 8 slots at
-   900-1023 positions) and at suffix windows of 16 and 256 rows;
+   two; rmsnorm and ``F.rms_norm`` also by their ``torch.profiler``
+   device time (median of 50 calls); paged attention at decode (one idle
+   slot, and all 8 slots at 900-1023 positions) and at suffix windows of
+   16 and 256 rows; the SSD scan at B=1 and T = 512, 509, 64, 2048 and at
+   B=4, T=256, with the device time of each of its three grids;
 4. fp32 identity — ``paper_demo`` at full width in fp32 served by the
    engine (paged kernel) must emit the tokens of the port's
    ``greedy_generate`` oracle (dense decode, no paged kernel) up to the
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -135,6 +139,39 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(fn, runs: int = TIMED_RUNS):
+    """Median device time of one call of ``fn`` under ``torch.profiler``:
+    the summed durations of the kernels the call runs (a call's kernels
+    are consecutive on the stream), over ``runs`` calls; and the median
+    duration of each kernel, by name. Unlike events around a call, this
+    leaves out the launch gaps between calls and inside one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # a profiling session now and then delivers no device events at all:
+    # take the first of three that saw every call's kernels
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (e.time_range.start, e.time_range.elapsed_us(), e.name)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        if kernels and len(kernels) % runs == 0:
+            break
+    else:
+        raise AssertionError(f"device_ms: {len(kernels)} kernels in "
+                             f"{runs} calls")
+    per = len(kernels) // runs
+    calls = [kernels[i * per:(i + 1) * per] for i in range(runs)]
+    by_name = {name: statistics.median(c[k][1] for c in calls) / 1e3
+               for k, (_, _, name) in enumerate(calls[0])}
+    return statistics.median(sum(d for _, d, _ in c) for c in calls) / 1e3, \
+        by_name
+
+
 def bound_ms(n_bytes: float, flops: float, dtype: torch.dtype):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -156,14 +193,15 @@ def check_rmsnorm(dtype, rows, D, gen, dev):
     err = max_err(out, ref)
     item = x.element_size()
     scale_lib = scale.to(dtype)
-    res = dict(err=err, ms=median_ms(lambda: K.rmsnorm(x, scale)),
-               plain_ms=median_ms(lambda: K.rmsnorm_plain(x, scale)),
-               library_ms=median_ms(
-                   lambda: F.rms_norm(x, (D,), scale_lib, 1e-5)),
-               bound=bound_ms(2 * rows * D * item + 4 * D, 4 * rows * D,
-                              dtype),
-               shape=f"({rows}, {D})")
-    return res
+    kernel = lambda: K.rmsnorm(x, scale)                       # noqa: E731
+    library = lambda: F.rms_norm(x, (D,), scale_lib, 1e-5)     # noqa: E731
+    return dict(err=err, ms=median_ms(kernel),
+                plain_ms=median_ms(lambda: K.rmsnorm_plain(x, scale)),
+                library_ms=median_ms(library),
+                device=(device_ms(kernel)[0], device_ms(library)[0]),
+                bound=bound_ms(2 * rows * D * item + 4 * D, 4 * rows * D,
+                               dtype),
+                shape=f"({rows}, {D})")
 
 
 def check_flash(dtype, gen, dev):
@@ -341,8 +379,9 @@ def check_ssd(dtype, B, T, gen, dev):
     rows = [min(Q, T - t0) for t0 in range(0, T, Q)]
     flops = B * H * sum(2 * q * q * N + 2 * q * q * P + 4 * q * P * N
                         for q in rows)
+    kernel = lambda: K.ssd_scan(*args, return_state=True)      # noqa: E731
     return dict(err=max(err_y, err_state), err_y=err_y, err_state=err_state,
-                ms=median_ms(lambda: K.ssd_scan(*args, return_state=True)),
+                ms=median_ms(kernel), grids=device_ms(kernel)[1],
                 plain_ms=median_ms(lambda: K.ssd_scan_plain(
                     *args, return_state=True)),
                 library_ms=None, bound=bound_ms(n_bytes, flops, dtype),
@@ -375,7 +414,9 @@ def phase_kernels(dev, label):
                                                  dev)),
                  ("ssd_scan", check_ssd(dtype, 1, 512, gen, dev)),
                  ("ssd_scan", check_ssd(dtype, 1, 509, gen, dev)),
-                 ("ssd_scan", check_ssd(dtype, 4, 256, gen, dev))]
+                 ("ssd_scan", check_ssd(dtype, 4, 256, gen, dev)),
+                 ("ssd_scan", check_ssd(dtype, 1, 64, gen, dev)),
+                 ("ssd_scan", check_ssd(dtype, 1, 2048, gen, dev))]
         for name, r in cases:
             tol = TOL[dtype]
             ok = r.get("err_y", r["err"]) <= tol \
@@ -391,7 +432,15 @@ def phase_kernels(dev, label):
                 + f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
                 + (f", library {lib:.4f} ms (kernel/library "
                    f"{r['ms'] / lib:.2f}x)" if lib is not None else "")
-                + f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+                + f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
+                + (" | device time (torch.profiler, median of "
+                   f"{TIMED_RUNS}): kernel {r['device'][0]:.4f} ms, library "
+                   f"{r['device'][1]:.4f} ms (kernel/library "
+                   f"{r['device'][0] / r['device'][1]:.2f}x)"
+                   if "device" in r else "")
+                + (" | device time by grid: " + ", ".join(
+                    f"{re.search(r'ssd_\w+', n).group(0)} {t:.4f} ms"
+                    for n, t in r["grids"].items()) if "grids" in r else ""))
             if not ok:
                 raise AssertionError(f"{name} {dtype} disagrees with its "
                                      f"plain version: {r}")
@@ -678,7 +727,7 @@ def phase_card_bound(cfg, params, dev, host_ms, label, make_engine=None,
 
 FAMILIES = [("paged_attention", ("paged_attn",)),
             ("flash_attention", ("flash_fwd",)),
-            ("ssd_scan", ("ssd_scan_kernel",)),
+            ("ssd_scan", ("ssd_",)),
             ("depthwise conv", ("depthwise", "cudnn", "fprop", "conv1d",
                                 "conv2d")),
             ("rmsnorm", ("rmsnorm_kernel",)),

@@ -133,55 +133,6 @@ constexpr int kMmaHD = 64;      // head_dim of the tensor-core kernel
 constexpr int kMmaKeys = 32;    // keys per K/V tile
 constexpr int kChunks = kMmaHD * 2 / 16;   // 16-byte chunks per row (8)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// element offset of 16-byte chunk c of row r in a [rows][64] bf16 tile,
-// the chunk index XORed with the row's low 3 bits
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kMmaHD + ((c ^ (r & 7)) << 3);
-}
-
-// 16-byte global -> shared copy; with `full` false it writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a * b for one m16n8k16 tile, bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // 2^x in one MUFU instruction (inputs of -1e30 give 0)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -189,15 +140,8 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t. A holds
-// rows g and g + 8, columns 2t, 2t + 1 (+ 8); B holds k rows 2t, 2t + 1
-// (+ 8) of column g; the accumulator holds rows g (c0, c1) and g + 8
-// (c2, c3), columns 2t, 2t + 1. Each thread so owns two query rows.
+// With the fragment layouts of common.cuh each thread owns two query
+// rows (g and g + 8 of its warp's 16).
 //
 // Block: kRowWarps x kGroups warps. Row warp rw owns query rows
 // 16rw .. 16rw + 15 of the q tile; KV group grp walks the tile's KV tiles
@@ -283,7 +227,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     const bool ok = q_row0 + r < Sq;
-    cp_async16(smem_u32(&Qs[swz(r, c)]),
+    cp_async16(smem_u32(&Qs[swz<kMmaHD>(r, c)]),
                qb + (ok ? q_row0 + r : 0) * q_stride + c * 8, ok);
   }
   auto load_round = [&](int round, int stage) {
@@ -299,8 +243,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       const bool ok = kp < Sk;                 // KV tail: zeros
       const size_t off = (ok ? kp : 0) * kv_stride + c * 8;
       bf16* kt = k_tile(stage, gi);
-      cp_async16(smem_u32(&kt[swz(r, c)]), kb + off, ok);
-      cp_async16(smem_u32(&kt[kTile + swz(r, c)]), vb + off, ok);
+      cp_async16(smem_u32(&kt[swz<kMmaHD>(r, c)]), kb + off, ok);
+      cp_async16(smem_u32(&kt[kTile + swz<kMmaHD>(r, c)]), vb + off, ok);
     }
   };
   if (n_rounds > 0) load_round(0, 0);
@@ -327,7 +271,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (round == 0) {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        ldsm_x4(qf[kk], smem_u32(&Qs[swz(rw * 16 + (lane & 7)
+        ldsm_x4(qf[kk], smem_u32(&Qs[swz<kMmaHD>(rw * 16 + (lane & 7)
                                               + ((lane >> 3) & 1) * 8,
                                           kk * 2 + (lane >> 4))]));
     }
@@ -348,7 +292,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         uint32_t kf[kMmaKeys / 8][4];
 #pragma unroll
         for (int n = 0; n < kMmaKeys / 8; ++n)
-          ldsm_x4(kf[n], smem_u32(&Kt[swz(n * 8 + (lane & 7),
+          ldsm_x4(kf[n], smem_u32(&Kt[swz<kMmaHD>(n * 8 + (lane & 7),
                                           half * 4 + (lane >> 3))]));
 #pragma unroll
         for (int n = 0; n < kMmaKeys / 8; ++n)
@@ -439,7 +383,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         uint32_t vf[HD / 16][4];
 #pragma unroll
         for (int np = 0; np < HD / 16; ++np)
-          ldsm_x4_trans(vf[np], smem_u32(&Vt[swz(kk * 16 + (lane & 7)
+          ldsm_x4_trans(vf[np], smem_u32(&Vt[swz<kMmaHD>(kk * 16 + (lane & 7)
                                                      + ((lane >> 3) & 1) * 8,
                                                  np * 2 + (lane >> 4))]));
 #pragma unroll

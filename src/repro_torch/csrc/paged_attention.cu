@@ -97,7 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int pages[kSplit];   // the split's table entries
 
   // the merge kernel may launch now; it waits for this grid's results
-  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  griddep_launch_dependents();
 
   const int split = blockIdx.x;
   const int kvh = blockIdx.y % KV;
@@ -294,7 +294,7 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
                             T* __restrict__ o, int rows_total, int n_split) {
   // launched early (programmatic dependent launch): wait until the split
   // grid has finished and its partials are visible
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  griddep_wait();
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
   if (row >= rows_total) return;
   const int lane = threadIdx.x % 32;
@@ -370,19 +370,11 @@ int launch(const void* q, const void* k_new, const void* v_new,
   // the merge launches while the split grid runs and waits for it on the
   // card (programmatic stream serialization), hiding its launch latency
   const int rows = static_cast<int>(rows_total);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((rows + kMergeWarps - 1) / kMergeWarps);
-  cfg.blockDim = dim3(kMergeWarps * 32);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, paged_attn_merge_kernel<T, HD>,
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<T*>(o), rows, n_split));
+  return static_cast<int>(launch_dependent(
+      paged_attn_merge_kernel<T, HD>,
+      dim3((rows + kMergeWarps - 1) / kMergeWarps), dim3(kMergeWarps * 32), 0,
+      stream, static_cast<const float*>(part_acc),
+      static_cast<const float*>(part_ml), static_cast<T*>(o), rows, n_split));
 }
 
 template <typename T>

@@ -38,8 +38,8 @@ _SIGNATURES = {
                               _I, _I, _I, _F, _P],
     "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "repro_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _I, _P],
+    "repro_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _P],
 }
 
 #: where the CUDA toolkit is looked for when neither CUDA_HOME nor PATH

@@ -37,9 +37,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if scale.dtype != torch.float32 or tuple(scale.shape) != (d,):
         raise ValueError(f"rmsnorm: scale must be fp32 of shape ({d},), got "
                          f"{scale.dtype} {tuple(scale.shape)}")
-    if d % vec or x.data_ptr() % 16:
-        raise ValueError(f"rmsnorm: rows must be 16-byte aligned vectors "
-                         f"(D={d} a multiple of {vec})")
+    if d % vec or x.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError(f"rmsnorm: rows and scale must be 16-byte aligned "
+                         f"vectors (D={d} a multiple of {vec})")
     out = torch.empty_like(x)
     rows = x.numel() // d
     rc = _build.lib().repro_rmsnorm(

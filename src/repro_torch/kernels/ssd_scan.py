@@ -30,6 +30,9 @@ LAUNCHES = 0
 #: the kernel's instantiations: (head_dim P, state_dim N) and chunk
 SHAPES = ((64, 128),)
 CHUNK = 64
+#: how the bf16 kernel rounds the operands it computes in fp32 before its
+#: tensor-core products (see ``_ssd_chunk_parallel_plain``)
+KERNEL_ROUNDING = {"scores": "once", "xw": "hilo", "entering": "once"}
 
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -91,11 +94,91 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y, state) if return_state else y
 
 
+def _round_operand(t: torch.Tensor, how: Optional[str]) -> torch.Tensor:
+    """An fp32 operand as a bf16 tensor-core product sees it: unchanged
+    (None), rounded to bf16 once ("once"), or as a hi + lo pair of bf16
+    values ("hilo": two products into one fp32 accumulator)."""
+    if how is None:
+        return t
+    hi = t.to(torch.bfloat16).float()
+    if how == "once":
+        return hi
+    if how == "hilo":
+        return hi + (t - hi).to(torch.bfloat16).float()
+    raise ValueError(f"unknown rounding {how!r}")
+
+
+def _ssd_chunk_parallel_plain(x: torch.Tensor, dt: torch.Tensor,
+                              A: torch.Tensor, Bm: torch.Tensor,
+                              Cm: torch.Tensor, D: torch.Tensor, *,
+                              chunk: int = CHUNK, return_state: bool = False,
+                              rounding: Optional[dict] = None) -> Out:
+    """The CUDA kernel's decomposition in plain PyTorch, for the tests:
+    (1) each chunk's state ``S_c = Xᵀ diag(w) B``, ``w_j = dt_j
+    exp(total - cum_j)``; (2) the states passed in order, ``entering_0 =
+    0``, ``entering_{c+1} = exp(total_c) entering_c + S_c``; (3) each
+    chunk's ``y = (L∘(C Bᵀ)·dt) X + exp(cum) ∘ (C entering_cᵀ) + D x``.
+
+    ``rounding`` maps the operands the kernel computes in fp32 and feeds
+    to bf16 tensor-core products ("scores", "xw" for ``diag(w) X``,
+    "entering") to how each is rounded (see ``_round_operand``); x, B and
+    C enter as they are."""
+    r = rounding or {}
+    B_, T, H, P = x.shape
+    nC = -(-T // chunk)
+    pad = nC * chunk - T
+
+    def chunks(t: torch.Tensor) -> torch.Tensor:
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((B_, pad) + tuple(t.shape[2:]))],
+                          dim=1)
+        return t.reshape((B_, nC, chunk) + tuple(t.shape[2:]))
+
+    xf, dtf = chunks(x), chunks(dt)
+    Bh, Ch = chunks(_expand_groups(Bm, H)), chunks(_expand_groups(Cm, H))
+    cum = torch.cumsum(dtf * A.float(), dim=2)         # (B, C, Q, H)
+    total = cum[:, :, -1, :]
+
+    # (1) chunk states
+    w = dtf * torch.exp(total[:, :, None, :] - cum)
+    xw = _round_operand(w[..., None] * xf, r.get("xw"))
+    S = torch.einsum("bcqhp,bcqhn->bchpn", xw, Bh)
+    # (2) state passing
+    state = S.new_zeros((B_, H, P, S.shape[-1]))
+    entering = []
+    for c in range(nC):
+        entering.append(state)
+        state = state * torch.exp(total[:, c])[..., None, None] + S[:, c]
+    ent = _round_operand(torch.stack(entering, dim=1), r.get("entering"))
+    # (3) chunk scan
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, None, :, :, None]
+    ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    L = torch.where(tri, ldiff, ldiff.new_full((), -float("inf"))).exp()
+    scores = _round_operand(torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * L
+                            * dtf[:, :, None, :, :], r.get("scores"))
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xf) \
+        + torch.exp(cum)[..., None] \
+        * torch.einsum("bcqhn,bchpn->bcqhp", Ch, ent)
+    y = y.reshape(B_, nC * chunk, H, P)[:, :T] \
+        + x.float() * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def scratch_floats(B: int, T: int, H: int, P: int, N: int) -> int:
+    """fp32 scratch of one kernel call: the (B, nC, H, P, N) chunk states
+    and the (B, nC, H) chunk decays."""
+    return B * -(-T // CHUNK) * H * (P * N + 1)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
              chunk: int = CHUNK, return_state: bool = False) -> Out:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel
-    (one block per (batch, head) walking the chunks in order)."""
+    """CPU tensors take the plain version; CUDA tensors launch the kernel:
+    three grids per call (chunk states, state passing, chunk scan; see
+    ``_ssd_chunk_parallel_plain``), counted as one launch."""
     global LAUNCHES
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk,
@@ -125,11 +208,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if return_state:
         final = torch.empty((B_, H, P, N), dtype=torch.float32,
                             device=x.device)
+    # the chunk states, overwritten in place by the entering states, and
+    # exp(total) of each chunk; sized from the shapes alone (no host read)
+    scratch = torch.empty(scratch_floats(B_, T, H, P, N),
+                          dtype=torch.float32, device=x.device)
     rc = _build.lib().repro_ssd_scan(
         code, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
-        final.data_ptr() if final is not None else None, B_, T, H, G, P, N,
-        _build.stream_handle(x))
+        final.data_ptr() if final is not None else None, scratch.data_ptr(),
+        B_, T, H, G, P, N, _build.stream_handle(x))
     _build.check(rc, "ssd_scan")
     LAUNCHES += 1
     return (y, final) if return_state else y

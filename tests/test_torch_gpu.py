@@ -38,7 +38,8 @@ def _randn(gen, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d", [(8, 768), (513, 768), (3, 64),
-                                    (8, 1024)])
+                                    (8, 1024),
+                                    (5, 4096)])   # longer than a lane caches
 def test_rmsnorm_kernel(cuda, dtype, rows, d):
     x = _randn(cuda, (rows, d), dtype)
     scale = 1 + 0.1 * torch.randn((d,), generator=cuda, device="cuda")
@@ -143,6 +144,8 @@ def _ssd_inputs(gen, B, T, H, P, G, N, dtype):
     (4, 256, 1),      # several sequences
     (2, 100, 4),      # groups, and a tail of 36 rows
     (1, 7, 1),        # shorter than one chunk
+    (1, 64, 1),       # one chunk: 128 blocks a grid
+    (1, 2048, 1),     # 32 chunks: a 33.5 MB scratch, past half the L2
 ])
 def test_ssd_scan_kernel(cuda, dtype, B, T, G):
     args = _ssd_inputs(cuda, B, T, 32, 64, G, 128, dtype)
@@ -156,6 +159,25 @@ def test_ssd_scan_kernel(cuda, dtype, B, T, G):
     # the state is fp32 on both sides, from the same inputs
     assert float((final - final_ref).abs().max()) <= STATE_TOL
     assert torch.equal(y, y_only)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_scratch_reuse(cuda, dtype):
+    """The wrapper's scratch comes from the caching allocator, holding
+    what earlier calls (of other lengths) or other tensors left there:
+    results must not depend on it."""
+    shapes = [512, 2048, 64, 509]
+    args = {T: _ssd_inputs(cuda, 1, T, 32, 64, 1, 128, dtype)
+            for T in shapes}
+    first = {T: ssd.ssd_scan(*args[T], return_state=True) for T in shapes}
+    for T in reversed(shapes):
+        # a freed block of the scratch's size, full of NaN
+        del_me = torch.full((ssd.scratch_floats(1, T, 32, 64, 128),),
+                            float("nan"), device="cuda")
+        del del_me
+        y, final = ssd.ssd_scan(*args[T], return_state=True)
+        assert torch.equal(y, first[T][0]) and torch.equal(final,
+                                                           first[T][1])
 
 
 def test_ssd_scan_refuses_uninstantiated_sizes(cuda):

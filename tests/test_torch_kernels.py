@@ -267,6 +267,62 @@ def test_ssd_scan_matches_jax(B, T, H, P, G, N, bf16):
     np.testing.assert_allclose(final.numpy(), np.asarray(want_state), **tol)
 
 
+def _mamba2_ssd_inputs(T, H=32, P=64, N=128):
+    """mamba2-370m's SSD widths at B = 1, inputs drawn as on the card
+    (``chip_smoke.ssd_inputs``): dt ~ softplus(N(-3, 0.5)), A =
+    -linspace(1, 16), B and C ~ N(0, 1) / N^(1/4), D ~ 1 + 0.1 N(0, 1)."""
+    rng = np.random.default_rng(T)
+    x = 0.5 * rng.normal(size=(1, T, H, P))
+    dt = np.log1p(np.exp(0.5 * rng.normal(size=(1, T, H)) - 3))
+    A = -np.linspace(1.0, 16.0, H)
+    Bm = rng.normal(size=(1, T, 1, N)) * N ** -0.25
+    Cm = rng.normal(size=(1, T, 1, N)) * N ** -0.25
+    D = 1 + 0.1 * rng.normal(size=H)
+    return [a.astype(np.float32) for a in (x, dt, A, Bm, Cm, D)]
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("T", [64, 509, 512])
+def test_ssd_chunk_parallel_matches_plain_and_jax(T, bf16):
+    """The CUDA kernel's decomposition (chunk states, state passing, chunk
+    scan) with the operand rounding of its bf16 tensor-core products
+    (fp32: none, as the fp32 kernel's FMAs) against the plain version, the
+    JAX reference and the Pallas kernel (interpret mode): y within 2e-2
+    (bf16) or 1e-4 (fp32), the final state within 1e-4 in both. In bf16,
+    rounding diag(w) x to bf16 once, as the other operands are, would put
+    the state past 1e-4: that is why the kernel splits it into hi + lo."""
+    f32 = _mamba2_ssd_inputs(T)
+    tdt, jdt = (torch.bfloat16, jnp.bfloat16) if bf16 else \
+        (torch.float32, jnp.float32)
+    targs = [_t(a) for a in f32]
+    jargs = [jnp.asarray(a) for a in f32]
+    for i in (0, 3, 4):              # x, B and C in the working dtype
+        targs[i] = targs[i].to(tdt)
+        jargs[i] = jargs[i].astype(jdt)
+    rounding = ssd.KERNEL_ROUNDING if bf16 else None
+    y, state = ssd._ssd_chunk_parallel_plain(*targs, return_state=True,
+                                             rounding=rounding)
+    y_plain, state_plain = ssd.ssd_scan_plain(*targs, return_state=True)
+    # the JAX side needs a chunk that divides T; one chunk of a prime T
+    # is the same function (the quadratic form over the whole sequence)
+    chunk = ssd.CHUNK if T % ssd.CHUNK == 0 else T
+    want_y, want_state = ssd_ref.ssd_chunked(*jargs, chunk=chunk)
+    want_kernel = ssd_kernel.ssd_scan(*jargs, chunk=chunk, interpret=True)
+    y_tol = 2e-2 if bf16 else 1e-4
+    got = y.float().numpy()
+    assert np.abs(got).max() < 4     # within one bf16 step of 2e-2
+    for want in (y_plain.float().numpy(), np.asarray(want_y, np.float32),
+                 np.asarray(want_kernel, np.float32)):
+        np.testing.assert_allclose(got, want, atol=y_tol, rtol=0)
+    for want in (state_plain.numpy(), np.asarray(want_state)):
+        np.testing.assert_allclose(state.numpy(), want, atol=1e-4, rtol=0)
+    if bf16:
+        _, state_once = ssd._ssd_chunk_parallel_plain(
+            *targs, return_state=True,
+            rounding={k: "once" for k in ssd.KERNEL_ROUNDING})
+        assert float((state_once - state_plain).abs().max()) > 1e-4
+
+
 # ------------------------------------------------------------- no fallback
 def test_wrappers_refuse_devices_without_a_kernel():
     """Only CPU tensors take the plain versions; any other device must
