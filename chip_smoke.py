@@ -4,8 +4,8 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-1. environment — torch / CUDA versions, the card's name and power limit;
-   no CUDA means exit 1 with no result;
+1. environment — torch / CUDA runtime, driver and nvcc versions, the
+   card's name and power limit; no CUDA means exit 1 with no result;
 2. build — compile the kernels of ``src/repro_torch/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes, in fp32 (TF32 off) and bf16, with its median
@@ -16,23 +16,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    slot, and all 8 slots at 900-1023 positions) and at suffix windows of
    16 and 256 rows; the SSD scan at B=1 and T = 512, 509, 64, 2048 and at
    B=4, T=256, with the device time of each of its three grids;
+3g. graph edges — a paged decode call and an SSD scan captured into a
+   CUDA graph: how many of its edges kept programmatic dependent launch,
+   and its replay bit-equal to the eager calls;
 4. fp32 identity — ``paper_demo`` at full width in fp32 served by the
-   engine (paged kernel) must emit the tokens of the port's
-   ``greedy_generate`` oracle (dense decode, no paged kernel) up to the
-   first near tie;
+   engine (paged kernel, decode step replayed as a CUDA graph) must emit
+   the tokens of the port's ``greedy_generate`` oracle (dense decode, no
+   paged kernel, eager) up to the first near tie; then the same with
+   ``speculate=4`` on repetitive prompts (the verify step's graph; drafts
+   must be accepted), and a ``ServeClient`` whose loop thread replays the
+   graphs captured on this thread must stream the engine's tokens;
 5. bf16 serve — 24 requests at full width in bf16 through
    ``ServeEngine.submit``/``run``, 8 of them sharing a 256-token prefix;
    every request must finish, the pool must drain, the prefix cache must
-   hit and every kernel must have launched. The loop runs under
-   ``torch.cuda`` sync debug mode "error" (``.item()``, a blocking copy or
-   a stream sync raises). Where the host is the slower side, as on the
-   H100 hosts measured so far, a step is usually done by its first poll;
+   hit and every kernel must have launched (graph replays counted). The
+   loop runs under ``torch.cuda`` sync debug mode "error" (``.item()``, a
+   blocking copy or a stream sync raises). The host's enqueue of a decode
+   step is printed three ways on this host: the engine's dispatch (graph
+   replay plus uploads and bookkeeping), the replay alone, and the eager
+   step function; the card's time for a step by events, eager and
+   replayed;
 5b. card-bound loop — the same engine path with a ``torch.cuda._sleep``
-   queued ahead of every decode step, holding the card several times
-   longer than the host takes to enqueue a step: nearly every step must
-   still be running when its ``TensorOp`` is first polled
+   queued ahead of every decode step's replay, holding the card several
+   times longer than the host takes to enqueue a step: nearly every step
+   must still be running when its ``TensorOp`` is first polled
    (``TensorOp.PENDING_AT_FIRST_POLL``): the host reached the poll before
    the card finished the step, so it had not waited for it;
+5s. speculative serve — ``speculate=4`` in bf16 under sync debug mode
+   "error" on 16 requests of repetitive and random prompts, beside the
+   plain engine on the same requests: tokens/s, the acceptance rate and
+   the verify steps;
+5c. card-bound verify loop — as 5b, the sleep ahead of each verify
+   step's replay;
 6. profile — the bf16 workload again, with ``torch.profiler`` over a
    window of decode steps: the card's busy share and its time by kernel
    family;
@@ -46,19 +61,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    prime length) and 32–64 new tokens through ``ServeEngine`` in dense
    mode under sync debug mode "error"; every prefill must have launched
    the SSD kernel once a layer (48 × prefills) and rmsnorm 49 times a
-   prefill and a decode step;
-8b. its card-bound loop, as 5b but with the sleep queued behind each
-   step's kernels: a mamba2 decode step launches more kernels than the
-   card's launch queue holds, so with the sleep ahead of them the host's
-   enqueue stalls until the card has nearly caught up, and the steps are
-   not pending at their first poll (5b's check in 5b's form fails for
-   mamba2). With the sleep behind, the phase checks the poll and
-   continuation path only; it prints the host's stall on the full launch
-   queue (its enqueue time a step beyond phase 8's);
+   prefill and a decode step; host enqueue graph against eager as in 5,
+   and the card's time for a decode step by events around a replay beside
+   the profiler's kernel sum of the eager step;
+8b. its card-bound loop, as 5b (the sleep ahead of each replay);
 9. its profile, as 6.
 
 Each serve phase sets the kernels' launch counts to 0 just before it
-drives its path and reads them just after. The kernels JSON reports
+drives its path and reads them just after; a step graph adds its
+kernels' launches back on every replay. The kernels JSON reports
 ``launches`` from the path that runs the kernel (phase 5 for
 ``paper_demo``'s kernels, phase 8 for the SSD scan). The next-to-last
 line is the kernels JSON, the last line the device JSON.
@@ -86,6 +97,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the SSD scan's final state is fp32 on both sides, from the same inputs
 STATE_TOL = 1e-4
 TIMED_RUNS = 50
+SPECULATE = 4          # drafts a verify step scores (phases 4, 5s, 5c)
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:41"),
@@ -139,37 +151,56 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def enqueue_ms(fn, runs: int = 10) -> float:
+    """Median host time to enqueue one call of ``fn``: a host clock around
+    the call alone, the card drained between calls (outside the span), so
+    the span measures the host's launches, not a wait on the card."""
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        spans.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(spans) * 1e3
+
+
 def device_ms(fn, runs: int = TIMED_RUNS):
-    """Median device time of one call of ``fn`` under ``torch.profiler``:
-    the summed durations of the kernels the call runs (a call's kernels
-    are consecutive on the stream), over ``runs`` calls; and the median
-    duration of each kernel, by name. Unlike events around a call, this
-    leaves out the launch gaps between calls and inside one."""
+    """Median device time of one call of ``fn`` under ``torch.profiler``,
+    over ``runs`` calls: each kernel's median duration, by name, summed
+    with the number of times one call launches it; and that median by
+    name. Unlike events around a call, this leaves out the launch gaps
+    between calls and inside one. Medians by name stay right when a
+    session drops a kernel event or two, as one now and then does."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a profiling session now and then delivers no device events at all:
-    # take the first of three that saw every call's kernels
+    # a session now and then delivers no device events at all, or misses
+    # many: take the first of three that saw at least 90% of them
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        kernels = sorted(
-            (e.time_range.start, e.time_range.elapsed_us(), e.name)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-        if kernels and len(kernels) % runs == 0:
+        spans: dict = {}
+        for e in sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start):
+            spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        # kernels a call launches, by name (a stray one-off is left out)
+        per_call = {name: n for name, d in spans.items()
+                    if (n := round(len(d) / runs))}
+        if per_call and all(len(spans[name]) >= 0.9 * n * runs
+                            for name, n in per_call.items()):
             break
     else:
-        raise AssertionError(f"device_ms: {len(kernels)} kernels in "
-                             f"{runs} calls")
-    per = len(kernels) // runs
-    calls = [kernels[i * per:(i + 1) * per] for i in range(runs)]
-    by_name = {name: statistics.median(c[k][1] for c in calls) / 1e3
-               for k, (_, _, name) in enumerate(calls[0])}
-    return statistics.median(sum(d for _, d, _ in c) for c in calls) / 1e3, \
-        by_name
+        raise AssertionError(f"device_ms: kernel events by name "
+                             f"{ {n: len(d) for n, d in spans.items()} } "
+                             f"in {runs} calls")
+    by_name = {name: statistics.median(spans[name]) / 1e3
+               for name in per_call}
+    return sum(per_call[name] * ms for name, ms in by_name.items()), by_name
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: torch.dtype):
@@ -326,18 +357,22 @@ def busy_ms(fn, runs: int = 5):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    by_family: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            fam = kernel_family(e.name)
-            by_family[fam] = by_family.get(fam, 0.0) \
-                + e.time_range.elapsed_us()
-    us = sum(by_family.values())
-    if us <= 0:
+    # a session now and then delivers no device events: up to three
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        by_family: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                fam = kernel_family(e.name)
+                by_family[fam] = by_family.get(fam, 0.0) \
+                    + e.time_range.elapsed_us()
+        us = sum(by_family.values())
+        if us > 0:
+            break
+    else:
         raise AssertionError("busy_ms: the profiler saw no device time")
     return us / runs / 1e3, {f: t / us for f, t in sorted(
         by_family.items(), key=lambda kv: -kv[1])}
@@ -456,6 +491,65 @@ def phase_kernels(dev, label):
     return summary
 
 
+def phase_graph_edges(dev):
+    """Whether programmatic dependent launch survives stream capture: one
+    paged decode call (split, then merge as a dependent launch) and one
+    SSD scan (three grids chained so) captured into a CUDA graph that is
+    kept, so the driver's ``cuGraphGetEdges_v2`` can list its edges; the
+    replay's outputs must equal the eager calls' bit for bit."""
+    import ctypes
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_scan as SSD
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    (q, kn, vn, kp, vp, tab, pos, nv), _, _, _, _ = paged_case(
+        "decode", torch.bfloat16, gen, dev)
+    ssd_args = ssd_inputs(gen, dev, 1, 512, torch.bfloat16)
+
+    def calls():
+        # the paged call rewrites the same pool rows with the same values
+        out, _, _ = PA.paged_attention(q, kn, vn, kp, vp, tab, pos, nv,
+                                       page_size=16)
+        return (out,) + SSD.ssd_scan(*ssd_args, return_state=True)
+
+    want = [t.clone() for t in calls()]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        got = calls()
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("graph replay of the paged and SSD kernels "
+                             "differs from their eager calls")
+    get_edges = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    get_edges.restype = ctypes.c_int
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if get_edges(handle, None, None, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetEdges_v2 failed")
+    src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    # CUgraphEdgeData: from_port, to_port, type, 5 reserved bytes
+    data = (ctypes.c_uint8 * (8 * n.value))()
+    if get_edges(handle, src, dst, data, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetEdges_v2 failed")
+    kinds: dict = {}
+    for i in range(n.value):
+        key = ("programmatic" if data[8 * i + 2] == 1 else "full",
+               data[8 * i])
+        kinds[key] = kinds.get(key, 0) + 1
+    programmatic = sum(c for (kind, _), c in kinds.items()
+                       if kind == "programmatic")
+    log(f"phase 3g: programmatic dependent launch under stream capture: "
+        f"{programmatic} programmatic of {n.value} edges in a graph of one "
+        f"paged decode call and one SSD scan (edge kind, from-port: "
+        f"{ {f'{k}/{p}': c for (k, p), c in sorted(kinds.items())} }); "
+        "replay bit-equal to the eager calls")
+    return programmatic
+
+
 # ------------------------------------------------------------------ serving
 def ttft_ms(reqs) -> str:
     """TTFT p50 and p99 of finished requests, for the log."""
@@ -482,7 +576,8 @@ def near_tie_prefix(cfg, params, prompt, tokens, margin=1e-3) -> int:
 def phase_identity(dev):
     from repro_torch.configs import get_config
     from repro_torch.models import lm
-    from repro_torch.serve import Request, ServeEngine, greedy_generate
+    from repro_torch.serve import (Request, ServeClient, ServeEngine,
+                                   greedy_generate)
     cfg = get_config("paper_demo", dtype=torch.float32,
                      param_dtype=torch.float32)
     params = lm.init_params(cfg, seed=0, device=dev)
@@ -499,21 +594,76 @@ def phase_identity(dev):
     eng.close_intake()
     eng.run(timeout=300)
     m = eng.metrics()
-    checked = 0
-    for p, r in zip(prompts, reqs):
-        want = greedy_generate(cfg, params, p[None], 16, 256,
-                               device=dev)[0].tolist()
-        n = near_tie_prefix(cfg, params, p, want)
-        if r.tokens[:n] != want[:n]:
-            raise AssertionError(f"fp32 identity: engine {r.tokens} != "
-                                 f"greedy {want} within {n} tokens")
-        checked += n
-    if m["prefix_hits"] < 1 or m["pages_in_use"] != 0:
-        raise AssertionError(f"fp32 identity run: {dict(m)}")
+    replays = eng._decode_graph.replays
+    eng.shutdown()
+    wants = [greedy_generate(cfg, params, p[None], 16, 256,
+                             device=dev)[0].tolist() for p in prompts]
+    checked = check_identity("fp32 identity", cfg, params, prompts, reqs,
+                             wants)
+    if m["prefix_hits"] < 1 or m["pages_in_use"] != 0 \
+            or replays != m["steps"]:
+        raise AssertionError(f"fp32 identity run: {dict(m)}, {replays} "
+                             "graph replays")
     log(f"phase 4: fp32 identity OK: 4 requests, {checked}/64 tokens "
         f"compared (the rest past a near tie), prefix_hits "
-        f"{m['prefix_hits']}")
+        f"{m['prefix_hits']}, {replays} decode steps, each one graph "
+        "replay")
+
+    # speculative verify: repetitive prompts, so the n-gram drafter's
+    # guesses are accepted; the tokens must still be greedy's
+    motifs = [rng.integers(0, cfg.vocab_size, n) for n in (4, 7, 16)]
+    spec_prompts = [np.tile(mo, -(-96 // len(mo)))[:96] for mo in motifs] \
+        + [rng.integers(0, cfg.vocab_size, 80)]
+    eng = ServeEngine(cfg, params, device=dev, max_batch=4, page_size=16,
+                      max_seq_len=256, speculate=SPECULATE)
+    sreqs = [Request(p, 32) for p in spec_prompts]
+    for r in sreqs:
+        eng.submit(r)
+    eng.close_intake()
+    eng.run(timeout=300)
+    sm = eng.metrics()
+    replays = eng._verify_graph.replays
     eng.shutdown()
+    swants = [greedy_generate(cfg, params, p[None], 32, 256,
+                              device=dev)[0].tolist() for p in spec_prompts]
+    checked = check_identity("fp32 speculative identity", cfg, params,
+                             spec_prompts, sreqs, swants)
+    if sm["draft_accepted"] <= 0 or sm["pages_in_use"] != 0 \
+            or replays != sm["verify_steps"]:
+        raise AssertionError(f"fp32 speculative run: {dict(sm)}, "
+                             f"{replays} graph replays")
+    log(f"phase 4: fp32 speculative identity OK (speculate={SPECULATE}): 4 "
+        f"requests, {checked}/128 tokens compared, {sm['verify_steps']} verify "
+        f"steps (graph replays), drafts accepted {sm['draft_accepted']} "
+        f"of {sm['draft_proposed']}")
+
+    # ServeClient: its loop thread replays the graphs this thread captured
+    with ServeClient(cfg, params, device=dev, max_batch=4, page_size=16,
+                     max_seq_len=256) as client:
+        streams = [client.generate(p, max_tokens=16) for p in prompts]
+        streamed = [list(st) for st in streams]
+    checked = 0
+    for p, r, got in zip(prompts, reqs, streamed):
+        n = near_tie_prefix(cfg, params, p, r.tokens)
+        if got[:n] != r.tokens[:n]:
+            raise AssertionError(f"ServeClient streamed {got} != engine "
+                                 f"{r.tokens} within {n} tokens")
+        checked += n
+    log(f"phase 4: ServeClient OK: 4 streams from its loop thread, "
+        f"{checked}/64 tokens equal to the engine's")
+
+
+def check_identity(what, cfg, params, prompts, reqs, wants) -> int:
+    """Each request's tokens equal its oracle's up to the oracle's first
+    near tie; returns the number of tokens compared."""
+    checked = 0
+    for p, r, want in zip(prompts, reqs, wants):
+        n = near_tie_prefix(cfg, params, p, want)
+        if r.tokens[:n] != want[:n]:
+            raise AssertionError(f"{what}: engine {r.tokens} != greedy "
+                                 f"{want} within {n} tokens")
+        checked += n
+    return checked
 
 
 def serve_workload(cfg, rng):
@@ -529,9 +679,13 @@ def serve_workload(cfg, rng):
     return reqs
 
 
-def decode_step_device_ms(eng) -> float:
-    """Device time of one fused decode step with all 8 slots live at
-    mixed positions (sleep-kernel bracketing keeps host gaps out)."""
+def decode_step_times(eng) -> dict:
+    """One fused decode step with all 8 slots live at mixed positions,
+    eager (``_decode_fn`` on its own tensors) and replayed (the engine's
+    step graph, its static buffers filled with the same inputs): the
+    card's time by events (a sleep kernel ahead keeps host gaps out) and
+    the host's enqueue time of each. Run on an idle engine: the steps
+    write pages no request holds."""
     S = eng.max_batch
     pos = torch.as_tensor([64 + 100 * i for i in range(S)], dtype=torch.int32,
                           device=eng.device)
@@ -539,8 +693,17 @@ def decode_step_device_ms(eng) -> float:
     pages = torch.randperm(eng.pool.total_pages)[:S * eng.max_pages]
     tables = pages.view(S, eng.max_pages).to(torch.int32).to(eng.device)
     toks = torch.zeros((S, 1, 1), dtype=torch.int32, device=eng.device)
-    return median_ms(lambda: eng._decode_fn(eng.params, eng.pool.arrays,
-                                            toks, pos, tables, nv), runs=20)
+    eng._meta[:S].copy_(pos)
+    eng._meta[S:2 * S].copy_(nv)
+    eng._tables_dev[:, :eng.max_pages].copy_(tables)
+
+    def eager():
+        eng._decode_fn(eng.params, eng.pool.arrays, toks, pos, tables, nv)
+    graph = eng._decode_graph
+    return dict(eager_ms=median_ms(eager, runs=20),
+                graph_ms=median_ms(graph, runs=20),
+                eager_enqueue_ms=enqueue_ms(eager),
+                graph_enqueue_ms=enqueue_ms(graph))
 
 
 def sync_detector_works(dev) -> bool:
@@ -575,6 +738,7 @@ def phase_serve(dev, label):
     steps0, slot_steps0 = eng.stats["steps"], eng.stats["slot_steps"]
     dispatch0 = eng.stats["dispatch_s"]
     hits0 = eng.pool.stats["prefix_hits"]
+    suffix0, replays0 = eng.stats["suffix_steps"], eng._decode_graph.replays
 
     rmsnorm.LAUNCHES = flash_attention.LAUNCHES = 0
     paged_attention.LAUNCHES = 0
@@ -606,18 +770,24 @@ def phase_serve(dev, label):
     n_tokens = sum(len(r.tokens) for r in reqs)
     steps = eng.stats["steps"] - steps0
     slot_steps = eng.stats["slot_steps"] - slot_steps0
-    dev_ms = decode_step_device_ms(eng)
+    replays = eng._decode_graph.replays - replays0
+    suffix_steps = eng.stats["suffix_steps"] - suffix0
     host_ms = (eng.stats["dispatch_s"] - dispatch0) / max(steps, 1) * 1e3
+    t = decode_step_times(eng)
     log(f"phase 5: bf16 serve on {label}: 24 requests, {n_tokens} tokens "
         f"in {wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT "
         f"{ttft_ms(reqs)} (all submitted at t=0); {steps} decode steps, "
         f"{wall / max(steps, 1) * 1e3:.3f} ms/step wall incl. prefills, "
-        f"{slot_steps / max(steps, 1):.2f} slots/step; host enqueue of a "
-        f"decode step {host_ms:.3f} ms (mean); "
-        f"one 8-slot decode step on the device alone {dev_ms:.3f} ms; "
-        f"prefix_hits "
-        f"{hits}, suffix_steps {eng.stats['suffix_steps']}, "
+        f"{slot_steps / max(steps, 1):.2f} slots/step; prefix_hits "
+        f"{hits}, suffix_steps {suffix_steps}, "
         f"PENDING_AT_FIRST_POLL {pending}")
+    log(f"  decode step, host enqueue on this host: engine dispatch "
+        f"(uploads, graph replay, bookkeeping) {host_ms:.3f} ms (mean over "
+        f"the run), graph replay alone {t['graph_enqueue_ms']:.3f} ms, "
+        f"eager step function {t['eager_enqueue_ms']:.3f} ms (medians of "
+        f"10); card time of one 8-slot step by events: graph replay "
+        f"{t['graph_ms']:.3f} ms, eager {t['eager_ms']:.3f} ms (medians "
+        "of 20)")
     log(f"main path kernels: {json.dumps(launches)}")
     if not all(r.req_state is RequestState.FINISHED for r in reqs):
         raise AssertionError("bf16 serve: not every request finished: "
@@ -632,6 +802,13 @@ def phase_serve(dev, label):
     if min(launches.values()) <= 0:
         raise AssertionError(f"bf16 serve: a kernel never launched on the "
                              f"main path: {launches}")
+    # every decode step is one replay, and the replays' launches count
+    if replays != steps or launches["paged_attention"] != \
+            cfg.n_layers * (steps + suffix_steps):
+        raise AssertionError(f"bf16 serve: {steps} decode steps and "
+                             f"{suffix_steps} suffix prefills but {replays} "
+                             f"graph replays and "
+                             f"{launches['paged_attention']} paged launches")
     vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens)
     if not vocab_ok:
         raise AssertionError("bf16 serve: token outside the vocabulary")
@@ -639,10 +816,92 @@ def phase_serve(dev, label):
     return cfg, params, launches, host_ms
 
 
-def serve_engine(cfg, params, dev):
+def serve_engine(cfg, params, dev, speculate=0):
     from repro_torch.serve import ServeEngine
     return ServeEngine(cfg, params, device=dev, max_batch=8, page_size=16,
-                       max_seq_len=1024, max_inflight=2)
+                       max_seq_len=1024, max_inflight=2, speculate=speculate)
+
+
+def spec_engine(cfg, params, dev):
+    return serve_engine(cfg, params, dev, speculate=SPECULATE)
+
+
+def spec_workload(cfg, rng):
+    """16 requests: 8 prompts that repeat a motif of 4–16 tokens (where
+    prompt lookup drafts well) and 8 random ones, 64–256 tokens; 32–128
+    new tokens each."""
+    reqs = []
+    for i in range(16):
+        n = int(rng.integers(64, 257))
+        if i % 2 == 0:
+            motif = rng.integers(0, cfg.vocab_size, rng.integers(4, 17))
+            prompt = np.tile(motif, -(-n // len(motif)))[:n]
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, n)
+        reqs.append((prompt, int(rng.integers(32, 129))))
+    return reqs
+
+
+def serve_timed(eng, work):
+    """Serve ``work`` under sync debug mode "error" on a warm engine;
+    returns (requests, wall seconds)."""
+    from repro_torch.serve import Request, RequestState
+    for prompt, n in work[:2]:           # warm-up, outside the timing
+        eng.submit(Request(prompt, 4))
+    eng.run(until=lambda: len(eng.retired) == 2, timeout=300)
+    reqs = [Request(p, n) for p, n in work]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.close_intake()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run(timeout=600)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.req_state is RequestState.FINISHED for r in reqs) or any(
+            len(r.tokens) != n for r, (_, n) in zip(reqs, work)):
+        raise AssertionError("serve: not every request finished its budget")
+    if eng.metrics()["pages_in_use"] != 0:
+        raise AssertionError("serve: pages left in use")
+    return reqs, wall
+
+
+def phase_spec_serve(cfg, params, dev, label):
+    """bf16 speculative serving (5s) beside the plain engine on the same
+    requests, same host."""
+    from repro_torch.core import TensorOp
+    work = spec_workload(cfg, np.random.default_rng(6))
+    rows = {}
+    spec = f"speculate={SPECULATE}"
+    for name, make in (("plain", serve_engine), (spec, spec_engine)):
+        eng = make(cfg, params, dev)
+        steps0, dispatch0 = eng.stats["steps"], eng.stats["dispatch_s"]
+        TensorOp.PENDING_AT_FIRST_POLL = 0
+        reqs, wall = serve_timed(eng, work)
+        steps = eng.stats["steps"] - steps0
+        n_tokens = sum(len(r.tokens) for r in reqs)
+        rows[name] = (reqs, n_tokens / wall, steps, eng.stats["dispatch_s"]
+                      - dispatch0, dict(eng.metrics()))
+        eng.shutdown()
+        log(f"phase 5s: bf16 {name} serve on {label}: 16 requests (8 "
+            f"repetitive prompts), {n_tokens} tokens in {wall:.3f} s = "
+            f"{n_tokens / wall:.1f} tokens/s; TTFT {ttft_ms(reqs)}; {steps} "
+            f"steps, host enqueue {rows[name][3] / max(steps, 1) * 1e3:.3f} "
+            f"ms a step (mean), {n_tokens / max(steps, 1):.2f} tokens/step; "
+            f"PENDING_AT_FIRST_POLL {TensorOp.PENDING_AT_FIRST_POLL}")
+    m = rows[spec][4]
+    rate = m["draft_accepted"] / max(m["draft_proposed"], 1)
+    log(f"phase 5s: {spec}: {m['verify_steps']} verify steps, drafts "
+        f"accepted {m['draft_accepted']} of {m['draft_proposed']} "
+        f"proposed (acceptance rate {rate:.3f}), {m['spec_tokens']} tokens "
+        f"from verify steps; tokens/s {rows[spec][1]:.1f} against "
+        f"{rows['plain'][1]:.1f} plain")
+    if m["verify_steps"] <= 0 or m["draft_accepted"] <= 0:
+        raise AssertionError(f"speculative serve accepted no draft: {m}")
 
 
 def sleep_cycles_per_ms() -> float:
@@ -658,33 +917,25 @@ def sleep_cycles_per_ms() -> float:
 
 
 def phase_card_bound(cfg, params, dev, host_ms, label, make_engine=None,
-                     phase="5b", sleep_after=False):
+                     phase="5b"):
     """The loop must run ahead of the card when the card is the slower
-    side. A sleep kernel queued with every decode step holds the card for
-    several times the host's enqueue of a step; then every step but a
-    host hiccup's worth must still be running at its op's first poll.
-
-    The sleep goes ahead of the step's kernels, or with ``sleep_after``
-    behind them (before the step's token copy and event): a step that
-    launches more kernels than the card's launch queue holds (mamba2's
-    ~2,600) would otherwise stall the host's enqueue behind the sleep
-    until the card had nearly caught up."""
+    side. A sleep kernel queued ahead of every decode (or verify) step's
+    graph replay, on the same stream, holds the card for several times
+    the host's enqueue of a step; then every step but a host hiccup's
+    worth must still be running at its op's first poll."""
     from repro_torch.core import TensorOp
     from repro_torch.serve import Request, RequestState
     eng = (make_engine or serve_engine)(cfg, params, dev)
     sleep_ms = max(50.0, 4 * host_ms)
     cycles = int(sleep_ms * sleep_cycles_per_ms())
-    decode = eng._decode_fn
+    attr = "_verify_graph" if eng.speculate else "_decode_graph"
+    replay = getattr(eng, attr)
 
-    def held_step(*args):
-        if not sleep_after:
-            torch.cuda._sleep(cycles)
-        out = decode(*args)
-        if sleep_after:
-            torch.cuda._sleep(cycles)
-        return out
+    def held_step():
+        torch.cuda._sleep(cycles)
+        return replay()
 
-    eng._decode_fn = held_step
+    setattr(eng, attr, held_step)
     rng = np.random.default_rng(3)
     reqs = [Request(rng.integers(0, cfg.vocab_size, 64), 12)
             for _ in range(eng.max_batch)]
@@ -707,12 +958,11 @@ def phase_card_bound(cfg, params, dev, host_ms, label, make_engine=None,
     m = eng.metrics()
     eng.shutdown()
     log(f"phase {phase}: card-bound loop on {label}: {sleep_ms:.1f} ms of "
-        f"sleep queued {'behind' if sleep_after else 'ahead of'} each decode "
-        f"step's kernels, host enqueue {step_host_ms:.3f} "
-        f"ms a step (mean) against {host_ms:.3f} ms with no sleep: the "
-        f"host waited {step_host_ms - host_ms:.3f} ms a step on the launch "
-        f"queue; {steps} decode steps in {wall * 1e3:.1f} ms "
-        f"wall; PENDING_AT_FIRST_POLL {pending} of {steps} steps")
+        f"sleep queued ahead of each {attr[1:-6]} step's graph replay, host "
+        f"enqueue {step_host_ms:.3f} ms a step (mean) against "
+        f"{host_ms:.3f} ms with no sleep; {steps} steps in "
+        f"{wall * 1e3:.1f} ms wall; PENDING_AT_FIRST_POLL {pending} of "
+        f"{steps} steps")
     if not all(r.req_state is RequestState.FINISHED for r in reqs) \
             or m.get("pages_in_use", 0) != 0:
         raise AssertionError(f"card-bound serve did not complete: {dict(m)}")
@@ -759,31 +1009,39 @@ def phase_profile(cfg, params, dev, label, window_steps: int = 40,
         eng.submit(Request(prompt, n))
     eng.close_intake()
     eng.run(until=lambda: eng.stats["prefills"] >= seated, timeout=300)
-    steps0 = eng.stats["steps"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.run(until=lambda: eng.stats["steps"] >= steps0 + window_steps,
-                timeout=300)
+    # a session now and then delivers no device events: up to three
+    # windows, while the workload lasts
+    for _ in range(3):
+        steps0 = eng.stats["steps"]
         torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    steps = eng.stats["steps"] - steps0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run(until=lambda: eng.idle or
+                    eng.stats["steps"] >= steps0 + window_steps,
+                    timeout=300)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        steps = eng.stats["steps"] - steps0
+        by_family: dict = {}
+        by_name: dict = {}
+        ops = 0
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                us = evt.time_range.elapsed_us()
+                fam = kernel_family(evt.name)
+                by_family[fam] = by_family.get(fam, 0.0) + us
+                by_name[evt.name] = by_name.get(evt.name, 0.0) + us
+                ops += 1
+        busy_us = sum(by_family.values())
+        if busy_us > 0 or eng.idle:
+            break
     eng.run(timeout=600)
     eng.shutdown()
-    by_family: dict = {}
-    by_name: dict = {}
-    ops = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us = evt.time_range.elapsed_us()
-            fam = kernel_family(evt.name)
-            by_family[fam] = by_family.get(fam, 0.0) + us
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + us
-            ops += 1
-    busy_us = sum(by_family.values())
-    if busy_us <= 0:
-        raise AssertionError("profile: no device time in the traced window")
+    if busy_us <= 0 or steps <= 0:
+        raise AssertionError(f"profile: {steps} decode steps and "
+                             f"{busy_us:.0f} us of device time in the "
+                             "traced window")
     log(f"phase {phase}: profiled window on {label}: {steps} decode steps in "
         f"{window * 1e3:.1f} ms wall ({window / steps * 1e3:.3f} ms/step, "
         f"profiler on); card busy {busy_us / 1e3:.1f} ms = "
@@ -875,6 +1133,7 @@ def phase_mamba_serve(dev, label):
     eng.run(until=lambda: len(eng.retired) == 2, timeout=300)
     steps0, prefills0 = eng.stats["steps"], eng.stats["prefills"]
     slot_steps0, dispatch0 = eng.stats["slot_steps"], eng.stats["dispatch_s"]
+    replays0 = eng._decode_graph.replays
 
     rmsnorm.LAUNCHES = ssd_scan.LAUNCHES = 0
     flash_attention.LAUNCHES = paged_attention.LAUNCHES = 0
@@ -897,6 +1156,7 @@ def phase_mamba_serve(dev, label):
                 "paged_attention": paged_attention.LAUNCHES}
     pending = TensorOp.PENDING_AT_FIRST_POLL
     steps = eng.stats["steps"] - steps0
+    replays = eng._decode_graph.replays - replays0
     prefills = eng.stats["prefills"] - prefills0
     slot_steps = eng.stats["slot_steps"] - slot_steps0
     host_ms = (eng.stats["dispatch_s"] - dispatch0) / max(steps, 1) * 1e3
@@ -914,11 +1174,14 @@ def phase_mamba_serve(dev, label):
     def prefill():
         lm.lm_prefill(eng.params, {"tokens": prompt}, cfg, slot0)
 
-    # events around a call of ~2,600 (decode) or ~1,500 (prefill)
-    # launches time the host past the launch queue's depth; the profiler's
-    # kernel times give the card's own share
-    step_ev, prefill_ev = median_ms(decode, runs=10), median_ms(prefill,
-                                                                runs=10)
+    graph = eng._decode_graph
+    # events around an eager call of ~2,500 (decode) or ~1,500 (prefill)
+    # launches time the host past the launch queue's depth; around one
+    # replay they time the card. The profiler's kernel sums give the
+    # card's busy time and its split by family.
+    step_ev, graph_ev = median_ms(decode, runs=10), median_ms(graph, runs=20)
+    prefill_ev = median_ms(prefill, runs=10)
+    eager_enq, graph_enq = enqueue_ms(decode), enqueue_ms(graph)
     (step_ms, step_split), (prefill_ms, prefill_split) = busy_ms(decode), \
         busy_ms(prefill)
     log(f"phase 8: mamba2 bf16 serve on {label}: dense mode, 16 requests, "
@@ -927,11 +1190,16 @@ def phase_mamba_serve(dev, label):
         f"decode steps, "
         f"{wall / max(steps, 1) * 1e3:.3f} ms/step wall incl. prefills, "
         f"{slot_steps / max(steps, 1):.2f} slots/step, {prefills} prefills; "
-        f"host enqueue of a decode step {host_ms:.3f} ms (mean); card busy "
-        f"(kernel times, torch.profiler) for one 8-slot decode step "
-        f"{step_ms:.3f} ms, one 512-token prefill {prefill_ms:.3f} ms "
-        f"(event-timed with a sleep ahead: {step_ev:.3f} ms, "
-        f"{prefill_ev:.3f} ms); PENDING_AT_FIRST_POLL {pending}")
+        f"PENDING_AT_FIRST_POLL {pending}")
+    log(f"  decode step, host enqueue on this host: engine dispatch "
+        f"(uploads, graph replay, bookkeeping) {host_ms:.3f} ms (mean over "
+        f"the run), graph replay alone {graph_enq:.3f} ms, eager step "
+        f"function {eager_enq:.3f} ms (medians of 10); card time of one "
+        f"8-slot step: graph replay by events {graph_ev:.3f} ms (median of "
+        f"20), eager step's kernel sum (torch.profiler) {step_ms:.3f} ms, "
+        f"eager step by events {step_ev:.3f} ms (the host's pace)")
+    log(f"  one 512-token prefill (eager): card busy {prefill_ms:.3f} ms "
+        f"(kernel sum), {prefill_ev:.3f} ms by events")
     for what, split in (("decode step", step_split),
                         ("512-token prefill", prefill_split)):
         log(f"  card busy of one {what} by kernel family: " + ", ".join(
@@ -953,6 +1221,9 @@ def phase_mamba_serve(dev, label):
                              "decode steps")
     if launches["flash_attention"] or launches["paged_attention"]:
         raise AssertionError("mamba2 serve ran an attention kernel")
+    if replays != steps:
+        raise AssertionError(f"mamba2 serve: {steps} decode steps but "
+                             f"{replays} graph replays")
     eng.shutdown()
     return cfg, params, launches, host_ms
 
@@ -962,9 +1233,16 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     label = card_label()
-    log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}; card: {label}")
     from repro_torch.kernels import _build
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    log(f"phase 1: torch {torch.__version__} (CUDA runtime "
+        f"{torch.version.cuda}), driver {driver.strip()}, nvcc "
+        f"{re.search(r'release [0-9.]+', nvcc).group(0)}, python "
+        f"{sys.version.split()[0]}; card: {label}")
     _build.lib()
     log(f"phase 2: kernels built in {_build.BUILD_SECONDS:.1f} s "
         f"({_build.BUILD_ROOT / _build.digest()})")
@@ -973,16 +1251,20 @@ def main() -> int:
             log("  ptxas: " + line.strip())
     dev = torch.device("cuda", 0)
     summary = phase_kernels(dev, label)
+    phase_graph_edges(dev)
     phase_identity(dev)
     cfg, params, launches, host_ms = phase_serve(dev, label)
     phase_card_bound(cfg, params, dev, host_ms, label)
+    phase_spec_serve(cfg, params, dev, label)
+    phase_card_bound(cfg, params, dev, host_ms, label,
+                     make_engine=spec_engine, phase="5c")
     phase_profile(cfg, params, dev, label)
     del params
     phase_mamba_identity(dev)
     mcfg, mparams, mlaunches, mhost_ms = phase_mamba_serve(dev, label)
     launches["ssd_scan"] = mlaunches["ssd_scan"]
     phase_card_bound(mcfg, mparams, dev, mhost_ms, label,
-                     make_engine=mamba_engine, phase="8b", sleep_after=True)
+                     make_engine=mamba_engine, phase="8b")
     phase_profile(mcfg, mparams, dev, label, window_steps=12,
                   make_engine=mamba_engine,
                   work=mamba_workload(mcfg, np.random.default_rng(5)),

@@ -5,4 +5,8 @@ Every wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel (built from ``repro_torch/csrc`` at first
 use, see ``_build``) or raises. Each kernel module keeps a plain integer
 ``LAUNCHES``, incremented where the kernel is launched and nowhere else.
+A serve step captured as a CUDA graph (``serve.graphs.StepGraph``) runs
+the wrappers once, at capture, where their increments count nothing; the
+step graph adds each kernel's launches in the step back to ``LAUNCHES``
+on every replay, so the counts stay launches on the card.
 """

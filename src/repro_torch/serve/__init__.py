@@ -3,8 +3,11 @@
 Layers (counterparts of ``repro.serve``):
 
 * ``serve.steps``    — prefill / dense decode / batched slot decode /
-  fused paged decode and suffix steps, the prefill scatter, and the
-  ``greedy_generate`` oracle.
+  fused paged decode, verify and suffix steps, the prefill scatter, and
+  the ``greedy_generate`` oracle.
+* ``serve.graphs``   — ``StepGraph``: a fixed-shape step captured as one
+  CUDA graph on the card (the counterpart of the reference's ``jax.jit``),
+  run eagerly on the CPU.
 * ``serve.config``   — ``GenerationConfig``: per-request knobs validated
   once at admission.
 * ``serve.request``  — request lifecycle; each ``Request`` is a
@@ -12,25 +15,36 @@ Layers (counterparts of ``repro.serve``):
   step-completion continuations.
 * ``serve.batcher``  — thread-safe admission on a ``poll_only +
   enqueue_complete`` CR.
+* ``serve.drafter``  — the ``Drafter`` protocol for self-speculative
+  decoding (default: n-gram prompt lookup).
 * ``serve.kv_cache`` — paged KV block pool with content-hashed prefix
   reuse.
 * ``serve.engine``   — the decode loop: each step's output is a
   ``TensorOp`` (a CUDA event) whose continuation delivers tokens and
   retires slots.
+* ``serve.api``      — the streaming front end: ``ServeClient`` /
+  ``Session`` / ``TokenStream``, fed by the same continuations.
+* ``serve.protocol`` — ``EngineLike``, the structural protocol a serving
+  tier satisfies (``ServeClient`` binds to any).
 * ``serve.metrics``  — ``ServeMetrics``, the typed metrics mapping.
 """
+from repro_torch.serve.api import ServeClient, Session, TokenStream
 from repro_torch.serve.batcher import Batcher
 from repro_torch.serve.config import DeadlineExceeded, GenerationConfig
+from repro_torch.serve.drafter import Drafter, NgramDrafter, RepeatDrafter
 from repro_torch.serve.engine import ServeEngine, serve_requests
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.kv_cache import (PagePool, pages_for,
                                         paged_supported, prefix_keys)
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.protocol import EngineLike
 from repro_torch.serve.request import Request, RequestState, summarize
 from repro_torch.serve.steps import (greedy_generate,
                                      make_batched_decode_step,
                                      make_decode_step,
                                      make_fused_paged_decode_step,
                                      make_fused_paged_suffix_step,
+                                     make_fused_paged_verify_step,
                                      make_prefill_scatter, make_prefill_step)
 
 __all__ = [
@@ -39,6 +53,8 @@ __all__ = [
     "prefix_keys", "ServeMetrics", "Request", "RequestState", "summarize",
     "greedy_generate", "make_batched_decode_step", "make_decode_step",
     "make_fused_paged_decode_step",
-    "make_fused_paged_suffix_step", "make_prefill_scatter",
-    "make_prefill_step",
+    "make_fused_paged_suffix_step", "make_fused_paged_verify_step",
+    "make_prefill_scatter", "make_prefill_step", "StepGraph", "Drafter",
+    "NgramDrafter", "RepeatDrafter", "ServeClient", "Session", "TokenStream",
+    "EngineLike",
 ]

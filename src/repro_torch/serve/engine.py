@@ -25,6 +25,19 @@ sequence:
   tokens and retires finished slots (releasing their pages) when the
   device work has *actually* finished. The host loop never blocks on
   device work.
+* **speculation** (``speculate=K``, paged mode) — each iteration is a
+  draft/verify pair: a host-side ``Drafter`` (n-gram prompt lookup by
+  default) guesses up to K tokens per slot, and one verify step scores
+  all K+1 window rows through the fused paged kernel, accepting the
+  longest matching prefix. The accept bookkeeping runs in the verify
+  step's continuation, so the tokens equal non-speculative greedy decode.
+
+Each decode or verify step is one ``StepGraph`` (``serve.graphs``), the
+counterpart of the reference's ``jax.jit``: on a CUDA device it is
+captured as a CUDA graph when the engine is constructed (the pool or the
+slot state and every static buffer are allocated there, before any slot
+is seated) and replayed as one launch a step; on the CPU it runs eagerly
+on the same buffers. Prefill and suffix prefill run eagerly.
 
 What keeps the loop from blocking, in PyTorch terms:
 
@@ -32,14 +45,16 @@ What keeps the loop from blocking, in PyTorch terms:
   prefill scatter and every later read are ordered by the stream itself
   (this replaces JAX's data dependencies and donation);
 * host data goes up with ``pin_memory()`` + ``non_blocking=True`` (a
-  blocking upload would wait for every step in flight);
-* a step's tokens come down the same way, started right after the step
-  and before the op's event is recorded; continuations read only that
-  host copy, never a CUDA tensor (``int()``/``.item()``/``.cpu()`` there
-  would sync the stream behind the next step already queued).
+  blocking upload would wait for every step in flight), into the step
+  graphs' static buffers, queued ahead of the replay that reads them;
+* a step's outputs come down the same way, into a fresh pinned host
+  tensor per step in flight, started right after the step and before the
+  op's event is recorded; continuations read only that host copy, never
+  a CUDA tensor (``int()``/``.item()``/``.cpu()`` there would sync the
+  stream behind the next step already queued).
 
-``fused=False``, ``speculate > 0`` and dense mode for families other than
-SSM are not ported yet.
+``fused=False`` and dense mode for families other than SSM are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -57,12 +72,15 @@ from repro_torch.models.common import SSM, ModelConfig
 from repro_torch.obs import events as _obs_events
 from repro_torch.obs import tracer as _obs
 from repro_torch.serve.batcher import Batcher
+from repro_torch.serve.drafter import Drafter, NgramDrafter
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.kv_cache import PagePool, paged_supported, pages_for
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.request import Request, RequestState, summarize
 from repro_torch.serve.steps import (make_batched_decode_step,
                                      make_fused_paged_decode_step,
                                      make_fused_paged_suffix_step,
+                                     make_fused_paged_verify_step,
                                      make_prefill_scatter, make_prefill_step)
 from repro_torch.util import resolve_device
 
@@ -100,6 +118,17 @@ class ServeEngine:
     ``page_size`` tokens per KV page, ``max_seq_len`` (prompt + generation
     bound per request, default ``max_cache_len``), ``total_pages`` in the
     pool (default ``max_batch * ceil(max_seq_len / page_size)``).
+
+    Speculative knobs (paged only): ``speculate=K`` runs a verify step
+    scoring up to K drafts + 1 real token per slot per iteration;
+    ``drafter`` plugs any ``serve.drafter.Drafter`` (default: n-gram
+    prompt lookup). Requests may lower their own K or opt out
+    (``GenerationConfig.speculate``).
+
+    On a CUDA device the constructor captures the decode (or verify) step
+    as a CUDA graph; construct the engine on the thread that owns the
+    device's work, with no other capture under way. ``step()`` may then
+    run on another thread (``ServeClient``'s loop).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *,
@@ -114,10 +143,10 @@ class ServeEngine:
                  total_pages: Optional[int] = None,
                  max_seq_len: Optional[int] = None,
                  speculate: int = 0,
+                 drafter: Optional[Drafter] = None,
                  fused: Optional[bool] = None) -> None:
-        if fused is False or speculate:
-            raise NotImplementedError(
-                f"fused=False and speculate>0 are {_NOT_PORTED}")
+        if fused is False:
+            raise NotImplementedError(f"fused=False is {_NOT_PORTED}")
         lm.require_ported(cfg)
         if paged is None:
             paged = paged_supported(cfg)
@@ -125,6 +154,10 @@ class ServeEngine:
             raise ValueError(
                 f"paged KV cache unsupported for {cfg.name!r} "
                 "(needs dense/MoE family, scan_layers, no sliding window)")
+        if speculate and not paged:
+            raise ValueError(
+                "speculative decoding runs through the paged verify step; "
+                "speculate > 0 requires paged=True")
         if fused and not paged:
             raise ValueError("fused paged-attention steps require paged=True")
         if not paged and cfg.family != SSM:
@@ -144,45 +177,76 @@ class ServeEngine:
         self.max_inflight = max(1, int(max_inflight))
         self.paged = bool(paged)
         self.fused = self.paged
-        self.speculate = 0
+        self.speculate = max(0, int(speculate))
+        self.drafter = drafter if drafter is not None else NgramDrafter()
         self._own_engine = engine is None
         self.engine = engine if engine is not None else \
             Engine(scheduler=scheduler)
         self.batcher = Batcher(self.engine)
         self.cr_steps = self.engine.continue_init()
 
-        S = self.max_batch
+        S, K = self.max_batch, self.speculate
+        i32 = dict(dtype=torch.int32, device=self.device)
+        # static step inputs, written in place and never rebound: the next
+        # input token of each slot, and (paged) one buffer holding the
+        # positions, n_valid and drafts of a step, uploaded in one copy
+        self._tokens = torch.zeros((S, 1, 1), **i32)
+        self._meta = torch.zeros(2 * S + S * K, **i32)
         self.pool: Optional[PagePool] = None
+        self._cache: Optional[dict] = None
+        self._decode_graph: Optional[StepGraph] = None
+        self._verify_graph: Optional[StepGraph] = None
         if self.paged:
             self.page_size = int(page_size)
             self.max_seq_len = int(max_seq_len or max_cache_len)
             self.max_pages = pages_for(self.max_seq_len, self.page_size)
-            self._table_pages = self.max_pages
+            # a verify window starting on a request's last page may reach
+            # past its footprint: the slack entries name the null page
+            self._spec_pad = pages_for(K, self.page_size) if K else 0
+            self._table_pages = self.max_pages + self._spec_pad
             n_pool = int(total_pages) if total_pages is not None \
                 else S * self.max_pages
             self.pool = PagePool(cfg, n_pool, self.page_size,
                                  device=self.device)
+            self.pool.ensure_arrays()
             self._tables = np.full((S, self._table_pages),
                                    self.pool.null_page, np.int32)
-            # device copy of _tables, re-uploaded (non-blocking) only when a
-            # placement or eviction changed a row since the last dispatch
-            self._tables_dev: Optional[torch.Tensor] = None
-            self._tables_dirty = True
+            # device copy of _tables, re-uploaded in place (non-blocking)
+            # only when a placement or eviction changed a row since the
+            # last dispatch
+            self._tables_dev = torch.tensor(self._tables, device=self.device)
+            self._tables_dirty = False
             self._decode_fn = make_fused_paged_decode_step(
                 cfg, self.page_size, self._layers)
             self._suffix_fn = make_fused_paged_suffix_step(
                 cfg, self.page_size, self._layers)
             self._scatter_fn = make_prefill_scatter(cfg, self.page_size)
+            # every n_valid is 0 until a dispatch: the warm-up of a capture
+            # writes no page
+            if K:
+                self._verify_fn = make_fused_paged_verify_step(
+                    cfg, self.page_size, K, self._layers)
+                self._verify_graph = StepGraph(self._verify_step,
+                                               self.device)
+            else:
+                self._decode_graph = StepGraph(self._paged_step, self.device)
         else:
+            # dense mode: layer-stacked caches, the S slots as their batch;
+            # the warm-up steps every slot's rows, which hold nothing yet
+            self._cache = lm.init_cache(cfg, S, self.max_cache_len,
+                                        device=self.device)
             self._decode_fn = make_batched_decode_step(cfg, self._layers)
+            self._decode_graph = StepGraph(self._dense_step, self.device)
 
         # -- slot state (loop thread only) --
         self._slots: List[Optional[Request]] = [None] * S
         self._draining: Set[int] = set()      # token budget met, step in flight
+        self._verifying: Set[int] = set()     # verify step in flight
         self._pos = np.zeros(S, np.int32)     # next write position per slot
-        self._tokens: Optional[torch.Tensor] = None  # next inputs (S, 1, 1)
-        # dense mode: layer-stacked caches, the S slots as their batch
-        self._cache: Optional[dict] = None
+        # speculative: per-slot host context (prompt + emitted tokens),
+        # appended by the prefill/verify continuations as device steps
+        # complete; what the drafter matches against
+        self._ctx: List[Optional[List[int]]] = [None] * S
         self._inflight = 0                    # dispatched, not-yet-complete steps
         self._stalled_at: Optional[int] = None  # pages_in_use at last deferral
         self._retired: List[Request] = []
@@ -190,8 +254,11 @@ class ServeEngine:
         self.stats = {"steps": 0, "prefills": 0, "retired": 0,
                       "slot_steps": 0, "padded_steps": 0, "cancelled": 0,
                       "suffix_steps": 0, "suffix_tokens": 0, "deferred": 0,
-                      "max_active": 0, "stopped": 0, "expired": 0,
-                      # host seconds spent enqueueing decode steps
+                      "max_active": 0, "verify_steps": 0, "spec_tokens": 0,
+                      "draft_proposed": 0, "draft_accepted": 0,
+                      "stopped": 0, "expired": 0,
+                      # host seconds spent enqueueing decode (or verify)
+                      # steps
                       "dispatch_s": 0.0}
 
     # ------------------------------------------------------------- clients
@@ -206,8 +273,6 @@ class ServeEngine:
             if pages_for(total, self.page_size) > self.pool.total_pages:
                 raise ValueError(f"request needs more pages than the pool "
                                  f"holds ({self.pool.total_pages})")
-        if request.speculate:
-            raise NotImplementedError(f"speculate>0 is {_NOT_PORTED}")
         tr = _obs.TRACE
         if tr is not None and tr.want(request.req_id):
             tr.evt(_obs_events.REQ_SUBMIT, request.req_id, "engine")
@@ -228,34 +293,59 @@ class ServeEngine:
             return list(self._retired)
 
     # ------------------------------------------------------- host <-> device
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    def _upload(self, a: np.ndarray,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Host ints to the device without waiting for the stream: copied
-        into pinned memory, then a non-blocking copy. The caching host
-        allocator keeps that pinned block until the copy has run."""
+        into pinned memory, then a non-blocking copy into ``out`` (a static
+        buffer of ``a``'s size) or a new tensor. The caching host allocator
+        keeps that pinned block until the copy has run."""
         t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
-        if self.device.type == "cpu":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if self.device.type != "cpu":
+            t = t.pin_memory()
+        if out is None:
+            return t.to(self.device, non_blocking=True, copy=True)
+        return out.copy_(t.view(out.shape), non_blocking=True)
 
     def _download(self, t: torch.Tensor) -> torch.Tensor:
-        """Start a device→host copy of a step's tokens; valid once the
-        TensorOp created after this call completes."""
+        """Start a device→host copy of a step's output into a new (pinned)
+        host tensor; valid once the TensorOp created after this call
+        completes. A step graph's outputs are overwritten by its next
+        replay, so each step in flight keeps its own copy."""
         if self.device.type == "cpu":
             return t.clone()
         return t.to("cpu", non_blocking=True)
 
-    # ---------------------------------------------------------- slot state
-    def _ensure_state(self) -> None:
-        if self._tokens is None:
-            self._tokens = torch.zeros((self.max_batch, 1, 1),
-                                       dtype=torch.int32, device=self.device)
-        if self.paged:
-            self.pool.ensure_arrays()
-        elif self._cache is None:
-            self._cache = lm.init_cache(self.cfg, self.max_batch,
-                                        self.max_cache_len,
-                                        device=self.device)
+    # ------------------------------------------------------------ step graphs
+    def _paged_step(self) -> torch.Tensor:
+        """The fused paged decode over the static buffers; the next tokens
+        become the next inputs in place."""
+        S = self.max_batch
+        nxt, _ = self._decode_fn(self.params, self.pool.arrays, self._tokens,
+                                 self._meta[:S], self._tables_dev,
+                                 self._meta[S:2 * S])
+        self._tokens.copy_(nxt[..., None])
+        return nxt
 
+    def _dense_step(self) -> torch.Tensor:
+        """The dense-mode decode of every slot (the SSM decode reads no
+        position); the next tokens become the next inputs in place."""
+        nxt, _ = self._decode_fn(self.params, self._cache, self._tokens, None)
+        self._tokens.copy_(nxt[..., None])
+        return nxt
+
+    def _verify_step(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused paged verify over the static buffers. The next input
+        tokens are set by the verify continuation, once the accepted runs
+        are known on the host."""
+        S, K = self.max_batch, self.speculate
+        tokens = torch.cat([self._tokens,
+                            self._meta[2 * S:].view(S, 1, K)], dim=2)
+        emitted, accepts, _ = self._verify_fn(
+            self.params, self.pool.arrays, tokens, self._meta[:S],
+            self._tables_dev, self._meta[S:2 * S])
+        return emitted, accepts
+
+    # ---------------------------------------------------------- slot state
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._slots) if r is None]
 
@@ -297,7 +387,6 @@ class ServeEngine:
             t0 = tr.now()
             tr.evt(_obs_events.REQ_ADMIT, req.req_id, "engine",
                    ts=req.arrival_time, dur=t0 - req.arrival_time)
-        self._ensure_state()
         if req.max_new_tokens == 1:
             # single-token request: prefill answers it outright; it never
             # occupies a decode slot nor any pages
@@ -324,7 +413,11 @@ class ServeEngine:
         first_host = self._download(first)
         req.push_device_token(first_host[0])
         self.stats["prefills"] += 1
-        self._seat_slot(slot, req, first, plen)
+        # the drafter's host context: the prompt now, the first token in
+        # the prefill continuation, each accepted run in a verify's
+        ctx = np.asarray(req.prompt, np.int32).reshape(-1).tolist() \
+            if self.speculate else None
+        self._seat_slot(slot, req, first, plen, ctx)
         self.engine.continue_when(
             TensorOp(first, payload=first_host), self._on_prefill_done,
             (req, False, slot, first_host, t0), cr=self.cr_steps,
@@ -332,7 +425,7 @@ class ServeEngine:
         return True
 
     def _seat_slot(self, slot: int, req: Request, token0: torch.Tensor,
-                   plen: int) -> None:
+                   plen: int, ctx: Optional[List[int]] = None) -> None:
         """Seat a prefilled request into decode slot ``slot``: its page
         table row (paged), next input token (device (1,) tensor, written in
         place behind the prefill on the stream) and position."""
@@ -346,6 +439,7 @@ class ServeEngine:
         self._tokens[slot, 0, 0] = token0[0]
         self._pos[slot] = plen
         self._slots[slot] = req
+        self._ctx[slot] = ctx
 
     def _prefill_dense(self, slot: int,
                        prompt_np: np.ndarray) -> torch.Tensor:
@@ -422,13 +516,12 @@ class ServeEngine:
         pool.register_prefix(req.prompt, table)
         return first.to(torch.int32)
 
-    def _device_tables(self) -> torch.Tensor:
-        """Device copy of the page tables; re-uploaded without blocking
-        only after a placement or eviction changed a row."""
-        if self._tables_dirty or self._tables_dev is None:
-            self._tables_dev = self._upload(self._tables)
+    def _refresh_tables(self) -> None:
+        """Bring the static device copy of the page tables up to date,
+        without blocking, after a placement or eviction changed a row."""
+        if self._tables_dirty:
+            self._upload(self._tables, out=self._tables_dev)
             self._tables_dirty = False
-        return self._tables_dev
 
     def _on_prefill_done(self, statuses, meta) -> None:
         req, retire_now, slot, first_host, t0 = meta
@@ -444,6 +537,10 @@ class ServeEngine:
         if retire_now:
             self._retire(req, stopped=finished == "stop")
             return
+        # the slot may have been evicted (cancel) and reseated since
+        if (slot is not None and self._ctx[slot] is not None
+                and self._slots[slot] is req):
+            self._ctx[slot].append(int(first_host[0]))
         if req.req_state in (RequestState.PREFILLING, RequestState.DECODING):
             if finished == "stop":
                 self._finish_slot(slot, req, "stop")
@@ -467,6 +564,15 @@ class ServeEngine:
 
     def _dispatch_step(self) -> bool:
         t_host = time.perf_counter()
+        if self.speculate:
+            dispatched = self._dispatch_verify()
+        else:
+            dispatched = self._dispatch_decode()
+        if dispatched:
+            self.stats["dispatch_s"] += time.perf_counter() - t_host
+        return dispatched
+
+    def _dispatch_decode(self) -> bool:
         live = [(i, r) for i, r in enumerate(self._slots)
                 if r is not None and i not in self._draining]
         self._sweep_dead(live)
@@ -476,22 +582,16 @@ class ServeEngine:
         if self.paged:
             # n_valid: 1 = write this slot's token, 0 = idle/draining slot
             # (the kernel writes nothing for it and outputs zeros); one
-            # upload
+            # upload into the static buffer
             meta = np.zeros(2 * S, np.int32)
             meta[:S] = self._pos
             meta[[S + i for i, _ in live]] = 1
-            dev = self._upload(meta)
-            nxt, _ = self._decode_fn(self.params, self.pool.arrays,
-                                     self._tokens, dev[:S],
-                                     self._device_tables(), dev[S:])
-        else:
-            # every slot steps, as under the reference's vmap; an idle
-            # slot's rows are garbage until a prefill overwrites them. The
-            # SSM decode reads no position, so none is uploaded.
-            nxt, _ = self._decode_fn(self.params, self._cache, self._tokens,
-                                     None)
+            self._upload(meta, out=self._meta[:2 * S])
+            self._refresh_tables()
+        # dense mode: every slot steps, as under the reference's vmap; an
+        # idle slot's rows are garbage until a prefill overwrites them
+        nxt = self._decode_graph()
         host = self._download(nxt)
-        self._tokens = nxt[..., None]                       # (S, 1, 1)
         stepped: List[Tuple[int, Request, bool]] = []
         prio = 0
         for i, r in live:
@@ -512,7 +612,6 @@ class ServeEngine:
         self.engine.continue_when(TensorOp(nxt, payload=host),
                                   self._on_step_done, (stepped, host, t0),
                                   cr=self.cr_steps, flags=_step_flags(prio))
-        self.stats["dispatch_s"] += time.perf_counter() - t_host
         return True
 
     def _on_step_done(self, statuses, meta) -> None:
@@ -551,6 +650,131 @@ class ServeEngine:
             elif req.past_deadline(now):
                 self._finish_slot(slot, req, "expired")
 
+    # ---------------------------------------------------------- speculative
+    def _slot_drafts(self, slot: int, req: Request) -> List[int]:
+        """Draft tokens for one slot: the request's own K caps the
+        engine's, the token budget caps the window (never past
+        ``remaining - 1``: the verify step always emits one real token),
+        and the drafter may return fewer still."""
+        k = self.speculate if req.speculate is None \
+            else min(req.speculate, self.speculate)
+        k = min(k, req.remaining - 1)
+        if k <= 0 or self._ctx[slot] is None:
+            return []
+        return list(self.drafter.draft(self._ctx[slot], k))[:k]
+
+    def _dispatch_verify(self) -> bool:
+        """One speculative verify step for every steppable slot.
+
+        Slots whose previous verify has not completed are left out (their
+        position and next token are known only then); slots with no
+        usable draft run with k=0, a plain greedy step for them."""
+        live = [(i, r) for i, r in enumerate(self._slots)
+                if r is not None and i not in self._verifying]
+        self._sweep_dead(live)
+        if not live:
+            return False
+        S, K = self.max_batch, self.speculate
+        # positions | n_valid (1 + live drafts, 0 idle) | drafts (S, K):
+        # one upload into the static buffer
+        meta = np.zeros(2 * S + S * K, np.int32)
+        meta[:S] = self._pos
+        n_drafts = np.zeros(S, np.int32)
+        for i, r in live:
+            d = self._slot_drafts(i, r)
+            n_drafts[i] = len(d)
+            meta[S + i] = 1 + len(d)
+            meta[2 * S + i * K:2 * S + i * K + len(d)] = d
+        self._upload(meta, out=self._meta)
+        self._refresh_tables()
+        emitted, accepts = self._verify_graph()
+        emitted_host = self._download(emitted)
+        accepts_host = self._download(accepts)
+        self._verifying.update(i for i, _ in live)
+        self._inflight += 1
+        self.stats["steps"] += 1
+        self.stats["verify_steps"] += 1
+        self.stats["slot_steps"] += len(live)
+        self.stats["padded_steps"] += S - len(live)
+        self.stats["draft_proposed"] += int(n_drafts.sum())
+        self.stats["max_active"] = max(self.stats["max_active"], len(live))
+        tr = _obs.TRACE
+        t0 = tr.now() if tr is not None else None
+        self.engine.continue_when(
+            TensorOp(emitted, payload=emitted_host), self._on_verify_done,
+            (live, emitted_host, accepts_host, n_drafts, t0),
+            cr=self.cr_steps,
+            flags=_step_flags(max(r.priority for _, r in live)))
+        return True
+
+    def _on_verify_done(self, statuses, meta) -> None:
+        """Accept bookkeeping once the verify step and its host copies are
+        complete: each slot advances by its accepted run plus one token; a
+        slot whose run meets its budget retires here, mid-verify."""
+        live, emitted_host, accepts_host, n_drafts, t0 = meta
+        self._inflight -= 1
+        emitted = emitted_host.numpy()
+        accepts = accepts_host.numpy()
+        now = time.monotonic()
+        tr = _obs.TRACE
+        if tr is not None and t0 is not None:
+            for i, req in live:
+                if tr.want(req.req_id):
+                    tr.evt(_obs_events.REQ_STEP, req.req_id, "engine",
+                           ts=t0, dur=now - t0, meta=i)
+        upd_slots: List[int] = []
+        upd_tokens: List[int] = []
+        for i, req in live:
+            state = req.req_state
+            # stale: an earlier continuation finished this request and
+            # freed the slot, which may have been reseated since; touch
+            # nothing keyed by the slot index then
+            stale = self._slots[i] is not req
+            if not stale:
+                self._verifying.discard(i)
+            if state is RequestState.FINISHED or \
+                    state is RequestState.EXPIRED:
+                continue
+            if state is RequestState.CANCELLED:
+                # cancel mid-verify: the accepted run is dropped
+                if not stale:
+                    self._evict_slot(i, req)
+                    self.stats["cancelled"] += 1
+                continue
+            a = int(accepts[i])
+            n_emit = min(a + 1, req.remaining)
+            toks = [int(t) for t in emitted[i, :n_emit]]
+            for t in toks:
+                req.push_device_token(t)
+            req.draft_tokens_proposed += int(n_drafts[i])
+            req.draft_tokens_accepted += a
+            self.stats["draft_accepted"] += a
+            self.stats["spec_tokens"] += n_emit
+            finished = req.deliver(toks)
+            if self._ctx[i] is not None:
+                self._ctx[i].extend(toks)
+            self._pos[i] += n_emit
+            if finished == "stop":
+                self._finish_slot(i, req, "stop")
+            elif req.remaining == 0:
+                self._finish_slot(i, req, "retire")
+            elif req.past_deadline(now):
+                self._finish_slot(i, req, "expired")
+            else:
+                upd_slots.append(i)
+                upd_tokens.append(toks[-1])
+        if upd_slots:
+            # each advancing slot's last token becomes its next input: one
+            # upload of mask | values, then a masked update in place of
+            # the static token buffer, queued behind any step in flight
+            S = self.max_batch
+            mv = np.zeros(2 * S, np.int32)
+            mv[upd_slots] = 1
+            mv[[S + i for i in upd_slots]] = upd_tokens
+            dev = self._upload(mv).view(2, S, 1, 1)
+            self._tokens.copy_(torch.where(dev[0] != 0, dev[1],
+                                           self._tokens))
+
     def _finish_slot(self, slot: Optional[int], req: Request,
                      kind: str) -> None:
         """Terminal transition from a step-completion continuation: free
@@ -559,6 +783,7 @@ class ServeEngine:
         pages; the stream runs it before any later prefill into them."""
         if slot is not None and self._slots[slot] is req:
             self._draining.discard(slot)
+            self._verifying.discard(slot)
             self._evict_slot(slot, req)
         else:
             self._release_pages(req)
@@ -572,6 +797,7 @@ class ServeEngine:
         exit path funnels through here, so pages can never leak)."""
         self._slots[slot] = None
         self._pos[slot] = 0
+        self._ctx[slot] = None
         if self.paged:
             self._tables[slot, :] = self.pool.null_page
             self._tables_dirty = True
@@ -650,6 +876,11 @@ class ServeEngine:
         out["paged"] = self.paged
         out["fused"] = self.fused
         out["speculate"] = self.speculate
+        if self.stats["draft_proposed"]:
+            # engine-wide accept rate (cancelled requests included;
+            # summarize() reports the finished requests' rate)
+            out["accept_rate_engine"] = (self.stats["draft_accepted"]
+                                         / self.stats["draft_proposed"])
         if self.paged:
             out.update(self.pool.metrics())
         return out

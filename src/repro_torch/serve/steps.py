@@ -1,6 +1,6 @@
 """Serving step factories: prefill, dense decode, the dense-mode batched
-slot decode, fused paged decode and suffix prefill, the prefill scatter,
-and the ``greedy_generate`` oracle.
+slot decode, fused paged decode, speculative verify and suffix prefill,
+the prefill scatter, and the ``greedy_generate`` oracle.
 
 Counterpart of ``repro/serve/steps.py``. The reference's steps are jitted
 with donated caches; here they are plain functions that queue work on the
@@ -10,8 +10,11 @@ stream orders every read after the writes before it.
 The ``make_fused_*`` steps run the whole batch through ONE
 ``lm.lm_paged_decode`` call: the paged kernel walks each slot's page
 table on device (attend + accept-masked KV write), with ``n_valid`` as the
-write mask: 0 = idle slot, 1 = decode, the real tail length = suffix
-prefill.
+write mask: 0 = idle slot, 1 = decode, ``1 + K`` = verify window, the
+real tail length = suffix prefill. The decode, verify and dense-mode steps
+have fixed shapes, so the engine captures them as CUDA graphs
+(``serve.graphs``); everything they compute, the argmax and the verify's
+accept count included, stays on the device.
 """
 from __future__ import annotations
 
@@ -81,6 +84,37 @@ def make_fused_paged_decode_step(cfg: ModelConfig, page_size: int,
             page_size=page_size, layers=layers)
         nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
         return nxt, pool
+    return step
+
+
+def make_fused_paged_verify_step(cfg: ModelConfig, page_size: int,
+                                 n_draft: int,
+                                 layers: Optional[list] = None) -> Callable:
+    """Speculative verify on the fused kernel: ``(params, pool,
+    tokens (S,1,1+K), positions (S,), tables (S,T), n_valid (S,))`` →
+    ``(emitted (S,1+K) int32, accepts (S,) int32, pool)``.
+
+    ``n_valid = 1 + k`` for a live slot with ``k`` drafts (0 idle) masks
+    the KV writes inside the kernel: rows past it are written nowhere.
+    ``emitted[s, j]`` is the greedy token after window row ``j``;
+    ``accepts[s]`` counts the leading drafts equal to the token the model
+    emitted before them, among the slot's ``k``. Rejected rows that were
+    written sit past the advancing causal horizon until a later window
+    overwrites them. ``layers`` are ``lm.layer_views(params)`` computed
+    once by the caller."""
+    K = int(n_draft)
+
+    def step(params, pool, tokens, positions, tables, n_valid):
+        tok = tokens[:, 0, :]                                # (S, 1+K)
+        logits, pool = lm.lm_paged_decode(
+            params, tok, cfg, pool, positions, tables, n_valid,
+            page_size=page_size, layers=layers)
+        emitted = torch.argmax(logits, dim=-1).to(torch.int32)
+        k = torch.clamp(n_valid - 1, min=0)                  # live drafts
+        ok = (tok[:, 1:] == emitted[:, :-1]) & (
+            torch.arange(K, device=tok.device)[None, :] < k[:, None])
+        accepts = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+        return emitted, accepts.to(torch.int32), pool
     return step
 
 

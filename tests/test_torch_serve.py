@@ -202,19 +202,25 @@ def test_capacity_deferral_serves_everything(model):
 
 
 def test_unported_options_and_missing_cuda_raise(model):
-    """``fused=False``, ``speculate>0`` and dense mode for the dense family
-    still raise; an SSM config constructs, in dense mode, and refuses the
-    paged cache it has no use for."""
+    """``fused=False`` and dense mode for the dense family still raise;
+    paged ``speculate=2`` constructs, and on the SSM config (dense mode)
+    it raises as in the reference; an SSM config constructs, in dense
+    mode, and refuses the paged cache it has no use for."""
     _, tcfg, _, tp = model
-    for kw in (dict(paged=False), dict(fused=False), dict(speculate=2)):
+    for kw in (dict(paged=False), dict(fused=False)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServeEngine(tcfg, tp, device="cpu", **kw)
+    eng = ServeEngine(tcfg, tp, device="cpu", speculate=2)
+    assert eng.paged and eng.speculate == 2
+    eng.shutdown()
     scfg = get_config("mamba2_370m", reduced=True, dtype=torch.float32,
                       param_dtype=torch.float32)
     sp = lm.init_params(scfg, seed=0, device="cpu")
     eng = ServeEngine(scfg, sp, device="cpu")
     assert not eng.paged and not eng.fused and eng.pool is None
     eng.shutdown()
+    with pytest.raises(ValueError, match="speculate > 0 requires paged"):
+        ServeEngine(scfg, sp, device="cpu", speculate=2)
     with pytest.raises(ValueError, match="paged KV cache unsupported"):
         ServeEngine(scfg, sp, device="cpu", paged=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
