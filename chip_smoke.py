@@ -67,6 +67,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 8b. its card-bound loop, as 5b (the sleep ahead of each replay);
 9. its profile, as 6.
 
+10. zones — the BT-MZ analogue (paper Fig. 2/3) at class B's 64 zones
+   (20x width spread, 1024 columns, fp64) on 4 rank threads with a
+   stream each: both variants, 30 timesteps, best of 3 under sync debug
+   mode "error", bit-identical to the single-rank ``reference_solve`` on
+   the card, itself bit-identical to the CPU's at 2 timesteps; the card's
+   busy share by ``torch.profiler``, peak device memory; then a pass with
+   a sleep kernel ahead of each zone update, where the halo sends must be
+   pending at their first poll and still deliver the right halos;
+11. Cholesky — the PaRSEC analogue (paper Fig. 6), N = 8192 in 512-tiles
+   (816 tasks), continuations and a Testsome window of 4: makespan, mean
+   activation latency, fp64 rate against the tensor-core peak; L within
+   1e-10 (relative to max |L|) of ``torch.linalg.cholesky``, every POTRF
+   ``info`` 0;
+12. offload — the ExaHyPE analogue (paper Fig. 8/9), 4 ranks, 8
+   iterations of 3 ms tasks, rank 0 with 6x the load: both backends and
+   no offloading; every result ``payload * 2 + 1``.
+
+These three run no kernel of ``csrc/``: the JAX package computes them in
+numpy, so the port uses plain torch ops and library calls.
+
 Each serve phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a step graph adds its
 kernels' launches back on every replay. The kernels JSON reports
@@ -1228,6 +1248,299 @@ def phase_mamba_serve(dev, label):
     return cfg, params, launches, host_ms
 
 
+# ------------------------------------------------------- the paper's apps
+APP_RANKS = 4
+FP64_TC_PEAK = 67e12       # H100 SXM data sheet, dense FP64 tensor core
+CHOLESKY_TOL = 1e-10
+
+
+def app_timed(fn):
+    """``fn()`` under sync debug mode "error" (a call that makes the host
+    wait for the card raises, in any rank thread); the wall time by the
+    host's clock, the card drained before the start and at the end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def app_busy(fn):
+    """One run of ``fn`` under ``torch.profiler``: the share of its wall
+    time in which the card ran at least one kernel or copy (the union of
+    their spans: the ranks' streams overlap), and the device op count. A
+    session now and then delivers no device events: up to three runs."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    else:
+        raise AssertionError("app profile: no device events in 3 runs")
+    busy, start, end = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > end:
+            busy += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    busy += end - start
+    return busy / wall_us, len(spans)
+
+
+def mib(n_bytes: float) -> str:
+    return f"{n_bytes / 2 ** 20:.1f} MiB"
+
+
+def peak_start() -> int:
+    """Start a phase's peak-memory window; returns what is allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_note(start: int) -> str:
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak device memory {mib(peak - start)} above the "
+            f"{mib(start)} allocated when the phase began")
+
+
+def cuda_mallocs() -> int:
+    """Segments the caching allocator has taken from ``cudaMalloc`` so
+    far. A ``cudaMalloc`` can wait for the card (sync debug mode does not
+    see it), so a timed run should add none once warm."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def phase_zones(dev, label):
+    """BT-MZ analogue (paper Fig. 2/3): class B's 64 zones, 20x width
+    spread, 4 rank threads, both variants against the single-rank
+    reference on the card, bit for bit, and that against the CPU."""
+    from repro_torch.core import TensorOp
+    from repro_torch.zones import solver
+    steps, iters = 30, 2
+    t_phase = time.perf_counter()
+    start = peak_start()
+    zones = solver.make_zones(64, 1024, 256, max_ratio=20.0, seed=3,
+                              device=dev)
+    widths = [z.shape[0] for z in zones]
+    points = sum(z.numel() for z in zones)
+    t0 = time.perf_counter()
+    cpu = solver.reference_solve([z.cpu() for z in zones], 2, iters)
+    cpu_s = time.perf_counter() - t0
+    if not all(torch.equal(a.cpu(), b) for a, b in
+               zip(solver.reference_solve(zones, 2, iters), cpu)):
+        raise AssertionError("zones: the card's reference_solve differs "
+                             "from the CPU's at 2 timesteps")
+    want = solver.reference_solve(zones, steps, iters)
+
+    def solve(variant, n_steps=steps):
+        return solver.distributed_solve(zones, APP_RANKS, n_steps, variant,
+                                        iters)
+
+    best, sends = {}, 0
+    for variant in ("fork_join", "continuations"):
+        walls = []
+        for _ in range(3):
+            TensorOp.PENDING_AT_FIRST_POLL = 0
+            mallocs = cuda_mallocs()
+            (out, _), wall = app_timed(lambda: solve(variant))
+            mallocs = cuda_mallocs() - mallocs
+            if not all(torch.equal(a, b) for a, b in zip(out, want)):
+                raise AssertionError(f"zones {variant}: not bit-identical "
+                                     "to reference_solve")
+            walls.append(wall)
+        best[variant] = min(walls)
+        pending = TensorOp.PENDING_AT_FIRST_POLL
+        sends = 2 * len(zones) * steps
+        log(f"phase 10: zones {variant} on {label}: "
+            f"{best[variant] / steps * 1e6:.1f} us per timestep (best of "
+            f"3; runs " + ", ".join(f"{w / steps * 1e6:.1f}" for w in walls)
+            + f"; {steps} timesteps, smooth_iters {iters}, {APP_RANKS} "
+            f"ranks, sync debug mode \"error\"); bit-identical to "
+            f"reference_solve; last run: halo sends pending at first poll "
+            f"{pending} of {sends}, {mallocs} cudaMalloc segments")
+    # the same work on one rank thread, and with no messages at all:
+    # what the ranks' sharing of one interpreter costs
+    one = {v: app_timed(lambda: solver.distributed_solve(
+        zones, 1, steps, v, iters))[1] for v in best}
+    t0 = time.perf_counter()
+    solver.reference_solve(zones, steps, iters)
+    ref_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    log(f"phase 10: zones on 1 rank: " + ", ".join(
+        f"{v} {w / steps * 1e6:.1f}" for v, w in one.items())
+        + f" us per timestep; single-thread reference_solve "
+        f"{ref_wall / steps * 1e6:.1f} us per timestep "
+        f"({ref_host / steps * 1e6:.1f} us of it to enqueue)")
+    busy = {v: app_busy(lambda: solve(v)) for v in best}
+    log(f"phase 10: zones: {len(zones)} zones of {min(widths)}-"
+        f"{max(widths)} rows x 1024, {points:,} points, "
+        f"{mib(points * 8)} of fp64 state; fork_join / continuations = "
+        f"{best['fork_join'] / best['continuations']:.3f}; card busy "
+        + ", ".join(f"{v} {b:.1%} ({n} device ops)"
+                    for v, (b, n) in busy.items())
+        + f"; {peak_note(start)}; CPU reference_solve (2 timesteps) "
+        f"{cpu_s:.1f} s")
+
+    # the card made the slower side: a sleep kernel ahead of every zone
+    # update, on the rank's stream; halo sends must still be running at
+    # their first poll (all but timestep 0's, which no update precedes),
+    # and still deliver the right halos
+    # the host's time for one zone update, all ranks sharing the
+    # interpreter; each rank's stream holds a quarter of the zones, so a
+    # sleep of 8x that makes the card the slower side by about 2x
+    sleep_steps = 4
+    host_ms = min(best.values()) / (steps * len(zones)) * 1e3
+    sleep_ms = max(1.0, 8 * host_ms)
+    cycles = int(sleep_ms * sleep_cycles_per_ms())
+    per_rank = -(-len(zones) // APP_RANKS)
+    plain_smooth = solver._smooth
+
+    def held_smooth(*args):
+        torch.cuda._sleep(cycles)
+        return plain_smooth(*args)
+
+    want4 = solver.reference_solve(zones, sleep_steps, iters)
+    solver._smooth = held_smooth
+    try:
+        for variant in ("fork_join", "continuations"):
+            TensorOp.PENDING_AT_FIRST_POLL = 0
+            (out, _), wall = app_timed(lambda: solve(variant, sleep_steps))
+            pending = TensorOp.PENDING_AT_FIRST_POLL
+            sends = 2 * len(zones) * sleep_steps
+            behind = 2 * len(zones) * (sleep_steps - 1)
+            log(f"phase 10: zones {variant}, {sleep_ms:.2f} ms sleep "
+                f"ahead of each zone update (host {host_ms:.3f} ms an "
+                f"update): {wall * 1e3:.1f} ms for {sleep_steps} "
+                f"timesteps; halo sends pending at first poll {pending} "
+                f"of {sends} ({behind} posted behind a zone update)")
+            if not all(torch.equal(a, b) for a, b in zip(out, want4)):
+                raise AssertionError(f"zones {variant} with sleeps: wrong "
+                                     "halos delivered")
+            if wall * 1e3 < 0.9 * sleep_steps * per_rank * sleep_ms:
+                raise AssertionError(f"zones {variant} with sleeps: the "
+                                     "card was not the slower side")
+            if pending < 0.9 * behind:
+                raise AssertionError(
+                    f"zones {variant} with sleeps: only {pending} of the "
+                    f"{behind} halo sends posted behind a zone update "
+                    "were pending at their first poll")
+    finally:
+        solver._smooth = plain_smooth
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_cholesky(dev, label):
+    """PaRSEC-style tiled Cholesky (paper Fig. 6): 16 x 16 tiles of 512
+    in fp64, 4 rank threads, both backends, L against
+    ``torch.linalg.cholesky`` on the card."""
+    from repro_torch.dataflow import (ContinuationBackend, TestsomeBackend,
+                                      assemble_result, build_cholesky_graph,
+                                      make_spd_matrix, potrf_failures,
+                                      run_dataflow)
+    nb, tile = 16, 512
+    n = nb * tile
+    t_phase = time.perf_counter()
+    start = peak_start()
+    A = make_spd_matrix(n, seed=5, device=dev)
+    want = torch.linalg.cholesky(A)
+    scale = float(want.abs().max())
+    setup = torch.cuda.max_memory_allocated() - start
+    run_peak = 0
+    backends = {"continuations": lambda eng: ContinuationBackend(eng),
+                "testsome_w4": lambda eng: TestsomeBackend(4)}
+    best = {}
+    for name, factory in backends.items():
+        for _ in range(3):
+            graph, meta = build_cholesky_graph(A, nb, tile, APP_RANKS)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            (tiles, stats), wall = app_timed(
+                lambda: run_dataflow(graph, factory, timeout=300))
+            run_peak = max(run_peak, torch.cuda.max_memory_allocated()
+                           - base)
+            err = float((assemble_result(tiles, meta) - want).abs().max())
+            fails = potrf_failures(meta)
+            if err / scale > CHOLESKY_TOL or fails \
+                    or stats["executed"] != len(graph.tasks):
+                raise AssertionError(
+                    f"cholesky {name}: max |dL| / max |L| = "
+                    f"{err / scale:.3e}, {fails} POTRF failures, "
+                    f"{stats['executed']} of {len(graph.tasks)} tasks")
+            del tiles
+            if name not in best or wall < best[name][0]:
+                best[name] = (wall, stats["mean_activation_latency"],
+                              err / scale)
+        wall, lat, rel = best[name]
+        rate = n ** 3 / 3 / wall
+        log(f"phase 11: cholesky {name} on {label}: N {n}, {nb}x{nb} tiles "
+            f"of {tile}, {len(graph.tasks)} tasks, {APP_RANKS} ranks: "
+            f"makespan {wall * 1e3:.1f} ms (best of 3, sync debug mode "
+            f"\"error\"), mean activation latency {lat * 1e6:.1f} us, "
+            f"{rate / 1e12:.3f} TFLOP/s fp64 = {rate / FP64_TC_PEAK:.2%} "
+            f"of the {FP64_TC_PEAK / 1e12:.0f} TFLOP/s fp64 tensor-core "
+            f"peak; max |dL| / max |L| {rel:.2e}, every POTRF info 0")
+    busy = {}
+    for name, factory in backends.items():
+        graph, _ = build_cholesky_graph(A, nb, tile, APP_RANKS)
+        busy[name] = app_busy(
+            lambda: run_dataflow(graph, factory, timeout=300))
+    log(f"phase 11: cholesky: testsome_w4 / continuations makespan = "
+        f"{best['testsome_w4'][0] / best['continuations'][0]:.3f}; card "
+        "busy " + ", ".join(f"{k} {b:.1%} ({m} device ops)"
+                            for k, (b, m) in busy.items())
+        + f"; peak device memory of a run {mib(run_peak)} above what was "
+        f"allocated before it (every tile version); setting up A and its "
+        f"reference L peaked at {mib(setup)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_offload(dev, label):
+    """ExaHyPE-style offload (paper Fig. 8/9): 4 ranks, 8 iterations,
+    3 ms tasks, rank 0 with 6x the load; both backends and no
+    offloading. Every result must be ``payload * 2 + 1``."""
+    from repro_torch.runtime.offload import run_offload
+    t_phase = time.perf_counter()
+    start = peak_start()
+    runs = {"no_offloading": dict(offloading=False),
+            "continuations": dict(backend="continuations"),
+            "testsome": dict(backend="testsome")}
+    walls = {}
+    for name, kw in runs.items():
+        out, wall = app_timed(lambda: run_offload(device=dev, **kw))
+        tasks = out["tasks"]
+        got = torch.stack([t.result for t in tasks])
+        ref = torch.stack([t.payload for t in tasks]) * 2 + 1
+        if len(tasks) != 8 * (6 * 8 + 3 * 8) or not torch.equal(got, ref):
+            raise AssertionError(f"offload {name}: wrong results")
+        walls[name] = wall
+        log(f"phase 12: offload {name} on {label}: wall {wall * 1e3:.1f} "
+            f"ms, {out['offloaded']} tasks offloaded, critical-path wait "
+            f"{out['wait_critical'] * 1e3:.2f} ms, {len(tasks)} results "
+            "equal payload * 2 + 1 (sync debug mode \"error\")")
+    busy, ops = app_busy(lambda: run_offload(iters=8, device=dev))
+    log(f"phase 12: offload: no_offloading / continuations = "
+        f"{walls['no_offloading'] / walls['continuations']:.3f}, "
+        f"no_offloading / testsome = "
+        f"{walls['no_offloading'] / walls['testsome']:.3f}; card busy "
+        f"{busy:.2%} of a continuations run ({ops} device ops); "
+        f"{peak_note(start)}; {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1269,6 +1582,10 @@ def main() -> int:
                   make_engine=mamba_engine,
                   work=mamba_workload(mcfg, np.random.default_rng(5)),
                   seated=8, phase="9")
+    del mparams
+    phase_zones(dev, label)
+    phase_cholesky(dev, label)
+    phase_offload(dev, label)
     kernels = []
     for name, r in summary.items():
         src, replaces = SOURCES[name]

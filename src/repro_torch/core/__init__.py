@@ -12,6 +12,10 @@ paper's interface):
     flag = engine.continue_any(ops, cb, ..., indices=idx, cr=cr)   # Testany-style
     flag = engine.continue_some(ops, k, cb, ..., indices=idx, cr=cr)  # Waitsome-style
     cr.test() / cr.wait() / cr.free()      # MPI_Test / MPI_Wait / Request_free
+
+``Transport`` (in-process MPI-style messaging between rank threads) orders
+a CUDA-tensor payload by a ``TensorOp`` on the sender's stream: the message
+is matchable once the data is ready (see ``core.transport``).
 """
 from repro_torch.core.completable import (CombinedOp, Completable,
                                           HostTaskOp, PredicateOp, TensorOp,
@@ -31,6 +35,9 @@ from repro_torch.core.promise import Promise, PromiseCancelled, Signal
 from repro_torch.core.scheduler import (AffinityScheduler, FifoScheduler,
                                         Scheduler, make_scheduler)
 from repro_torch.core.status import STATUS_IGNORE, OpState, Status
+from repro_torch.core.testsome import TestsomeManager
+from repro_torch.core.transport import (ANY_SOURCE, ANY_TAG, RecvOp, SendOp,
+                                        Transport)
 
 __all__ = [
     "TensorOp", "CombinedOp", "Completable", "HostTaskOp", "PredicateOp",
@@ -42,4 +49,6 @@ __all__ = [
     "make_flags", "STATUS_IGNORE", "OpState", "Status",
     "Progress", "Promise", "PromiseCancelled", "Signal", "Scheduler",
     "FifoScheduler", "AffinityScheduler", "make_scheduler",
+    "TestsomeManager", "ANY_SOURCE", "ANY_TAG", "RecvOp", "SendOp",
+    "Transport",
 ]

@@ -163,9 +163,12 @@ class TensorOp(Completable):
             self._event.record(torch.cuda.current_stream(tensor.device))
 
     def _poll(self) -> bool:
-        if self._event is None:
+        # several threads may poll one op (the engine's scan and the
+        # transport's release of a held message): read the event once
+        event = self._event
+        if event is None:
             return True
-        ready = self._event.query()
+        ready = event.query()
         if not self._polled:
             self._polled = True
             if not ready:

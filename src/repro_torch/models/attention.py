@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import paged_attention as paged_kernel
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import apply_rope_tables, rope_tables
+from repro_torch.util import resolve_device
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
 
@@ -34,9 +35,10 @@ def head_mask(cfg: ModelConfig) -> np.ndarray:
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   n_layers: Optional[int] = None,
-                  device: Any = "cpu") -> Dict[str, torch.Tensor]:
+                  device: Any = "cuda") -> Dict[str, torch.Tensor]:
     """Zeroed KV cache ``(n_layers?, batch, max_len, KV, hd)``; SWA
     configurations bound it at the window size."""
+    device = resolve_device(device)
     if cfg.window:
         max_len = min(max_len, cfg.window)
     shape = (batch, max_len, cfg.padded_kv_heads, cfg.resolved_head_dim)

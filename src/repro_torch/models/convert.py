@@ -16,7 +16,7 @@ from repro_torch.models.common import SSM, ModelConfig
 from repro_torch.util import resolve_device
 
 
-def tensor_from_numpy(a: Any, device: Any = "cpu") -> torch.Tensor:
+def tensor_from_numpy(a: Any, device: Any = "cuda") -> torch.Tensor:
     """numpy → torch, including ``ml_dtypes.bfloat16`` arrays (which
     ``torch.from_numpy`` refuses): their bits are reinterpreted."""
     a = np.asarray(a)
@@ -25,7 +25,7 @@ def tensor_from_numpy(a: Any, device: Any = "cpu") -> torch.Tensor:
         t = t.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
-    return t.to(device)
+    return t.to(resolve_device(device))
 
 
 def params_from_numpy(tree: Any, cfg: ModelConfig,

@@ -210,12 +210,13 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Any = "cpu") -> Dict[str, torch.Tensor]:
+               device: Any = "cuda") -> Dict[str, torch.Tensor]:
     """Layer-stacked dense KV cache ``(L, batch, max_len, KV, hd)``, or for
     the SSM family the constant-size state ``{"ssm": (L, batch, H, P, N)
     fp32, "conv_x"/"conv_B"/"conv_C": (L, batch, W-1, C)}`` (``max_len``
     unused)."""
     require_ported(cfg)
+    device = resolve_device(device)
     if cfg.family == SSM:
         return ssm_mod.init_ssm_state(cfg, batch, n_layers=cfg.n_layers,
                                       device=device)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models.common import ModelConfig
+from repro_torch.util import resolve_device
 
 Params = Dict[str, Any]
 
@@ -132,7 +133,8 @@ def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------- decode path
 def init_ssm_state(cfg: ModelConfig, batch: int,
                    n_layers: Optional[int] = None,
-                   device: Any = "cpu") -> Dict[str, torch.Tensor]:
+                   device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    device = resolve_device(device)
     s = cfg.ssm
     H, P, N, G, W = cfg.ssm_heads, s.head_dim, s.state_dim, s.n_groups, \
         s.conv_width

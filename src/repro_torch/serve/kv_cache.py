@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import DENSE, MOE, ModelConfig
+from repro_torch.util import resolve_device
 
 
 def prefix_keys(tokens: Any, page_size: int,
@@ -66,13 +67,13 @@ class PagePool:
     """
 
     def __init__(self, cfg: ModelConfig, total_pages: int, page_size: int,
-                 device: Any = "cpu") -> None:
+                 device: Any = "cuda") -> None:
         if not paged_supported(cfg):
             raise ValueError(
                 f"paged KV cache unsupported for family={cfg.family!r} "
                 f"(scan_layers={cfg.scan_layers}, window={cfg.window})")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.total_pages = int(total_pages)
         self.page_size = int(page_size)
         self.null_page = self.total_pages      # scratch page, never owned

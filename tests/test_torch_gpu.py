@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+the transport's device-tensor messages and the apps built on them.
 
 Run on a machine with a CUDA card:
 
@@ -7,14 +8,23 @@ Run on a machine with a CUDA card:
 Elsewhere every test skips (the kernels have no CPU mode); the CPU tests
 hold the plain versions against the JAX package instead.
 """
+import time
+
 import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import TensorOp, Transport
+from repro_torch.core.transport import take
+from repro_torch.dataflow import (ContinuationBackend, TestsomeBackend,
+                                  assemble_result, build_cholesky_graph,
+                                  make_spd_matrix, potrf_failures,
+                                  run_dataflow)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.zones import distributed_solve, make_zones, reference_solve
 
 pytestmark = pytest.mark.gpu
 
@@ -190,3 +200,113 @@ def test_ssd_scan_refuses_uninstantiated_sizes(cuda):
     with pytest.raises(ValueError, match="chunk 32"):
         ssd.ssd_scan(*args, chunk=32)
     assert ssd.LAUNCHES == n0
+
+
+# ------------------------------------------- device-tensor messages
+def _sleep_cycles(ms: float) -> int:
+    """Clock cycles of ``torch.cuda._sleep`` that hold the card ``ms``."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return int(ms * 10_000_000 / start.elapsed_time(end))
+
+
+def test_transport_device_payload_waits_for_its_producer(cuda):
+    """A payload written on a producer stream behind a sleep kernel: the
+    receive completes only after the producer's work, the receiver's
+    stream reads the right values, and nothing waits on the host."""
+    cycles = _sleep_cycles(50.0)
+    producer, consumer = torch.cuda.Stream(), torch.cuda.Stream()
+    n = 1 << 20
+    with torch.cuda.stream(producer):
+        # allocated, and its kernels loaded, ahead: a cudaMalloc or a
+        # kernel's first launch behind the sleep would wait for it
+        x = torch.empty(n, device="cuda", dtype=torch.float64)
+        torch.arange(n, out=x).mul_(2).sum()
+    torch.cuda.synchronize()
+    tr = Transport(2)
+    recv = tr.irecv(1, source=0, tag=1)
+    n0 = TensorOp.PENDING_AT_FIRST_POLL
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(producer):
+            torch.cuda._sleep(cycles)
+            torch.arange(n, out=x).mul_(2)
+            written = torch.cuda.Event()
+            written.record()
+            send = tr.isend(0, 1, 1, ("tile", x))
+        assert not recv.done() and not written.query()
+        deadline = time.monotonic() + 10
+        while not recv.done() and time.monotonic() < deadline:
+            pass
+        assert recv.done() and send.done()
+        assert written.query()           # never before the producer's work
+        with torch.cuda.stream(consumer):
+            _, y = take(recv.status.payload)
+            total = y.sum()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert TensorOp.PENDING_AT_FIRST_POLL > n0
+    torch.cuda.synchronize()
+    assert float(total) == float(n * (n - 1))
+
+
+def test_transport_record_stream_keeps_a_freed_payload(cuda):
+    """The sender drops its tensor right after the send and allocates
+    again on its stream while the receiver's read is still queued behind
+    a sleep: ``take`` keeps the block from being reused under the read."""
+    cycles = _sleep_cycles(50.0)
+    producer, consumer = torch.cuda.Stream(), torch.cuda.Stream()
+    n = 1 << 22
+    for stream in (producer, consumer):   # load the kernels ahead
+        with torch.cuda.stream(stream):
+            (torch.full((n,), 7.0, device="cuda") * 1.0).zero_()
+    torch.cuda.synchronize()
+    tr = Transport(2)
+    recv = tr.irecv(1, source=0, tag=2)
+    with torch.cuda.stream(producer):
+        tr.isend(0, 1, 2, torch.full((n,), 7.0, device="cuda"))
+    deadline = time.monotonic() + 10
+    while not recv.done() and time.monotonic() < deadline:
+        pass
+    assert recv.done()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(consumer):
+            torch.cuda._sleep(cycles)
+            y = take(recv.status.payload)
+            copy = y * 1.0               # queued behind the sleep
+        recv.status.payload = None       # the last references go
+        del y
+        with torch.cuda.stream(producer):
+            other = torch.zeros(n, device="cuda")   # same size, same stream
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool((copy == 7.0).all()) and bool((other == 0).all())
+
+
+def test_zones_on_card_bit_identical_to_cpu(cuda):
+    want = reference_solve(make_zones(8, 64, 16, seed=3, device="cpu"), 4, 2)
+    zones = make_zones(8, 64, 16, seed=3)
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(reference_solve(zones, 4, 2), want))
+    for variant in ("fork_join", "continuations"):
+        got, _ = distributed_solve(zones, 4, 4, variant, 2)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("backend", ["continuations", "testsome"])
+def test_cholesky_on_card(cuda, backend):
+    A = make_spd_matrix(6 * 64, seed=5)
+    graph, meta = build_cholesky_graph(A, 6, 64, 4)
+    factory = (lambda eng: ContinuationBackend(eng)) \
+        if backend == "continuations" else (lambda eng: TestsomeBackend(4))
+    tiles, _ = run_dataflow(graph, factory, timeout=120)
+    L = assemble_result(tiles, meta)
+    want = torch.linalg.cholesky(A)
+    assert float((L - want).abs().max() / want.abs().max()) <= 1e-10
+    assert potrf_failures(meta) == 0

@@ -19,9 +19,9 @@ from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro_torch.configs import get_config
 from repro_torch.models import common as tcommon
-from repro_torch.models import layers
-from repro_torch.models import lm
+from repro_torch.models import attention, layers, lm, ssm
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.serve.kv_cache import PagePool
 
 ATOL = 1e-4
 
@@ -103,7 +103,7 @@ def test_init_params_shapes_and_scales():
 
 def test_bf16_leaves_convert_bit_exactly():
     a = np.asarray(jnp.asarray(np.linspace(-3, 3, 17), jnp.bfloat16))
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
@@ -175,7 +175,7 @@ def _prefill_both(f32, toks, max_len):
     jcache = jlm.init_cache(jcfg, toks.shape[0], max_len)
     jl, jcache = jlm.lm_prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg,
                                 jcache)
-    tcache = lm.init_cache(tcfg, toks.shape[0], max_len)
+    tcache = lm.init_cache(tcfg, toks.shape[0], max_len, device="cpu")
     tl, tcache = lm.lm_prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
                                tcache)
     return (jl, jcache), (tl, tcache)
@@ -265,3 +265,24 @@ def test_bf16_forward_close_to_jax():
     assert got.dtype == torch.bfloat16
     err = np.abs(got.float().numpy() - want).max()
     assert err <= 3e-2 * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg, scfg: PagePool(cfg, 4, 4),
+    lambda cfg, scfg: lm.init_cache(cfg, 1, 8),
+    lambda cfg, scfg: attention.init_kv_cache(cfg, 1, 8),
+    lambda cfg, scfg: ssm.init_ssm_state(scfg, 1),
+    lambda cfg, scfg: tensor_from_numpy(np.zeros(3, np.float32)),
+], ids=["PagePool", "init_cache", "init_kv_cache", "init_ssm_state",
+        "tensor_from_numpy"])
+def test_constructors_default_to_the_card(make):
+    """Called without ``device``, each public constructor places its
+    tensors on the card, so where there is none it raises rather than
+    landing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default resolves to it")
+    _, tcfg = _cfgs()
+    scfg = get_config("mamba2_370m", reduced=True, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(tcfg, scfg)

@@ -69,7 +69,7 @@ def test_prefix_keys_byte_identical(page_size, n):
 
 def test_page_pool_bookkeeping_matches_jax(model):
     jcfg, tcfg, _, _ = model
-    pools = [PagePool(tcfg, 12, 4), jkv.PagePool(jcfg, 12, 4)]
+    pools = [PagePool(tcfg, 12, 4, device="cpu"), jkv.PagePool(jcfg, 12, 4)]
     rng = np.random.default_rng(2)
     base = rng.integers(0, 512, 12)
     prompts = [base, np.concatenate([base, [1, 2, 3]]),

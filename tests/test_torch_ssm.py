@@ -176,7 +176,7 @@ def test_lm_prefill_and_decode_match_jax(model, T):
     jcache = jlm.init_cache(jcfg, 2, 128)
     jl, jcache = jlm.lm_prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg,
                                 jcache)
-    tcache = lm.init_cache(tcfg, 2, 128)
+    tcache = lm.init_cache(tcfg, 2, 128, device="cpu")
     tl, tcache = lm.lm_prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
                                tcache)
     _close(tl, jl)
@@ -201,7 +201,7 @@ def test_short_prompt_decodes_like_the_full_forward(model):
     decode step, gives the full forward's logits at position 2."""
     _, tcfg, _, tp = model
     toks = _tokens(8, (1, 3))
-    cache = lm.init_cache(tcfg, 1, 8)
+    cache = lm.init_cache(tcfg, 1, 8, device="cpu")
     _, cache = lm.lm_prefill(tp, {"tokens": torch.from_numpy(toks[:, :2])},
                              tcfg, cache)
     got, _ = lm.lm_decode_step(tp, torch.from_numpy(toks[:, 2:]), tcfg,
