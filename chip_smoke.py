@@ -87,6 +87,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 These three run no kernel of ``csrc/``: the JAX package computes them in
 numpy, so the port uses plain torch ops and library calls.
 
+13. disaggregated serving — ``DisaggServer`` (a prefill role with a stream
+   of its own, KV pages shipped as device tensors over the transport, a
+   decode role replaying the engine's captured step):
+   13a. fp32 ``paper_demo`` at full width, phase 4's requests at
+   chunk_pages 1 and 4 and with ``speculate=4``: tokens equal to phase 4's
+   greedy and colocated-engine tokens up to the first near tie, each
+   request's first block installed before its prefill finished;
+   13b. bf16, phase 5's 24 requests at chunk_pages 1 and 8 beside the
+   colocated engine: tokens/s, TTFT, blocks and bytes shipped (bytes on
+   the block tags must be blocks × ``page_nbytes``), host µs per block,
+   the kernels' launches (paged = layers × (chunks + decode steps));
+   then a profiled run: the card's busy share and the share in which the
+   two roles' streams ran kernels at once;
+   13c. a sleep kernel on the prefill stream ahead of every chunk: ≥ 90%
+   of the block sends must be pending at their first poll, and the tokens
+   must equal 13a's;
+   13k. the paged kernel at the prefill role's windows (S=1, W=16 and
+   128 over a 32-page table) against its plain version, with its bound;
+14. router — two ``paper_demo`` replicas on the one card: 14a in fp32,
+   replica 1 killed mid-decode (zero requests lost, phase 4's tokens, the
+   dead replica's pool drained, the failover time); 14b a bf16
+   shared-prefix trace beside one engine: tokens/s and the affinity hit
+   rate.
+
+Every serving loop of 13 and 14 runs under sync debug mode "error", and
+every pool must end with no page in use.
+
 Each serve phase sets the kernels' launch counts to 0 just before it
 drives its path and reads them just after; a step graph adds its
 kernels' launches back on every replay. The kernels JSON reports
@@ -284,12 +311,20 @@ def paged_case(kind, dtype, gen, dev):
     idle slot; ``decode_full`` all 8 slots live at 900-1023 positions
     (where splitting positions over blocks pays most); ``suffix`` S=1,
     W=16 over 16 shared prefix pages; ``suffix256`` S=1, W=256 (a long
-    page-padded tail, 250 rows valid) over the same 16 prefix pages."""
+    page-padded tail, 250 rows valid) over the same 16 prefix pages;
+    ``chunk16``/``chunk128`` the disaggregated prefill role's last chunk
+    of a 512-token prompt (phase 13)."""
     ps, T, KV, G, hd = 16, 64, 4, 3, 64
     H = KV * G
     P = 512
     perm = torch.randperm(P, generator=torch.Generator().manual_seed(7))
-    if kind in ("decode", "decode_full"):
+    if kind.startswith("chunk"):
+        # the disaggregated prefill role's last chunk of a 512-token
+        # prompt: S=1, a full W-row window at 512 - W, a 32-page table
+        S, W, T = 1, int(kind[5:]), 32
+        positions, n_valid = [512 - W], [W]
+        tables = perm[:T].numpy().astype(np.int32)[None]
+    elif kind in ("decode", "decode_full"):
         S, W = 8, 1
         if kind == "decode":
             positions = [17, 100, 255, 300, 511, 640, 1000, 0]
@@ -671,6 +706,12 @@ def phase_identity(dev):
         checked += n
     log(f"phase 4: ServeClient OK: 4 streams from its loop thread, "
         f"{checked}/64 tokens equal to the engine's")
+    # the oracles phases 13a and 14a hold the disaggregated server and the
+    # router to
+    return dict(cfg=cfg, params=params, prompts=prompts, n=16,
+                colocated=[r.tokens for r in reqs], greedy=wants,
+                spec_prompts=spec_prompts, spec_n=32,
+                spec_colocated=[r.tokens for r in sreqs], spec_greedy=swants)
 
 
 def check_identity(what, cfg, params, prompts, reqs, wants) -> int:
@@ -866,22 +907,9 @@ def serve_timed(eng, work):
     """Serve ``work`` under sync debug mode "error" on a warm engine;
     returns (requests, wall seconds)."""
     from repro_torch.serve import Request, RequestState
-    for prompt, n in work[:2]:           # warm-up, outside the timing
-        eng.submit(Request(prompt, 4))
-    eng.run(until=lambda: len(eng.retired) == 2, timeout=300)
+    warm_up(eng, work)                   # outside the timing
     reqs = [Request(p, n) for p, n in work]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    eng.close_intake()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng.run(timeout=600)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = serve_checked(eng, reqs)
     if not all(r.req_state is RequestState.FINISHED for r in reqs) or any(
             len(r.tokens) != n for r, (_, n) in zip(reqs, work)):
         raise AssertionError("serve: not every request finished its budget")
@@ -1350,7 +1378,7 @@ def phase_zones(dev, label):
         return solver.distributed_solve(zones, APP_RANKS, n_steps, variant,
                                         iters)
 
-    best, sends = {}, 0
+    best, slowest, sends = {}, 0.0, 0
     for variant in ("fork_join", "continuations"):
         walls = []
         for _ in range(3):
@@ -1363,6 +1391,7 @@ def phase_zones(dev, label):
                                      "to reference_solve")
             walls.append(wall)
         best[variant] = min(walls)
+        slowest = max(slowest, *walls)
         pending = TensorOp.PENDING_AT_FIRST_POLL
         sends = 2 * len(zones) * steps
         log(f"phase 10: zones {variant} on {label}: "
@@ -1401,11 +1430,16 @@ def phase_zones(dev, label):
     # their first poll (all but timestep 0's, which no update precedes),
     # and still deliver the right halos
     # the host's time for one zone update, all ranks sharing the
-    # interpreter; each rank's stream holds a quarter of the zones, so a
-    # sleep of 8x that makes the card the slower side by about 2x
+    # interpreter, at the slowest of the timed runs (the host's pace
+    # varies up to 2x within one process). A rank's host cycle for one of
+    # its zones (the update, then its two sends, while three other ranks
+    # share the interpreter) takes 3-5x that, and each rank's stream holds
+    # a quarter of the zones, so a sleep of 16x makes the card the slower
+    # side by 3x or more; at 8x the fastest run's pace a rank's stream could
+    # drain before its send loop ended.
     sleep_steps = 4
-    host_ms = min(best.values()) / (steps * len(zones)) * 1e3
-    sleep_ms = max(1.0, 8 * host_ms)
+    host_ms = slowest / (steps * len(zones)) * 1e3
+    sleep_ms = max(1.0, 16 * host_ms)
     cycles = int(sleep_ms * sleep_cycles_per_ms())
     per_rank = -(-len(zones) // APP_RANKS)
     plain_smooth = solver._smooth
@@ -1425,7 +1459,8 @@ def phase_zones(dev, label):
             behind = 2 * len(zones) * (sleep_steps - 1)
             log(f"phase 10: zones {variant}, {sleep_ms:.2f} ms sleep "
                 f"ahead of each zone update (host {host_ms:.3f} ms an "
-                f"update): {wall * 1e3:.1f} ms for {sleep_steps} "
+                f"update in the slowest timed run): {wall * 1e3:.1f} ms "
+                f"for {sleep_steps} "
                 f"timesteps; halo sends pending at first poll {pending} "
                 f"of {sends} ({behind} posted behind a zone update)")
             if not all(torch.equal(a, b) for a, b in zip(out, want4)):
@@ -1541,6 +1576,488 @@ def phase_offload(dev, label):
         f"{peak_note(start)}; {time.perf_counter() - t_phase:.1f} s")
 
 
+# -------------------------------------------- disaggregated serving, router
+DISAGG_CHUNKS = (1, 8)     # chunk_pages of the bf16 runs (13b)
+# the sleep ahead of each prefill chunk (13c): 4x the slowest host time
+# per chunk seen in 13b (7.5-14.9 ms), so that a host running at half
+# its usual pace still posts each block behind its chunk's sleep
+CHUNK_SLEEP_MS = 60.0
+
+
+def serve_checked(tier, reqs, until=None) -> float:
+    """Submit ``reqs`` to a serving tier (engine, disaggregated server or
+    router), close its intake and run it to the end under sync debug mode
+    "error"; returns the wall seconds, the card drained at both ends.
+    ``until()`` may end a first stretch of the run early (the caller
+    then acts and calls ``tier.run`` itself, still under the mode)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        tier.submit(r)
+    tier.close_intake()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tier.run(timeout=600, until=until)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def warm_up(tier, work) -> None:
+    """Two requests of ``work`` (4 tokens each) through ``tier``: the
+    first launches of each shape and the allocator's first blocks come
+    before the counted run."""
+    from repro_torch.serve import Request
+    n = len(tier.retired)
+    for prompt, _ in work[:2]:
+        tier.submit(Request(prompt, 4))
+    tier.run(until=lambda: len(tier.retired) == n + 2, timeout=300)
+
+
+def disagg_drained(srv) -> bool:
+    return (srv.decode.pool.pages_in_use == 0
+            and srv.prefill.pool.pages_in_use == 0)
+
+
+def install_before_done(srv, reqs) -> bool:
+    """Each request's first KV block was installed at the decode role
+    before the prefill role finished its prompt."""
+    ev = srv.events
+    return all(ev.index(("install", r.req_id, 0))
+               < ev.index(("prefill_done", r.req_id)) for r in reqs)
+
+
+def phase_disagg_identity(dev, ident):
+    """13a: fp32 ``paper_demo`` at full width through ``DisaggServer`` at
+    chunk_pages 1 and 4, and with speculative verify: phase 4's requests,
+    held to phase 4's oracles (greedy and the colocated engine)."""
+    from repro_torch.serve import DisaggServer, Request
+    cfg, params = ident["cfg"], ident["params"]
+    plain = (ident["prompts"], ident["n"], ident["colocated"],
+             ident["greedy"])
+    spec = (ident["spec_prompts"], ident["spec_n"],
+            ident["spec_colocated"], ident["spec_greedy"])
+    tokens = {}
+    for name, kw, (prompts, n, colo, greedy) in (
+            ("chunk_pages=1", dict(chunk_pages=1), plain),
+            ("chunk_pages=4", dict(chunk_pages=4), plain),
+            (f"speculate={SPECULATE}", dict(speculate=SPECULATE), spec)):
+        srv = DisaggServer(cfg, params, device=dev, max_batch=4,
+                           page_size=16, max_seq_len=256, **kw)
+        reqs = [Request(p, n) for p in prompts]
+        serve_checked(srv, reqs)
+        checked = check_identity(f"13a disagg {name} vs greedy", cfg,
+                                 params, prompts, reqs, greedy)
+        checked_colo = check_identity(f"13a disagg {name} vs colocated",
+                                      cfg, params, prompts, reqs, colo)
+        m = srv.metrics()
+        dm = srv.decode.metrics()
+        if not install_before_done(srv, reqs) or not disagg_drained(srv):
+            raise AssertionError(f"13a {name}: a block installed after its "
+                                 "prompt's prefill finished, or pages left "
+                                 f"in use: {srv.events}")
+        if kw.get("speculate") and dm["draft_accepted"] <= 0:
+            raise AssertionError(f"13a {name}: no draft accepted")
+        log(f"phase 13a: fp32 disagg {name} OK: {len(reqs)} requests, "
+            f"{checked}/{n * len(reqs)} tokens equal to greedy and "
+            f"{checked_colo} to the colocated engine (up to the first near "
+            f"tie); {m['blocks_shipped']} blocks shipped, "
+            f"{srv.prefill.stats['chunks']} chunks, first install before "
+            "prefill_done for every request, both pools drained"
+            + (f"; drafts accepted {dm['draft_accepted']} of "
+               f"{dm['draft_proposed']}" if kw.get("speculate") else ""))
+        tokens[name] = [r.tokens for r in reqs]
+        srv.shutdown()
+    return tokens
+
+
+def stream_overlap(prepare, markers: int = 3):
+    """The share of a profiled run's wall time in which the card ran
+    anything, in which a given stream ran kernels, in which other streams
+    did, and in which both did at once. ``prepare()`` builds what is run
+    (outside the profiler) and returns ``(run, stream)``. ``stream`` is
+    found in the trace by ``markers`` sleep kernels queued on it before
+    and after the run; every other stream counts as the other side. A
+    session now and then misses device events (all of them, or the first
+    ones): up to five runs, until a marker is seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def union(spans):
+        out = []
+        for s, e in sorted(spans):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return out
+
+    def total(iv):
+        return sum(e - s for s, e in iv)
+
+    def mark(stream):
+        with torch.cuda.stream(stream):
+            for _ in range(markers):
+                torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+    for _ in range(5):
+        run, stream = prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mark(stream)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            mark(stream)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ids = {e.device_resource_id for e in events if "spin" in e.name}
+        work = [e for e in events if "spin" not in e.name]
+        if len(ids) == 1 and work:
+            break
+    else:
+        raise AssertionError("stream overlap: no run of 5 showed the marker "
+                             f"kernels on one stream: {ids}")
+    (sid,) = ids
+    spans = [(e.time_range.start, e.time_range.end) for e in work]
+    a = union([(e.time_range.start, e.time_range.end) for e in work
+               if e.device_resource_id == sid])
+    b = union([(e.time_range.start, e.time_range.end) for e in work
+               if e.device_resource_id != sid])
+    both, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        both += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return (total(union(spans)) / wall_us, both / wall_us,
+            total(a) / wall_us, total(b) / wall_us, len(spans))
+
+
+def phase_disagg_serve(dev, label):
+    """13b: phase 5's 24-request bf16 workload through ``DisaggServer`` at
+    chunk_pages 1 and 8, beside the colocated engine on the same host;
+    then a profiled run for the card's busy share and the overlap of the
+    two roles' streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import TensorOp
+    from repro_torch.kernels import flash_attention, paged_attention, rmsnorm
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, RequestState
+    from repro_torch.serve.disagg import block_tag
+    cfg = get_config("paper_demo")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    work = serve_workload(cfg, np.random.default_rng(2))
+    eng = serve_engine(cfg, params, dev)
+    reqs, wall = serve_timed(eng, work)
+    n_tokens = sum(len(r.tokens) for r in reqs)
+    colo_rate = n_tokens / wall
+    log(f"phase 13b: bf16 colocated engine on {label} (same workload, same "
+        f"host): 24 requests, {n_tokens} tokens in {wall:.3f} s = "
+        f"{colo_rate:.1f} tokens/s; TTFT {ttft_ms(reqs)}")
+    eng.shutdown()
+    L = cfg.n_layers
+    for cp in DISAGG_CHUNKS:
+        srv = disagg_server(cfg, params, dev, chunk_pages=cp)
+        warm_up(srv, work)
+        pre0, dec0 = dict(srv.prefill.stats), dict(srv.decode.stats)
+        tr0 = srv.transport.stats()
+        replays0 = srv.decode._decode_graph.replays
+        rmsnorm.LAUNCHES = flash_attention.LAUNCHES = 0
+        paged_attention.LAUNCHES = 0
+        TensorOp.PENDING_AT_FIRST_POLL = 0
+        reqs = [Request(p, n) for p, n in work]
+        wall = serve_checked(srv, reqs)
+        launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                    "flash_attention": flash_attention.LAUNCHES,
+                    "paged_attention": paged_attention.LAUNCHES}
+        pre, dec = srv.prefill.stats, srv.decode.stats
+        tr = srv.transport.stats()
+        chunks = pre["chunks"] - pre0["chunks"]
+        steps = dec["steps"] - dec0["steps"]
+        blocks = pre["blocks_shipped"] - pre0["blocks_shipped"]
+        chunk_host = (pre["dispatch_s"] - pre0["dispatch_s"]) / max(chunks, 1)
+        page_nbytes = srv.prefill.pool.page_nbytes
+        tags = [tr["per_tag"][block_tag(r.req_id)] for r in reqs]
+        sent = sum(t["sent_bytes"] for t in tags)
+        recvd = sum(t["recvd_bytes"] for t in tags)
+        held = tr["device_sends_pending"] - tr0["device_sends_pending"]
+        dev_sends = tr["device_sends"] - tr0["device_sends"]
+        n_tokens = sum(len(r.tokens) for r in reqs)
+        log(f"phase 13b: bf16 disagg chunk_pages={cp} on {label}: 24 "
+            f"requests, {n_tokens} tokens in {wall:.3f} s = "
+            f"{n_tokens / wall:.1f} tokens/s "
+            f"({n_tokens / wall / colo_rate:.3f}x colocated); TTFT "
+            f"{ttft_ms(reqs)}; {chunks} prefill chunks (W={16 * cp}), "
+            f"{steps} decode steps; {blocks} blocks shipped, "
+            f"{sent} bytes on their tags ({blocks} x page_nbytes "
+            f"{page_nbytes} = {blocks * page_nbytes}), {recvd} received; "
+            f"device sends pending at post {held} of {dev_sends}; host "
+            f"{chunk_host * 1e3:.3f} ms per chunk (upload, chunk, exports, "
+            f"sends, continuations run inline); PENDING_AT_FIRST_POLL "
+            f"{TensorOp.PENDING_AT_FIRST_POLL}")
+        log(f"disagg chunk_pages={cp} kernels: {json.dumps(launches)}")
+        if not all(r.req_state is RequestState.FINISHED for r in reqs) or \
+                any(len(r.tokens) != n for r, (_, n) in zip(reqs, work)):
+            raise AssertionError(f"13b chunk_pages={cp}: not every request "
+                                 "finished its budget")
+        if not disagg_drained(srv):
+            raise AssertionError(f"13b chunk_pages={cp}: pages left in use")
+        if sent != blocks * page_nbytes or recvd != sent or blocks <= 0:
+            raise AssertionError(f"13b chunk_pages={cp}: {blocks} blocks "
+                                 f"but {sent} bytes sent, {recvd} received")
+        if launches["paged_attention"] != L * (chunks + steps) or \
+                launches["rmsnorm"] != (2 * L + 1) * (chunks + steps) or \
+                launches["flash_attention"] != 0 or \
+                srv.decode._decode_graph.replays - replays0 != steps:
+            raise AssertionError(f"13b chunk_pages={cp}: launches "
+                                 f"{launches} for {chunks} chunks and "
+                                 f"{steps} decode steps")
+        if cp == DISAGG_CHUNKS[0]:
+            post, deliver, install, mallocs = block_host_us(srv)
+            log(f"phase 13b: host cost of one shipped block on this host "
+                f"(192 blocks in batches of 8 through the idle server's "
+                f"transport): export and send {post:.1f} us, delivery "
+                f"(poll, match) {deliver:.1f} us, take and install "
+                f"{install:.1f} us; {post + deliver + install:.1f} us in "
+                f"all; {mallocs} cudaMalloc segments")
+        srv.shutdown()
+
+    # the card's busy share and the two roles' overlap, profiled
+    servers = []
+
+    def prepare():
+        srv = disagg_server(cfg, params, dev, chunk_pages=1)
+        warm_up(srv, work)
+        servers.append(srv)
+        return (lambda: serve_checked(srv, [Request(p, n)
+                                            for p, n in work[:4]]),
+                srv.prefill.stream)
+
+    busy, both, pre_share, dec_share, ops = stream_overlap(prepare)
+    if not all(disagg_drained(srv) for srv in servers) or busy <= 0:
+        raise AssertionError("13b profiled run: pages left in use or no "
+                             "device time")
+    for srv in servers:
+        srv.shutdown()
+    log(f"phase 13b: profiled disagg run (chunk_pages=1, 4 requests, "
+        f"profiler on): card busy {busy:.1%} of the wall time; prefill "
+        f"stream busy {pre_share:.1%}, decode stream {dec_share:.1%}, both "
+        f"at once {both:.1%}; {ops} device ops; {len(servers)} session(s)")
+    return cfg, params
+
+
+def block_host_us(srv, batches: int = 25, per_batch: int = 8):
+    """The host's cost of shipping one KV block, on an idle server, in
+    batches of ``per_batch`` (as many as a serve run has in flight):
+    exports of a prefill-pool page each sent to a posted receive (under
+    the prefill stream); once the card has run the copies, the polls that
+    deliver them; then ``take`` and the install into a decode page (under
+    the decode stream). The first batch warms the allocator and is not
+    counted. Mean microseconds of each part, and the ``cudaMalloc``
+    segments the counted batches took."""
+    from repro_torch.core.transport import take
+    from repro_torch.serve.disagg import KVBlockMsg
+    tr, tag = srv.transport, 1 << 30
+    spent = [0.0, 0.0, 0.0]
+    mallocs = 0
+    for b in range(batches):
+        if b == 1:
+            mallocs = cuda_mallocs()
+        recvs = [tr.irecv(1, source=0, tag=tag) for _ in range(per_batch)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(srv.prefill.stream):
+            for i in range(per_batch):
+                kv = srv.prefill.pool.export_page(0)
+                tr.isend(0, 1, tag, KVBlockMsg(-1, i, kv["k"], kv["v"]))
+        t1 = time.perf_counter()
+        del kv
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        while not all(r.done() for r in recvs):
+            pass
+        t3 = time.perf_counter()
+        with torch.cuda.stream(srv.decode.stream):
+            for r in recvs:
+                msg = take(r.status.payload, srv.decode.stream)
+                srv.decode.pool.import_page(0, {"k": msg.k, "v": msg.v})
+        t4 = time.perf_counter()
+        del msg, recvs
+        torch.cuda.synchronize()
+        if b:
+            for k, dt in enumerate((t1 - t0, t3 - t2, t4 - t3)):
+                spent[k] += dt
+    n = (batches - 1) * per_batch
+    return tuple(t / n * 1e6 for t in spent) + (cuda_mallocs() - mallocs,)
+
+
+def disagg_server(cfg, params, dev, **kw):
+    from repro_torch.serve import DisaggServer
+    return DisaggServer(cfg, params, device=dev, max_batch=8, page_size=16,
+                        max_seq_len=1024, max_inflight=2, **kw)
+
+
+def phase_disagg_card_bound(dev, ident, tokens, label):
+    """13c: a sleep kernel on the prefill stream ahead of every chunk:
+    nearly every block send must be posted while its page is still being
+    written (held at its first poll), and the tokens must not change."""
+    from repro_torch.serve import DisaggServer, Request
+    cfg, params = ident["cfg"], ident["params"]
+    prompts, n = ident["prompts"], ident["n"]
+    srv = DisaggServer(cfg, params, device=dev, max_batch=4, page_size=16,
+                       max_seq_len=256, chunk_pages=1)
+    cycles = int(CHUNK_SLEEP_MS * sleep_cycles_per_ms())
+    plain = srv.prefill._suffix_fn
+
+    def held_chunk(*args):
+        torch.cuda._sleep(cycles)       # on the prefill role's stream
+        return plain(*args)
+
+    srv.prefill._suffix_fn = held_chunk
+    reqs = [Request(p, n) for p in prompts]
+    wall = serve_checked(srv, reqs)
+    st = srv.transport.stats()
+    chunks = srv.prefill.stats["chunks"]
+    blocks = srv.prefill.stats["blocks_shipped"]
+    held, sends = st["device_sends_pending"], st["device_sends"]
+    got = [r.tokens for r in reqs]
+    log(f"phase 13c: card-bound prefill on {label}: {CHUNK_SLEEP_MS:.0f} ms "
+        f"of sleep ahead of each of {chunks} chunks, {wall * 1e3:.1f} ms "
+        f"wall; block sends pending at their first poll {held} of {sends} "
+        f"({blocks} blocks); tokens equal to 13a's chunk_pages=1 run: "
+        f"{got == tokens['chunk_pages=1']}")
+    if sends != blocks or held < 0.9 * sends:
+        raise AssertionError(f"13c: only {held} of {sends} block sends were "
+                             "pending at their first poll")
+    if got != tokens["chunk_pages=1"] or not disagg_drained(srv):
+        raise AssertionError("13c: the tokens changed under the sleeps, or "
+                             "pages were left in use")
+    if wall * 1e3 < 0.9 * CHUNK_SLEEP_MS * chunks / 2:
+        raise AssertionError("13c: the card was not the slower side")
+    srv.shutdown()
+
+
+def phase_chunk_kernels(dev, label):
+    """The paged kernel at the prefill role's windows (13k): the last
+    chunk of a 512-token prompt at W = 16 and 128 (chunk_pages 1 and 8),
+    against its plain version, beside its bound, and its launches per
+    512-token prompt."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for W in (16, 128):
+            r = check_paged(f"chunk{W}", dtype, gen, dev)
+            ok = r["err"] <= TOL[dtype] and r["pools_exact"]
+            log(f"phase 13k: paged_attention {str(dtype):15s} {r['shape']} "
+                f": max_abs_err {r['err']:.3g} (tol {TOL[dtype]:g}) "
+                f"pools_exact={r['pools_exact']} | kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} "
+                f"ms ({r['bound'][1]}) on {label}; {12 * 512 // W} launches "
+                "per 512-token prompt (12 layers)")
+            if not ok:
+                raise AssertionError(f"paged_attention at W={W} {dtype} "
+                                     f"disagrees with its plain version: {r}")
+
+
+def router_workload(cfg, rng):
+    """24 requests over 4 shared 256-token prefixes (a system prompt or a
+    document each), 8–64-token tails, 32–64 new tokens."""
+    prefixes = [rng.integers(0, cfg.vocab_size, 256) for _ in range(4)]
+    return [(np.concatenate([prefixes[i % 4], rng.integers(
+        0, cfg.vocab_size, rng.integers(8, 65))]), int(rng.integers(32, 65)))
+        for i in range(24)]
+
+
+def phase_router(dev, ident, bf16, label):
+    """14a: 2 fp32 replicas on the one card, replica 1 killed mid-decode:
+    zero requests lost, phase 4's tokens, the dead replica's pool drained.
+    14b: a bf16 shared-prefix trace through 2 replicas beside one
+    engine."""
+    from repro_torch.kernels import paged_attention
+    from repro_torch.serve import Request, RequestState, Router
+    cfg, params = ident["cfg"], ident["params"]
+    prompts, n = ident["prompts"], ident["n"]
+    r = Router(cfg, params, n_replicas=2, device=dev, max_batch=4,
+               page_size=16, max_seq_len=256)
+    paged_attention.LAUNCHES = 0
+    reqs = [Request(p, n) for p in prompts]
+
+    def victim_mid_decode():
+        return any(t.rank == 1 and 2 <= t.original.delivered < n
+                   for t in r._tracked.values())
+
+    wall = serve_checked(r, reqs, until=lambda: victim_mid_decode() or (
+        r.batcher.closed and r.idle))
+    if not victim_mid_decode():
+        raise AssertionError("14a: replica 1 never had a request mid-decode")
+    r.kill_replica(1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.run(timeout=300)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    m = r.metrics()
+    dead = r.workers[0]
+    lost = sum(q.req_state is not RequestState.FINISHED for q in reqs)
+    checked = check_identity("14a router vs greedy", cfg, params, prompts,
+                             reqs, ident["greedy"])
+    check_identity("14a router vs single engine", cfg, params, prompts,
+                   reqs, ident["colocated"])
+    log(f"phase 14a: fp32 router on {label}: 2 replicas, replica 1 killed "
+        f"mid-decode after {wall * 1e3:.1f} ms; {lost} requests lost, "
+        f"{m['requeued']} requeued, failover (kill to requeue, heartbeat "
+        f"timeout {r.monitor.timeout_s} s) "
+        f"{r.failover_s[0] * 1e3:.1f} ms; {checked}/{n * len(reqs)} tokens "
+        f"equal to greedy and the single engine; dead replica's pages in "
+        f"use {dead.pool.pages_in_use}; paged launches "
+        f"{paged_attention.LAUNCHES}")
+    if lost or m["failovers"] != 1 or m["requeued"] < 1 or \
+            m["pages_in_use"] != 0 or paged_attention.LAUNCHES <= 0:
+        raise AssertionError(f"14a: {lost} lost, metrics {dict(m)}")
+    r.shutdown()
+
+    cfg, params = bf16
+    work = router_workload(cfg, np.random.default_rng(8))
+    eng = serve_engine(cfg, params, dev)
+    reqs, wall = serve_timed(eng, work)
+    n_tokens = sum(len(q.tokens) for q in reqs)
+    one = n_tokens / wall
+    log(f"phase 14b: bf16 one engine on {label}: shared-prefix trace, 24 "
+        f"requests, {n_tokens} tokens in {wall:.3f} s = {one:.1f} tokens/s; "
+        f"TTFT {ttft_ms(reqs)}; prefix_hits {eng.pool.stats['prefix_hits']}")
+    eng.shutdown()
+    r = Router(cfg, params, n_replicas=2, device=dev, max_batch=8,
+               page_size=16, max_seq_len=1024, max_inflight=2)
+    # warmed on other prompts: the trace's prefixes reach the affinity map
+    # only by its own requests
+    warm_up(r, router_workload(cfg, np.random.default_rng(9)))
+    routed0, hits0 = r.stats["routed"], r.stats["affinity_hits"]
+    paged_attention.LAUNCHES = 0
+    reqs = [Request(p, k) for p, k in work]
+    wall = serve_checked(r, reqs)
+    m = r.metrics()
+    rate = (r.stats["affinity_hits"] - hits0) / (r.stats["routed"] - routed0)
+    n_tokens = sum(len(q.tokens) for q in reqs)
+    log(f"phase 14b: bf16 router on {label}: 2 replicas, 24 requests, "
+        f"{n_tokens} tokens in {wall:.3f} s = {n_tokens / wall:.1f} tokens/s "
+        f"({n_tokens / wall / one:.3f}x one engine); TTFT {ttft_ms(reqs)}; "
+        f"affinity hit rate {rate:.3f}; prefix_hits by replica "
+        + ", ".join(f"{w.rank}: {w.pool.stats['prefix_hits']}"
+                    for w in r.workers)
+        + f"; paged launches {paged_attention.LAUNCHES}")
+    if not all(q.req_state is RequestState.FINISHED for q in reqs) or \
+            m["pages_in_use"] != 0 or paged_attention.LAUNCHES <= 0:
+        raise AssertionError(f"14b: unfinished requests or pages in use: "
+                             f"{dict(m)}")
+    r.shutdown()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1565,7 +2082,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     summary = phase_kernels(dev, label)
     phase_graph_edges(dev)
-    phase_identity(dev)
+    ident = phase_identity(dev)
     cfg, params, launches, host_ms = phase_serve(dev, label)
     phase_card_bound(cfg, params, dev, host_ms, label)
     phase_spec_serve(cfg, params, dev, label)
@@ -1586,6 +2103,15 @@ def main() -> int:
     phase_zones(dev, label)
     phase_cholesky(dev, label)
     phase_offload(dev, label)
+    t_phase = time.perf_counter()
+    tokens = phase_disagg_identity(dev, ident)
+    bf16 = phase_disagg_serve(dev, label)
+    phase_disagg_card_bound(dev, ident, tokens, label)
+    phase_chunk_kernels(dev, label)
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_router(dev, ident, bf16, label)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     kernels = []
     for name, r in summary.items():
         src, replaces = SOURCES[name]

@@ -15,8 +15,9 @@ to the paper:
 * optional simulated link latency via a background delivery thread, so
   completions are genuinely asynchronous in benchmarks.
 
-One change from the reference: a payload that is, or holds, a CUDA tensor.
-The sender has only *queued* the kernels that write it, and the receiver
+One change from the reference: a payload that is, or holds, a CUDA tensor
+(directly, or in a tuple, list, dict or dataclass field, nested). The
+sender has only *queued* the kernels that write it, and the receiver
 reads it on another stream. So ``isend`` records a ``TensorOp`` (a CUDA
 event) on the sender's current stream, and the message becomes matchable
 only once that op completes: found by polling like every other device
@@ -33,6 +34,7 @@ CUDA tensor is delivered exactly as in the reference.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import heapq
 import itertools
 import threading
@@ -68,16 +70,25 @@ def _payload_nbytes(payload: Any) -> int:
     return 64  # control-message default
 
 
-def _cuda_tensors(payload: Any) -> List[torch.Tensor]:
-    """The CUDA tensors in a payload (a tensor, or a tuple, list or dict
-    holding tensors, nested)."""
+def _tensors(payload: Any) -> List[torch.Tensor]:
+    """The tensors in a payload: a tensor, or a tuple, list, dict or
+    dataclass instance (a typed message such as a KV block) holding
+    tensors, nested."""
     if isinstance(payload, torch.Tensor):
-        return [payload] if payload.is_cuda else []
+        return [payload]
     if isinstance(payload, (list, tuple)):
-        return [t for v in payload for t in _cuda_tensors(v)]
+        return [t for v in payload for t in _tensors(v)]
     if isinstance(payload, dict):
-        return [t for v in payload.values() for t in _cuda_tensors(v)]
+        return [t for v in payload.values() for t in _tensors(v)]
+    if dataclasses.is_dataclass(payload) and not isinstance(payload, type):
+        return [t for f in dataclasses.fields(payload)
+                for t in _tensors(getattr(payload, f.name))]
     return []
+
+
+def _cuda_tensors(payload: Any) -> List[torch.Tensor]:
+    """The CUDA tensors in a payload (see ``_tensors``)."""
+    return [t for t in _tensors(payload) if t.is_cuda]
 
 
 def take(payload: Any, stream: Optional[torch.cuda.Stream] = None) -> Any:
@@ -172,8 +183,11 @@ class Transport:
         self.latency_s = latency_s
         self._boxes = [_Mailbox() for _ in range(n_ranks)]
         self._stats_lock = threading.Lock()
+        # device_sends_pending: device sends whose payload was still being
+        # written when they were posted (their TensorOp's first poll)
         self._counters = {"sends": 0, "recvs": 0, "matches": 0,
-                          "cancelled": 0, "device_sends": 0}
+                          "cancelled": 0, "device_sends": 0,
+                          "device_sends_pending": 0}
         # per-tag traffic accounting: tag -> sent/received message and
         # byte counters (bytes via _payload_nbytes), so e.g. KV-shipping
         # bandwidth is observable per channel through stats()
@@ -207,11 +221,10 @@ class Transport:
             t["sent_bytes"] += op.nbytes
         tensors = _cuda_tensors(payload)
         ready = TensorOp(tensors[0]) if tensors else None
-        if ready is not None:
-            # poll once at post: ``PENDING_AT_FIRST_POLL`` then counts the
-            # sends posted before their data was ready (the release below
-            # polls only a channel's head)
-            ready.done()
+        # poll once at post: ``PENDING_AT_FIRST_POLL`` then counts the
+        # sends posted before their data was ready (the release below
+        # polls only a channel's head)
+        pending = ready is not None and not ready.done()
         key = (source, dest)
         with self._held_lock:
             hold = ready is not None or key in self._held
@@ -224,6 +237,7 @@ class Transport:
             if ready is not None:
                 with self._stats_lock:
                     self._counters["device_sends"] += 1
+                    self._counters["device_sends_pending"] += pending
                 ready.add_ready_hook(lambda _op, _st: self._release(key))
                 if self.engine is not None:
                     self.engine.progress.watch(ready)

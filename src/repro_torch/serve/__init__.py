@@ -27,10 +27,18 @@ Layers (counterparts of ``repro.serve``):
 * ``serve.protocol`` — ``EngineLike``, the structural protocol a serving
   tier satisfies (``ServeClient`` binds to any).
 * ``serve.metrics``  — ``ServeMetrics``, the typed metrics mapping.
+* ``serve.disagg``   — disaggregated prefill/decode roles over the
+  transport: KV pages shipped as device tensors (``DisaggServer``).
+* ``serve.router``   — the multi-replica front door: prefix affinity,
+  tenant fairness (``FairBatcher``, ``QuotaExceeded``), heartbeat
+  failover with token-identical replay (``Router``).
 """
 from repro_torch.serve.api import ServeClient, Session, TokenStream
-from repro_torch.serve.batcher import Batcher
-from repro_torch.serve.config import DeadlineExceeded, GenerationConfig
+from repro_torch.serve.batcher import Batcher, FairBatcher
+from repro_torch.serve.config import (DeadlineExceeded, GenerationConfig,
+                                      QuotaExceeded)
+from repro_torch.serve.disagg import (DecodeWorker, DisaggServer, KVBlockMsg,
+                                      PrefillWorker, serve_requests_disagg)
 from repro_torch.serve.drafter import Drafter, NgramDrafter, RepeatDrafter
 from repro_torch.serve.engine import ServeEngine, serve_requests
 from repro_torch.serve.graphs import StepGraph
@@ -39,6 +47,7 @@ from repro_torch.serve.kv_cache import (PagePool, pages_for,
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.protocol import EngineLike
 from repro_torch.serve.request import Request, RequestState, summarize
+from repro_torch.serve.router import ReplicaWorker, Router
 from repro_torch.serve.steps import (greedy_generate,
                                      make_batched_decode_step,
                                      make_decode_step,
@@ -56,5 +65,7 @@ __all__ = [
     "make_fused_paged_suffix_step", "make_fused_paged_verify_step",
     "make_prefill_scatter", "make_prefill_step", "StepGraph", "Drafter",
     "NgramDrafter", "RepeatDrafter", "ServeClient", "Session", "TokenStream",
-    "EngineLike",
+    "EngineLike", "FairBatcher", "QuotaExceeded", "DecodeWorker",
+    "DisaggServer", "KVBlockMsg", "PrefillWorker", "serve_requests_disagg",
+    "ReplicaWorker", "Router",
 ]

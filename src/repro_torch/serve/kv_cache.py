@@ -16,7 +16,9 @@ total_pages + 1, page_size, kv_heads, head_dim)`` with index
   them; every write lands in pages the request owns.
 
 All mutation happens on the engine loop thread; the device arrays are
-updated in place by the serving steps on one stream.
+updated in place by the serving steps on one stream, and by
+``import_page`` (disaggregated serving: pages shipped from a prefill
+role's pool with ``export_page``).
 """
 from __future__ import annotations
 
@@ -85,7 +87,8 @@ class PagePool:
         self._page_key: Dict[int, bytes] = {}
         self.arrays: Optional[Dict[str, torch.Tensor]] = None
         self.stats = {"allocated": 0, "released": 0, "prefix_hits": 0,
-                      "prefix_tokens_reused": 0, "peak_in_use": 0}
+                      "prefix_tokens_reused": 0, "peak_in_use": 0,
+                      "pages_exported": 0, "pages_imported": 0}
 
     # ------------------------------------------------------------- arrays
     def ensure_arrays(self) -> None:
@@ -97,6 +100,38 @@ class PagePool:
         self.arrays = {
             "k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
+
+    @property
+    def page_nbytes(self) -> int:
+        """Wire size of one exported page (all layers, k + v)."""
+        cfg = self.cfg
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        return (2 * cfg.n_layers * self.page_size * cfg.padded_kv_heads
+                * cfg.resolved_head_dim * itemsize)
+
+    # ------------------------------------------------- remote page shipping
+    def export_page(self, page: int) -> Dict[str, torch.Tensor]:
+        """Copy one resident page out of the pool: ``{"k", "v"}`` fresh
+        contiguous tensors of shape ``(n_layers, page_size, kv_heads,
+        head_dim)``, queued on the current stream behind every write
+        already queued there against the pool. A prefill role can ship
+        them over a transport, and later release or overwrite the page,
+        without waiting for the copy."""
+        self.ensure_arrays()
+        self.stats["pages_exported"] += 1
+        return {k: a[:, page].clone(memory_format=torch.contiguous_format)
+                for k, a in self.arrays.items()}
+
+    def import_page(self, page: int, data: Dict[str, torch.Tensor]) -> None:
+        """Install shipped KV into an owned page (the ingestion side of
+        ``export_page``): an in-place copy queued on the current stream.
+        The pool's tensors are never rebound, so step graphs captured over
+        them read the page, and any step queued later on the same stream
+        runs after the copy."""
+        self.ensure_arrays()
+        for k, a in self.arrays.items():
+            a[:, page].copy_(data[k])
+        self.stats["pages_imported"] += 1
 
     # ---------------------------------------------------------- free list
     @property

@@ -289,6 +289,50 @@ def test_transport_record_stream_keeps_a_freed_payload(cuda):
     assert bool((copy == 7.0).all()) and bool((other == 0).all())
 
 
+def test_transport_holds_a_kv_block_message_behind_its_writer(cuda):
+    """A ``KVBlockMsg`` (a dataclass, its tensors in fields) exported
+    behind a 50 ms sleep on the producer's stream is not matchable until
+    the sleep and the export have run; then the consumer's stream reads
+    the page."""
+    from repro_torch.serve.disagg import KVBlockMsg
+    cycles = _sleep_cycles(50.0)
+    producer, consumer = torch.cuda.Stream(), torch.cuda.Stream()
+    shape = (12, 16, 4, 64)
+    with torch.cuda.stream(producer):
+        # allocated, and the copy kernels loaded, ahead
+        pool = torch.zeros((2,) + shape, device="cuda", dtype=torch.bfloat16)
+        pool[1].clone()
+        pool[1].fill_(3.0)
+    torch.cuda.synchronize()
+    tr = Transport(2)
+    recv = tr.irecv(1, source=0, tag=5)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(producer):
+            torch.cuda._sleep(cycles)
+            pool[0].fill_(7.0)
+            k, v = pool[0].clone(), pool[1].clone()
+            send = tr.isend(0, 1, 5, KVBlockMsg(0, 0, k, v))
+        del k, v
+        assert tr.stats()["device_sends"] == 1
+        assert tr.stats()["device_sends_pending"] == 1
+        assert not recv.done() and not send.done()
+        t0 = time.monotonic()
+        deadline = t0 + 10
+        while not recv.done() and time.monotonic() < deadline:
+            pass
+        waited = time.monotonic() - t0
+        assert recv.done() and send.done()
+        with torch.cuda.stream(consumer):
+            msg = take(recv.status.payload)
+            total = msg.k.float().sum() + msg.v.float().sum()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert waited > 0.02                 # held through most of the sleep
+    torch.cuda.synchronize()
+    assert float(total) == (7.0 + 3.0) * pool[0].numel()
+
+
 def test_zones_on_card_bit_identical_to_cpu(cuda):
     want = reference_solve(make_zones(8, 64, 16, seed=3, device="cpu"), 4, 2)
     zones = make_zones(8, 64, 16, seed=3)

@@ -9,10 +9,12 @@ ready op reports "not yet" until the test releases it, and which fails the
 test if anything blocks on it. The card cases are in
 ``tests/test_torch_gpu.py``.
 """
+import dataclasses
 import random
 import sys
 import threading
 import time
+from typing import Any
 
 import numpy as np
 import pytest
@@ -447,6 +449,46 @@ def test_take_is_a_noop_for_cpu_payloads():
     assert take(payload) is payload
 
 
+@dataclasses.dataclass(frozen=True)
+class _Block:
+    """A typed message shaped like the disaggregated server's KV block."""
+    index: int
+    k: Any
+    v: Any
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.k.nbytes) + int(self.v.nbytes)
+
+
+@dataclasses.dataclass
+class _Wrapped:
+    name: str
+    inner: Any
+
+
+def test_typed_message_tensors_found_and_sized():
+    """Tensors in dataclass fields are found, nested in and around
+    containers; a typed message is sized by its ``nbytes``."""
+    k, v = torch.zeros((2, 4, 3), dtype=torch.float32), torch.ones(5)
+    msg = _Block(0, k, v)
+    found = transport_mod._tensors(msg)
+    assert len(found) == 2 and found[0] is k and found[1] is v
+    nested = ("hdr", {"blk": _Wrapped("w", [msg, 3])}, _Wrapped("e", None))
+    assert [t is k or t is v for t in transport_mod._tensors(nested)] \
+        == [True, True]
+    assert transport_mod._tensors(_Block) == []        # the class itself
+    assert transport_mod._cuda_tensors(nested) == []   # CPU tensors
+    assert _payload_nbytes(msg) == 96 + 20
+    tr = Transport(2, eager_threshold=64)
+    send = tr.isend(0, 1, 4, msg)
+    assert send.nbytes == 116 and not send.done()      # rendezvous
+    recv = tr.irecv(1, source=0, tag=4)
+    assert send.done() and recv.status.payload is msg
+    assert take(msg) is msg
+    assert tr.stats()["per_tag"][4]["recvd_bytes"] == 116
+
+
 # ------------------------------------------------------- TestsomeManager
 class _FlagOp(Completable):
     def __init__(self):
@@ -705,3 +747,26 @@ def test_held_messages_stress_keep_channel_order(held):
         sys.setswitchinterval(old)
         stop.set()
     assert got == {s: list(range(n_msgs)) for s in range(4)}
+
+
+def test_typed_message_held_until_its_tensors_are_written(held,
+                                                          monkeypatch):
+    """A dataclass message whose fields hold device tensors is held like a
+    tuple of them: matchable only once its ``TensorOp`` completes, and a
+    control message behind it on the channel waits."""
+    monkeypatch.setattr(
+        transport_mod, "_cuda_tensors",
+        lambda p: [t for t in transport_mod._tensors(p)
+                   if isinstance(t, _DevTensor)])
+    tr = Transport(2)
+    recv = tr.irecv(1, source=0, tag=1)
+    tr.isend(0, 1, 1, _Block(0, _dev(1.0), _dev(2.0, 3.0)))
+    tr.isend(0, 1, 2, b"done")
+    ctrl = tr.irecv(1, source=0, tag=2)
+    assert len(held) == 1 and tr.stats()["device_sends"] == 1
+    assert tr.stats()["device_sends_pending"] == 1
+    for _ in range(3):
+        assert not recv.done() and not ctrl.done()
+    held[0].released = True
+    assert recv.done() and ctrl.done()
+    assert recv.status.payload.v.tolist() == [2.0, 3.0]
