@@ -15,7 +15,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    device time (median of 50 calls); paged attention at decode (one idle
    slot, and all 8 slots at 900-1023 positions) and at suffix windows of
    16 and 256 rows; the SSD scan at B=1 and T = 512, 509, 64, 2048 and at
-   B=4, T=256, with the device time of each of its three grids;
+   B=4, T=256, with the device time of each of its three grids; then at
+   the other dense configs' shapes (phases 15-17): rmsnorm at 8 rows of
+   3840, 7168, 16384 and 12288; flash at head_dim 120 with a 4096 window
+   at Sq 6144 (SDPA with the window as a boolean mask), and at head_dim
+   128 over 8 KV heads with 32, 64, 96 and 128 q-heads (32 at Sq 512 and
+   4096, the others at 512 and 768); paged at head_dim 128 with 8 KV
+   heads and 8, 16 or 12 q-heads each (decode and a W=16 suffix);
 3g. graph edges — a paged decode call and an SSD scan captured into a
    CUDA graph: how many of its edges kept programmatic dependent launch,
    and its replay bit-equal to the eager calls;
@@ -29,13 +35,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. bf16 serve — 24 requests at full width in bf16 through
    ``ServeEngine.submit``/``run``, 8 of them sharing a 256-token prefix;
    every request must finish, the pool must drain, the prefix cache must
-   hit and every kernel must have launched (graph replays counted). The
-   loop runs under ``torch.cuda`` sync debug mode "error" (``.item()``, a
-   blocking copy or a stream sync raises). The host's enqueue of a decode
-   step is printed three ways on this host: the engine's dispatch (graph
-   replay plus uploads and bookkeeping), the replay alone, and the eager
-   step function; the card's time for a step by events, eager and
-   replayed;
+   hit and each kernel must have launched as often as the steps say
+   (graph replays counted). The loop runs under ``torch.cuda`` sync debug
+   mode "error" (``.item()``, a blocking copy or a stream sync raises).
+   The host's enqueue of a decode step is printed three ways on this
+   host: the engine's dispatch (graph replay plus uploads and
+   bookkeeping), the replay alone, and the eager step function; the
+   card's time for a step by events, eager and replayed, and its busy
+   time by kernel family; every serve of phases 8 and 15-17 is driven
+   and checked by the same routine;
 5b. card-bound loop — the same engine path with a ``torch.cuda._sleep``
    queued ahead of every decode step's replay, holding the card several
    times longer than the host takes to enqueue a step: nearly every step
@@ -61,9 +69,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    prime length) and 32–64 new tokens through ``ServeEngine`` in dense
    mode under sync debug mode "error"; every prefill must have launched
    the SSD kernel once a layer (48 × prefills) and rmsnorm 49 times a
-   prefill and a decode step; host enqueue graph against eager as in 5,
-   and the card's time for a decode step by events around a replay beside
-   the profiler's kernel sum of the eager step;
+   prefill and a decode step; the card's time for a decode step by
+   events around a replay beside the profiler's kernel sum of the eager
+   step, and the eager step's and a 512-token prefill's host pace;
 8b. its card-bound loop, as 5b (the sleep ahead of each replay);
 9. its profile, as 6.
 
@@ -114,15 +122,40 @@ numpy, so the port uses plain torch ops and library calls.
 Every serving loop of 13 and 14 runs under sync debug mode "error", and
 every pool must end with no page in use.
 
-Each serve phase sets the kernels' launch counts to 0 just before it
-drives its path and reads them just after; a step graph adds its
-kernels' launches back on every replay. The kernels JSON reports
-``launches`` from the path that runs the kernel (phase 5 for
-``paper_demo``'s kernels, phase 8 for the SSD scan). The next-to-last
-line is the kernels JSON, the last line the device JSON.
+15. h2o-danube3-4b at full width and depth (24 layers, d 3840, 32/8 heads
+   of head_dim 120, a 4096 sliding window), served in dense mode on a
+   ring of the window per slot (``max_cache_len`` 8192):
+   15a. fp32: the engine's tokens equal ``greedy_generate``'s on 4
+   prompts × 16 tokens up to the first near tie, and on a 6,000-token
+   prompt (6000 % 4096 > 0) the greedy of the no-cache ``lm_forward``;
+   15b. bf16: 16 requests of 64–2,048 prompt tokens and the 6,000-token
+   one, 32–128 new, ``max_batch=8``: tokens/s, TTFT, the host's and the
+   card's ms per decode step, peak memory, launches (each as the steps
+   say);
+   15c. its card-bound loop, as 5b;
+16. deepseek-coder-33b at full width (56 q-heads padded to 64 over 8 KV
+   heads, head_dim 128), 16 of its 62 layers, paged and fused: 16a fp32
+   identity (prefix hits, suffix prefill at hd 128) and with
+   ``speculate=4``; 16b phase 5's bf16 workload;
+17. llama3-405b and command-r-plus-104b (parallel blocks, tied 256,000
+   vocab) at full width, 2 layers: 17a fp32 identity on 2 prompts × 8
+   tokens; 17b a bf16 serve of 8 requests.
+
+Each phase's weights are freed before the next. Each serve phase sets
+the kernels' launch counts to 0 just before it drives its path and reads
+them just after; a step graph adds its kernels' launches back on every
+replay. The kernels JSON has one entry per kernel and serving path that
+ran it (phase 5 ``paper_demo``, 8 ``mamba2_370m``, 15b-17b): that path's
+launches beside the phase 3 case at its shape (a decode step's rows for
+rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
+danube's 6144 rows for its windowed flash); each kernel's row is its
+first path's entry, with every path's entry under ``paths``. The
+next-to-last line is the kernels JSON, the last line the device JSON.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import re
@@ -224,9 +257,14 @@ def device_ms(fn, runs: int = TIMED_RUNS):
     fn()
     torch.cuda.synchronize()
     # a session now and then delivers no device events at all, or misses
-    # many: take the first of three that saw at least 90% of them
-    for _ in range(3):
+    # many (26 of 50 calls' kernels in all three sessions of one run on
+    # an H100 80GB HBM3): take the first of five that saw at least 90%,
+    # each starting with a sleep kernel the card has finished before the
+    # counted calls (a one-off, left out below)
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
@@ -282,39 +320,56 @@ def check_rmsnorm(dtype, rows, D, gen, dev):
                 shape=f"({rows}, {D})")
 
 
-def check_flash(dtype, gen, dev):
+def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0):
+    """Causal (or windowed) prefill attention at one shape, with SDPA as
+    the library yardstick (with the window as a boolean mask). Long
+    prompts take fewer timed runs."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K
-    B, S, H, KV, D = 1, 512, 12, 4, 64
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-    out = K.attention(q, k, v, causal=True)
-    ref = K.attention_plain(q, k, v, causal=True)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=True, window=window)
+    out = K.attention(q, k, v, **kw)
+    ref = K.attention_plain(q, k, v, **kw)
     err = max_err(out, ref)
+    del out, ref
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     item = q.element_size()
-    pairs = S * (S + 1) // 2
+    # (query, key) pairs each row attends: its causal past, cut to the window
+    pairs = sum(min(r + 1, window) if window else r + 1 for r in range(S))
+    runs = 10 if S >= 4096 else TIMED_RUNS
     return dict(err=err,
-                ms=median_ms(lambda: K.attention(q, k, v, causal=True)),
-                plain_ms=median_ms(
-                    lambda: K.attention_plain(q, k, v, causal=True)),
-                library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                ms=median_ms(lambda: K.attention(q, k, v, **kw), runs=runs),
+                plain_ms=median_ms(lambda: K.attention_plain(q, k, v, **kw),
+                                   runs=runs),
+                library_ms=median_ms(library, runs=runs),
                 bound=bound_ms((2 * B * S * H * D + 2 * B * S * KV * D)
                                * item, 4 * B * H * D * pairs, dtype),
-                shape=f"B={B} Sq=Sk={S} H={H} KV={KV} D={D} causal")
+                shape=f"B={B} Sq=Sk={S} H={H} KV={KV} D={D} causal"
+                      + (f" window={window}" if window else ""),
+                head_dim=D)
 
 
-def paged_case(kind, dtype, gen, dev):
+def paged_case(kind, dtype, gen, dev, KV=4, G=3, hd=64):
     """Main-path paged shapes: ``decode`` S=8, W=1, mixed positions, one
     idle slot; ``decode_full`` all 8 slots live at 900-1023 positions
     (where splitting positions over blocks pays most); ``suffix`` S=1,
     W=16 over 16 shared prefix pages; ``suffix256`` S=1, W=256 (a long
     page-padded tail, 250 rows valid) over the same 16 prefix pages;
     ``chunk16``/``chunk128`` the disaggregated prefill role's last chunk
-    of a 512-token prompt (phase 13)."""
-    ps, T, KV, G, hd = 16, 64, 4, 3, 64
+    of a 512-token prompt (phase 13). ``KV``, ``G`` and ``hd`` default to
+    ``paper_demo``'s heads (deepseek-coder: 8, 8, 128; llama3: 8, 16,
+    128)."""
+    ps, T = 16, 64
     H = KV * G
     P = 512
     perm = torch.randperm(P, generator=torch.Generator().manual_seed(7))
@@ -367,10 +422,10 @@ def paged_case(kind, dtype, gen, dev):
     return args, tables, P, (n_bytes, flops), shape
 
 
-def check_paged(kind, dtype, gen, dev):
+def check_paged(kind, dtype, gen, dev, **heads):
     from repro_torch.kernels import paged_attention as K
-    args, tables, null, (n_bytes, flops), shape = paged_case(kind, dtype,
-                                                             gen, dev)
+    args, tables, null, (n_bytes, flops), shape = paged_case(
+        kind, dtype, gen, dev, **heads)
     q, kn, vn, kp, vp, tab, pos, nv = args
     kp_k, vp_k = kp.clone(), vp.clone()
     kp_p, vp_p = kp.clone(), vp.clone()
@@ -400,13 +455,14 @@ def check_paged(kind, dtype, gen, dev):
                 plain_ms=median_ms(lambda: K.paged_attention_plain(
                     q, kn, vn, kp_p, vp_p, tab, pos, nv, page_size=16)),
                 library_ms=None, bound=bound_ms(n_bytes, flops, dtype),
-                shape=shape)
+                shape=shape, head_dim=q.shape[-1])
 
 
-def busy_ms(fn, runs: int = 5):
+def busy_ms(fn, runs: int = 5, by_name: bool = False):
     """The card's busy time for one call of ``fn``: the sum of the device
     times of the kernels it ran, under ``torch.profiler``, over ``runs``
-    calls, and its split by kernel family (shares). For calls that launch
+    calls, and its split by kernel family (shares); with ``by_name`` also
+    each kernel name's share and launches a call. For calls that launch
     more kernels than the launch queue holds, where events around the call
     (``median_ms``) measure the host's pace past the queue's depth."""
     from torch.profiler import ProfilerActivity, profile
@@ -419,18 +475,25 @@ def busy_ms(fn, runs: int = 5):
                 fn()
             torch.cuda.synchronize()
         by_family: dict = {}
+        names: dict = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 fam = kernel_family(e.name)
                 by_family[fam] = by_family.get(fam, 0.0) \
                     + e.time_range.elapsed_us()
+                t, n = names.get(e.name, (0.0, 0))
+                names[e.name] = (t + e.time_range.elapsed_us(), n + 1)
         us = sum(by_family.values())
         if us > 0:
             break
     else:
         raise AssertionError("busy_ms: the profiler saw no device time")
-    return us / runs / 1e3, {f: t / us for f, t in sorted(
-        by_family.items(), key=lambda kv: -kv[1])}
+    out = (us / runs / 1e3, {f: t / us for f, t in sorted(
+        by_family.items(), key=lambda kv: -kv[1])})
+    if by_name:
+        out += ({name: (t / us, n / runs) for name, (t, n) in sorted(
+            names.items(), key=lambda kv: -kv[1][0])},)
+    return out
 
 
 def ssd_inputs(gen, dev, B, T, dtype, H=32, P=64, G=1, N=128):
@@ -478,6 +541,14 @@ def check_ssd(dtype, B, T, gen, dev):
                 shape=f"B={B} T={T} H={H} P={P} G=1 N={N} (y, final state)")
 
 
+# each dense config of phases 15-17: (d_model, padded q-heads over its 8
+# KV heads), all at head_dim 128 but danube's 120
+FAMILY_SHAPES = {"h2o_danube3_4b": (3840, 32),
+                 "deepseek_coder_33b": (7168, 64),
+                 "llama3_405b": (16384, 128),
+                 "command_r_plus_104b": (12288, 96)}
+
+
 def phase_kernels(dev, label):
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      rmsnorm, ssd_scan)
@@ -486,28 +557,63 @@ def phase_kernels(dev, label):
     log("phase 3: kernels vs plain versions; fp32 with TF32 off "
         f"(matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}), "
         f"times on {label}")
+    from repro_torch.configs import get_config
+    for path, shape in FAMILY_SHAPES.items():
+        cfg = get_config(path)
+        hd = 120 if shape[1] == 32 else 128
+        if (cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads,
+                cfg.resolved_head_dim) != shape + (8, hd):
+            raise AssertionError(f"FAMILY_SHAPES[{path}] is not {cfg.name}'s")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
-        # rmsnorm at paper_demo's width (768) and mamba2's (1024)
-        cases = [("rmsnorm", check_rmsnorm(dtype, 8, 768, gen, dev)),
-                 ("rmsnorm", check_rmsnorm(dtype, 512, 768, gen, dev)),
-                 ("rmsnorm", check_rmsnorm(dtype, 8, 1024, gen, dev)),
-                 ("rmsnorm", check_rmsnorm(dtype, 512, 1024, gen, dev)),
-                 ("flash_attention", check_flash(dtype, gen, dev)),
-                 ("paged_attention", check_paged("decode", dtype, gen, dev)),
-                 ("paged_attention", check_paged("suffix", dtype, gen, dev)),
-                 ("paged_attention", check_paged("decode_full", dtype, gen,
-                                                 dev)),
-                 ("paged_attention", check_paged("suffix256", dtype, gen,
-                                                 dev)),
-                 ("ssd_scan", check_ssd(dtype, 1, 512, gen, dev)),
-                 ("ssd_scan", check_ssd(dtype, 1, 509, gen, dev)),
-                 ("ssd_scan", check_ssd(dtype, 4, 256, gen, dev)),
-                 ("ssd_scan", check_ssd(dtype, 1, 64, gen, dev)),
-                 ("ssd_scan", check_ssd(dtype, 1, 2048, gen, dev))]
-        for name, r in cases:
+        # (kernel, the serving path whose shape the case is, result): the
+        # kernels JSON reports each path's case beside its launches
+        cases = [
+            # rmsnorm at a decode step's 8 rows of each path's width
+            ("rmsnorm", "paper_demo", check_rmsnorm(dtype, 8, 768, gen,
+                                                    dev)),
+            ("rmsnorm", None, check_rmsnorm(dtype, 512, 768, gen, dev)),
+            ("rmsnorm", "mamba2_370m", check_rmsnorm(dtype, 8, 1024, gen,
+                                                     dev)),
+            ("rmsnorm", None, check_rmsnorm(dtype, 512, 1024, gen, dev)),
+            ("flash_attention", "paper_demo", check_flash(dtype, gen, dev)),
+            ("paged_attention", "paper_demo", check_paged("decode", dtype,
+                                                          gen, dev)),
+            ("paged_attention", None, check_paged("suffix", dtype, gen, dev)),
+            ("paged_attention", None, check_paged("decode_full", dtype, gen,
+                                                  dev)),
+            ("paged_attention", None, check_paged("suffix256", dtype, gen,
+                                                  dev)),
+            ("ssd_scan", "mamba2_370m", check_ssd(dtype, 1, 512, gen, dev)),
+            ("ssd_scan", None, check_ssd(dtype, 1, 509, gen, dev)),
+            ("ssd_scan", None, check_ssd(dtype, 4, 256, gen, dev)),
+            ("ssd_scan", None, check_ssd(dtype, 1, 64, gen, dev)),
+            ("ssd_scan", None, check_ssd(dtype, 1, 2048, gen, dev)),
+            # the other dense configs (phases 15-17); flash at head_dim
+            # 128 also at 32/8 heads, 512 and 4096 rows
+            ("flash_attention", None, check_flash(dtype, gen, dev, S=512,
+                                                  H=32, KV=8, D=128)),
+            ("flash_attention", None, check_flash(dtype, gen, dev, S=4096,
+                                                  H=32, KV=8, D=128)),
+            ("flash_attention", "h2o_danube3_4b", check_flash(
+                dtype, gen, dev, S=6144, H=32, KV=8, D=120, window=4096))]
+        for path, (width, H) in FAMILY_SHAPES.items():
+            G = H // 8
+            cases += [("rmsnorm", path, check_rmsnorm(dtype, 8, width, gen,
+                                                      dev))]
+            if H == 32:          # danube: dense mode, its flash case above
+                continue
+            # flash at a serve's prompts (512; 768 with a shared prefix),
+            # paged at a decode step and a 16-row suffix window
+            cases += [("flash_attention", path if S == 512 else None,
+                       check_flash(dtype, gen, dev, S=S, H=H, KV=8, D=128))
+                      for S in (512, 768)]
+            cases += [("paged_attention", path if kind == "decode" else None,
+                       check_paged(kind, dtype, gen, dev, KV=8, G=G, hd=128))
+                      for kind in ("decode", "suffix")]
+        for name, path, r in cases:
             tol = TOL[dtype]
             ok = r.get("err_y", r["err"]) <= tol \
                 and r.get("err_state", 0.0) <= STATE_TOL \
@@ -534,11 +640,11 @@ def phase_kernels(dev, label):
             if not ok:
                 raise AssertionError(f"{name} {dtype} disagrees with its "
                                      f"plain version: {r}")
-            # the JSON line reports the bf16 run at the decode-step shape
-            # (rmsnorm rows 8 at width 768, paged W=1) and the prefill
-            # shape for flash and the SSD scan (one 512-token prompt)
-            if dtype is torch.bfloat16 and name not in summary:
-                summary[name] = r
+            # the JSON line reports the bf16 run at each path's shape: a
+            # decode step's for rmsnorm and paged, a prompt's for flash and
+            # the SSD scan
+            if dtype is torch.bfloat16 and path:
+                summary[name, path] = r
     log("kernels: " + json.dumps({
         "rmsnorm": rmsnorm.LAUNCHES, "flash_attention":
         flash_attention.LAUNCHES, "paged_attention":
@@ -740,13 +846,14 @@ def serve_workload(cfg, rng):
     return reqs
 
 
-def decode_step_times(eng) -> dict:
+def decode_step_times(eng, split: bool = False) -> dict:
     """One fused decode step with all 8 slots live at mixed positions,
     eager (``_decode_fn`` on its own tensors) and replayed (the engine's
     step graph, its static buffers filled with the same inputs): the
     card's time by events (a sleep kernel ahead keeps host gaps out) and
-    the host's enqueue time of each. Run on an idle engine: the steps
-    write pages no request holds."""
+    the host's enqueue time of each; with ``split``, the eager step's
+    card busy time by kernel family (``busy_ms``). Run on an idle engine:
+    the steps write pages no request holds."""
     S = eng.max_batch
     pos = torch.as_tensor([64 + 100 * i for i in range(S)], dtype=torch.int32,
                           device=eng.device)
@@ -764,7 +871,8 @@ def decode_step_times(eng) -> dict:
     return dict(eager_ms=median_ms(eager, runs=20),
                 graph_ms=median_ms(graph, runs=20),
                 eager_enqueue_ms=enqueue_ms(eager),
-                graph_enqueue_ms=enqueue_ms(graph))
+                graph_enqueue_ms=enqueue_ms(graph),
+                busy=busy_ms(eager, by_name=True) if split else None)
 
 
 def sync_detector_works(dev) -> bool:
@@ -781,99 +889,17 @@ def sync_detector_works(dev) -> bool:
 
 
 def phase_serve(dev, label):
+    """5: ``paper_demo``'s bf16 serve, paged and fused; the shared prefix
+    must hit."""
     from repro_torch.configs import get_config
-    from repro_torch.core import TensorOp
-    from repro_torch.kernels import flash_attention, paged_attention, rmsnorm
     from repro_torch.models import lm
-    from repro_torch.serve import Request, RequestState
     cfg = get_config("paper_demo")
     params = lm.init_params(cfg, seed=0, device=dev)
-    rng = np.random.default_rng(2)
-    work = serve_workload(cfg, rng)
-    eng = serve_engine(cfg, params, dev)
-    # warm up cuBLAS / the allocator on two requests, outside the count
-    for prompt, n in work[:2]:
-        eng.submit(Request(prompt, 4))
-    eng.run(until=lambda: len(eng.retired) == 2, timeout=300)
-    warm_retired = len(eng.retired)
-    steps0, slot_steps0 = eng.stats["steps"], eng.stats["slot_steps"]
-    dispatch0 = eng.stats["dispatch_s"]
-    hits0 = eng.pool.stats["prefix_hits"]
-    suffix0, replays0 = eng.stats["suffix_steps"], eng._decode_graph.replays
-
-    rmsnorm.LAUNCHES = flash_attention.LAUNCHES = 0
-    paged_attention.LAUNCHES = 0
-    TensorOp.PENDING_AT_FIRST_POLL = 0
-    reqs = [Request(p, n) for p, n in work]
-    if not sync_detector_works(dev):
-        raise AssertionError("torch.cuda sync debug mode does not flag a "
-                             ".item(): the no-wait check would be blind")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    eng.close_intake()
-    # any call that makes the host wait for the card (.item(), .cpu(), a
-    # blocking copy, a stream sync) raises while the loop runs
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng.run(timeout=600)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"rmsnorm": rmsnorm.LAUNCHES,
-                "flash_attention": flash_attention.LAUNCHES,
-                "paged_attention": paged_attention.LAUNCHES}
-    pending = TensorOp.PENDING_AT_FIRST_POLL
-    m = eng.metrics()
-    hits = m["prefix_hits"] - hits0
-    n_tokens = sum(len(r.tokens) for r in reqs)
-    steps = eng.stats["steps"] - steps0
-    slot_steps = eng.stats["slot_steps"] - slot_steps0
-    replays = eng._decode_graph.replays - replays0
-    suffix_steps = eng.stats["suffix_steps"] - suffix0
-    host_ms = (eng.stats["dispatch_s"] - dispatch0) / max(steps, 1) * 1e3
-    t = decode_step_times(eng)
-    log(f"phase 5: bf16 serve on {label}: 24 requests, {n_tokens} tokens "
-        f"in {wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT "
-        f"{ttft_ms(reqs)} (all submitted at t=0); {steps} decode steps, "
-        f"{wall / max(steps, 1) * 1e3:.3f} ms/step wall incl. prefills, "
-        f"{slot_steps / max(steps, 1):.2f} slots/step; prefix_hits "
-        f"{hits}, suffix_steps {suffix_steps}, "
-        f"PENDING_AT_FIRST_POLL {pending}")
-    log(f"  decode step, host enqueue on this host: engine dispatch "
-        f"(uploads, graph replay, bookkeeping) {host_ms:.3f} ms (mean over "
-        f"the run), graph replay alone {t['graph_enqueue_ms']:.3f} ms, "
-        f"eager step function {t['eager_enqueue_ms']:.3f} ms (medians of "
-        f"10); card time of one 8-slot step by events: graph replay "
-        f"{t['graph_ms']:.3f} ms, eager {t['eager_ms']:.3f} ms (medians "
-        "of 20)")
-    log(f"main path kernels: {json.dumps(launches)}")
-    if not all(r.req_state is RequestState.FINISHED for r in reqs):
-        raise AssertionError("bf16 serve: not every request finished: "
-                             + str([r.req_state.value for r in reqs]))
-    if len(eng.retired) - warm_retired != len(reqs):
-        raise AssertionError("bf16 serve: retired count mismatch")
-    if any(len(r.tokens) != n for r, (_, n) in zip(reqs, work)):
-        raise AssertionError("bf16 serve: token budgets not met")
-    if m["pages_in_use"] != 0 or hits <= 0:
-        raise AssertionError(f"bf16 serve: pages_in_use "
-                             f"{m['pages_in_use']} prefix_hits {hits}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"bf16 serve: a kernel never launched on the "
-                             f"main path: {launches}")
-    # every decode step is one replay, and the replays' launches count
-    if replays != steps or launches["paged_attention"] != \
-            cfg.n_layers * (steps + suffix_steps):
-        raise AssertionError(f"bf16 serve: {steps} decode steps and "
-                             f"{suffix_steps} suffix prefills but {replays} "
-                             f"graph replays and "
-                             f"{launches['paged_attention']} paged launches")
-    vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens)
-    if not vocab_ok:
-        raise AssertionError("bf16 serve: token outside the vocabulary")
-    eng.shutdown()
+    work = serve_workload(cfg, np.random.default_rng(2))
+    launches, host_ms, d = family_serve("5", cfg, params, dev, work,
+                                        serve_engine, label)
+    if d["prefix_hits"] <= 0:
+        raise AssertionError("bf16 serve: the shared prefix never hit")
     return cfg, params, launches, host_ms
 
 
@@ -1164,115 +1190,42 @@ def mamba_engine(cfg, params, dev):
 
 
 def phase_mamba_serve(dev, label):
+    """8: ``mamba2_370m``'s bf16 serve in dense mode (the SSD kernel once a
+    layer a prefill), then the eager decode step and a 512-token prefill
+    timed on the idle engine."""
     from repro_torch.configs import get_config
-    from repro_torch.core import TensorOp
-    from repro_torch.kernels import (flash_attention, paged_attention,
-                                     rmsnorm, ssd_scan)
     from repro_torch.models import lm
-    from repro_torch.serve import Request, RequestState
     cfg = get_config("mamba2_370m")
     if cfg.n_layers != MAMBA_LAYERS:
         raise AssertionError("mamba2_370m is not at full depth")
     params = lm.init_params(cfg, seed=0, device=dev)
     work = mamba_workload(cfg, np.random.default_rng(5))
-    eng = mamba_engine(cfg, params, dev)
-    for prompt, n in work[:2]:        # warm-up, outside the counts
-        eng.submit(Request(prompt, 4))
-    eng.run(until=lambda: len(eng.retired) == 2, timeout=300)
-    steps0, prefills0 = eng.stats["steps"], eng.stats["prefills"]
-    slot_steps0, dispatch0 = eng.stats["slot_steps"], eng.stats["dispatch_s"]
-    replays0 = eng._decode_graph.replays
 
-    rmsnorm.LAUNCHES = ssd_scan.LAUNCHES = 0
-    flash_attention.LAUNCHES = paged_attention.LAUNCHES = 0
-    TensorOp.PENDING_AT_FIRST_POLL = 0
-    reqs = [Request(p, n) for p, n in work]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    eng.close_intake()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng.run(timeout=600)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"ssd_scan": ssd_scan.LAUNCHES, "rmsnorm": rmsnorm.LAUNCHES,
-                "flash_attention": flash_attention.LAUNCHES,
-                "paged_attention": paged_attention.LAUNCHES}
-    pending = TensorOp.PENDING_AT_FIRST_POLL
-    steps = eng.stats["steps"] - steps0
-    replays = eng._decode_graph.replays - replays0
-    prefills = eng.stats["prefills"] - prefills0
-    slot_steps = eng.stats["slot_steps"] - slot_steps0
-    host_ms = (eng.stats["dispatch_s"] - dispatch0) / max(steps, 1) * 1e3
-    n_tokens = sum(len(r.tokens) for r in reqs)
-    S = eng.max_batch
-    toks = torch.zeros((S, 1, 1), dtype=torch.int32, device=dev)
-    prompt = torch.as_tensor(np.resize(work[1][0], 512)[None],
-                             dtype=torch.int32, device=dev)
+    def eager_timings(eng):
+        prompt = torch.as_tensor(np.resize(work[1][0], 512)[None],
+                                 dtype=torch.int32, device=dev)
+        slot0 = {name: t[:, :1] for name, t in eng._cache.items()}
 
-    def decode():
-        eng._decode_fn(eng.params, eng._cache, toks, None)
+        def prefill():
+            lm.lm_prefill(eng.params, {"tokens": prompt}, cfg, slot0)
 
-    slot0 = {name: t[:, :1] for name, t in eng._cache.items()}
+        # events around an eager call of ~2,500 (decode) or ~1,500
+        # (prefill) launches time the host past the launch queue's depth;
+        # the profiler's kernel sums give the card's busy time
+        step_ev = median_ms(eng._dense_step, runs=10)
+        eager_enq = enqueue_ms(eng._dense_step)
+        prefill_ev = median_ms(prefill, runs=10)
+        prefill_ms, prefill_split = busy_ms(prefill)
+        log(f"phase 8: eager decode step on the idle engine: host enqueue "
+            f"{eager_enq:.3f} ms (median of 10), {step_ev:.3f} ms by events "
+            f"(the host's pace); one 512-token prefill (eager): card busy "
+            f"{prefill_ms:.3f} ms (kernel sum), {prefill_ev:.3f} ms by "
+            "events; its card busy by kernel family: " + ", ".join(
+                f"{fam} {share:.1%}" for fam, share in prefill_split.items()))
 
-    def prefill():
-        lm.lm_prefill(eng.params, {"tokens": prompt}, cfg, slot0)
-
-    graph = eng._decode_graph
-    # events around an eager call of ~2,500 (decode) or ~1,500 (prefill)
-    # launches time the host past the launch queue's depth; around one
-    # replay they time the card. The profiler's kernel sums give the
-    # card's busy time and its split by family.
-    step_ev, graph_ev = median_ms(decode, runs=10), median_ms(graph, runs=20)
-    prefill_ev = median_ms(prefill, runs=10)
-    eager_enq, graph_enq = enqueue_ms(decode), enqueue_ms(graph)
-    (step_ms, step_split), (prefill_ms, prefill_split) = busy_ms(decode), \
-        busy_ms(prefill)
-    log(f"phase 8: mamba2 bf16 serve on {label}: dense mode, 16 requests, "
-        f"{n_tokens} tokens in {wall:.3f} s = {n_tokens / wall:.1f} "
-        f"tokens/s; TTFT {ttft_ms(reqs)} (all submitted at t=0); {steps} "
-        f"decode steps, "
-        f"{wall / max(steps, 1) * 1e3:.3f} ms/step wall incl. prefills, "
-        f"{slot_steps / max(steps, 1):.2f} slots/step, {prefills} prefills; "
-        f"PENDING_AT_FIRST_POLL {pending}")
-    log(f"  decode step, host enqueue on this host: engine dispatch "
-        f"(uploads, graph replay, bookkeeping) {host_ms:.3f} ms (mean over "
-        f"the run), graph replay alone {graph_enq:.3f} ms, eager step "
-        f"function {eager_enq:.3f} ms (medians of 10); card time of one "
-        f"8-slot step: graph replay by events {graph_ev:.3f} ms (median of "
-        f"20), eager step's kernel sum (torch.profiler) {step_ms:.3f} ms, "
-        f"eager step by events {step_ev:.3f} ms (the host's pace)")
-    log(f"  one 512-token prefill (eager): card busy {prefill_ms:.3f} ms "
-        f"(kernel sum), {prefill_ev:.3f} ms by events")
-    for what, split in (("decode step", step_split),
-                        ("512-token prefill", prefill_split)):
-        log(f"  card busy of one {what} by kernel family: " + ", ".join(
-            f"{fam} {share:.1%}" for fam, share in split.items()))
-    log(f"mamba2 path kernels: {json.dumps(launches)}")
-    if not all(r.req_state is RequestState.FINISHED for r in reqs):
-        raise AssertionError("mamba2 serve: not every request finished")
-    if any(len(r.tokens) != n for r, (_, n) in zip(reqs, work)):
-        raise AssertionError("mamba2 serve: token budgets not met")
-    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
-        raise AssertionError("mamba2 serve: token outside the vocabulary")
-    if prefills != len(reqs) or \
-            launches["ssd_scan"] != MAMBA_LAYERS * prefills:
-        raise AssertionError(f"mamba2 serve: {launches['ssd_scan']} SSD "
-                             f"launches for {prefills} prefills")
-    if launches["rmsnorm"] != (MAMBA_LAYERS + 1) * (prefills + steps):
-        raise AssertionError(f"mamba2 serve: {launches['rmsnorm']} rmsnorm "
-                             f"launches for {prefills} prefills and {steps} "
-                             "decode steps")
-    if launches["flash_attention"] or launches["paged_attention"]:
-        raise AssertionError("mamba2 serve ran an attention kernel")
-    if replays != steps:
-        raise AssertionError(f"mamba2 serve: {steps} decode steps but "
-                             f"{replays} graph replays")
-    eng.shutdown()
+    launches, host_ms, _ = family_serve("8", cfg, params, dev, work,
+                                        mamba_engine, label,
+                                        extra=eager_timings)
     return cfg, params, launches, host_ms
 
 
@@ -2057,6 +2010,355 @@ def phase_router(dev, ident, bf16, label):
                              f"{dict(m)}")
     r.shutdown()
 
+# ------------------------------- the dense family at head_dim 120 and 128
+DANUBE_LONG = 6000     # a prompt past danube's 4096 window, 6000 % 4096 > 0
+DANUBE_CACHE = 8192    # max_cache_len of phase 15: a ring of the 4096 window
+DEEPSEEK_LAYERS = 16   # deepseek-coder-33b cut from 62 layers (phase 16)
+WIDE_LAYERS = 2        # llama3-405b (126) and command-r-plus (64), phase 17
+
+
+def family_config(name, dtype, n_layers=None):
+    """A ported config at its published widths in ``dtype`` (weights too),
+    its depth cut to ``n_layers`` where given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name, dtype=dtype, param_dtype=dtype)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def free_card() -> None:
+    """Return the memory of dropped weights and engines to the card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+KERNEL_NAMES = ("rmsnorm", "flash_attention", "paged_attention", "ssd_scan")
+
+
+def kernel_modules():
+    from repro_torch.kernels import (flash_attention, paged_attention,
+                                     rmsnorm, ssd_scan)
+    return dict(zip(KERNEL_NAMES, (rmsnorm, flash_attention,
+                                   paged_attention, ssd_scan)))
+
+
+def zero_counts() -> None:
+    for m in kernel_modules().values():
+        m.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {name: m.LAUNCHES for name, m in kernel_modules().items()}
+
+
+def danube_engine(cfg, params, dev, max_batch=8):
+    """Dense mode (a sliding window has no paged cache): a ring of the
+    whole 4096 window per slot."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, device=dev, max_batch=max_batch,
+                      max_cache_len=DANUBE_CACHE, max_inflight=2)
+    if eng.paged or eng._cache["k"].shape[2] != cfg.window:
+        raise AssertionError("danube must be served in dense mode on a ring "
+                             "of its window")
+    return eng
+
+
+def identity_prompts(cfg, rng, lengths, prefix_len=64, shared=()):
+    """Random prompts of ``lengths``; those whose index is in ``shared``
+    start with one common ``prefix_len``-token prefix."""
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len)
+    return [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+            if i in shared else rng.integers(0, cfg.vocab_size, n)
+            for i, n in enumerate(lengths)]
+
+
+def family_identity(tag, cfg, params, dev, prompts, n, make_engine,
+                    oracle_len):
+    """fp32: the engine's tokens against the port's ``greedy_generate``
+    (dense decode, eager) up to the first near tie; every decode (or
+    verify) step one graph replay, every page back in the pool."""
+    from repro_torch.serve import Request, greedy_generate
+    eng = make_engine(cfg, params, dev)
+    reqs = [Request(p, n) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    eng.close_intake()
+    eng.run(timeout=600)
+    m = eng.metrics()
+    graph = eng._verify_graph if eng.speculate else eng._decode_graph
+    replays = graph.replays
+    eng.shutdown()
+    wants = [greedy_generate(cfg, params, p[None], n, oracle_len,
+                             device=dev)[0].tolist() for p in prompts]
+    checked = check_identity(tag, cfg, params, prompts, reqs, wants)
+    if replays != m["steps"] or m.get("pages_in_use", 0) != 0:
+        raise AssertionError(f"{tag}: {dict(m)}, {replays} graph replays")
+    return checked, m
+
+
+def family_serve(tag, cfg, params, dev, work, make_engine, label,
+                 extra=None):
+    """bf16: ``work`` through a warm engine under sync debug mode "error",
+    the kernels' counts set to 0 just before and read just after: tokens/s,
+    TTFT, the host's and the card's ms per decode step, peak memory.
+    Every request must finish its budget, the pool drain, and each kernel
+    launch as often as the steps say it must. ``extra(eng)`` runs on the
+    idle engine before it shuts down (a phase's own timings). Returns
+    (launches, host ms per step, the run's counts: steps, prefills,
+    suffix_steps, prefix_hits)."""
+    from repro_torch.core import TensorOp
+    from repro_torch.models.common import SSM
+    from repro_torch.serve import Request, RequestState
+    if not sync_detector_works(dev):
+        raise AssertionError("torch.cuda sync debug mode does not flag a "
+                             ".item(): the no-wait check would be blind")
+    start = peak_start()
+    eng = make_engine(cfg, params, dev)
+    warm_up(eng, work)
+    retired0 = len(eng.retired)
+    st0 = dict(eng.stats)
+    hits0 = eng.pool.stats["prefix_hits"] if eng.paged else 0
+    replays0 = eng._decode_graph.replays
+    zero_counts()
+    TensorOp.PENDING_AT_FIRST_POLL = 0
+    reqs = [Request(p, k) for p, k in work]
+    wall = serve_checked(eng, reqs)
+    launches = read_counts()
+    pending = TensorOp.PENDING_AT_FIRST_POLL
+    d = {k: eng.stats[k] - st0[k] for k in ("steps", "prefills",
+                                            "suffix_steps", "slot_steps",
+                                            "dispatch_s")}
+    d["prefix_hits"] = eng.pool.stats["prefix_hits"] - hits0 \
+        if eng.paged else 0
+    steps, prefills = d["steps"], d["prefills"]
+    replays = eng._decode_graph.replays - replays0
+    retired = len(eng.retired) - retired0
+    host_ms = d["dispatch_s"] / max(steps, 1) * 1e3
+    n_tokens = sum(len(r.tokens) for r in reqs)
+    m = dict(eng.metrics())
+    # the card's time for one step: events around a replay of the decode
+    # graph on the idle engine (it rewrites rows no request holds); the
+    # host's enqueue of that replay alone
+    if eng.paged:
+        t = decode_step_times(eng, split=True)
+        card_ms, replay_enq = t["graph_ms"], t["graph_enqueue_ms"]
+        busy, split, names = t["busy"]
+        eager = (f"; eager step function: host {t['eager_enqueue_ms']:.3f} "
+                 f"ms, card {t['eager_ms']:.3f} ms by events")
+    else:
+        S = eng.max_batch
+        if cfg.family != SSM:
+            # every slot past danube's window: each reads its whole ring
+            eng._meta[:S].copy_(torch.arange(S, device=dev) * 100 + 4096)
+        card_ms = median_ms(eng._decode_graph, runs=20)
+        replay_enq = enqueue_ms(eng._decode_graph)
+        busy, split, names = busy_ms(eng._dense_step, by_name=True)
+        eager = ""
+    L = cfg.n_layers
+    ssm = cfg.family == SSM
+    norms = (1 if cfg.parallel_block or ssm else 2) * L + 1
+    heads = "" if ssm else (f", {cfg.padded_heads}/{cfg.padded_kv_heads} "
+                            f"heads of hd {cfg.resolved_head_dim}")
+    log(f"phase {tag}: bf16 serve of {cfg.name} ({L} layers, d "
+        f"{cfg.d_model}{heads}) on {label}: "
+        f"{'paged + fused' if eng.paged else 'dense mode'}, {len(reqs)} "
+        f"requests, {n_tokens} tokens in {wall:.3f} s = "
+        f"{n_tokens / wall:.1f} tokens/s; TTFT {ttft_ms(reqs)} (all "
+        f"submitted at t=0); {steps} decode steps, "
+        f"{wall / max(steps, 1) * 1e3:.3f} ms/step wall incl. prefills, "
+        f"{d['slot_steps'] / max(steps, 1):.2f} slots/step, {prefills} "
+        f"prefills ({d['suffix_steps']} suffix), prefix_hits "
+        f"{d['prefix_hits']}; PENDING_AT_FIRST_POLL {pending}")
+    log(f"  decode step: host {host_ms:.3f} ms (engine dispatch: uploads, "
+        f"graph replay, bookkeeping; mean over the run; graph replay alone "
+        f"{replay_enq:.3f} ms), card {card_ms:.3f} ms (events around one "
+        f"graph replay, median of 20, {eng.max_batch} slots){eager}; "
+        f"{peak_note(start)}")
+    log(f"  card busy of one eager decode step {busy:.3f} ms (kernel sum, "
+        "torch.profiler), by kernel family: " + ", ".join(
+            f"{fam} {share:.1%}" for fam, share in split.items()))
+    for name, (share, n) in list(names.items())[:8]:
+        log(f"    {share:6.1%} in {n:g} launches a step: {name[:100]}")
+    log(f"  {cfg.name} path kernels: {json.dumps(launches)}")
+    if extra:
+        extra(eng)
+    eng.shutdown()
+    if not all(r.req_state is RequestState.FINISHED for r in reqs) or any(
+            len(r.tokens) != k for r, (_, k) in zip(reqs, work)) \
+            or retired != len(reqs):
+        raise AssertionError(f"{tag}: not every request finished its budget "
+                             f"({retired} of {len(reqs)} retired)")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
+        raise AssertionError(f"{tag}: token outside the vocabulary")
+    if m.get("pages_in_use", 0) != 0 or replays != steps:
+        raise AssertionError(f"{tag}: {m}; {replays} replays for "
+                             f"{steps} steps")
+    cold = prefills - d["suffix_steps"]
+    want = {"rmsnorm": norms * (prefills + steps),
+            "flash_attention": 0 if ssm else L * cold,
+            "paged_attention": L * (steps + d["suffix_steps"])
+            if eng.paged else 0,
+            "ssd_scan": L * prefills if ssm else 0}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, the steps say "
+                             f"{want}")
+    return launches, host_ms, d
+
+
+def long_prompt_check(cfg, params, dev, prompt, n):
+    """The engine's tokens for one prompt past the window against greedy
+    by the port's no-cache ``lm_forward`` over the growing sequence, up to
+    the forward's first near tie; returns (tokens compared, forward's
+    greedy)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Request
+    eng = danube_engine(cfg, params, dev, max_batch=1)
+    req = Request(prompt, n)
+    eng.submit(req)
+    eng.close_intake()
+    eng.run(timeout=600)
+    eng.shutdown()
+    seq, near = list(prompt), n
+    for i in range(n):
+        toks = torch.as_tensor(np.asarray(seq, np.int32)[None], device=dev)
+        last = lm.lm_forward(params, {"tokens": toks}, cfg)[0, -1].float()
+        top2 = torch.topk(last, 2).values
+        if near == n and float(top2[0] - top2[1]) < 1e-3:
+            near = i
+        seq.append(int(torch.argmax(last)))
+        del last
+    want = seq[len(prompt):]
+    if req.tokens[:near] != want[:near]:
+        raise AssertionError(f"15a: {len(prompt)}-token prompt: engine "
+                             f"{req.tokens} != no-cache greedy {want} within "
+                             f"{near} tokens")
+    return near, want
+
+
+def phase_danube(dev, label):
+    """15: h2o-danube3-4b at full width and depth, dense mode on a ring of
+    its 4096 window."""
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    start = peak_start()
+    cfg = family_config("h2o_danube3_4b", torch.float32)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(15)
+    prompts = identity_prompts(cfg, rng, (64, 200, 777, 1500))
+    checked, _ = family_identity("15a fp32 identity", cfg, params, dev,
+                                 prompts, 16, danube_engine, DANUBE_CACHE)
+    long = rng.integers(0, cfg.vocab_size, DANUBE_LONG)
+    near, _ = long_prompt_check(cfg, params, dev, long, 8)
+    log(f"phase 15a: fp32 danube identity OK: engine in dense mode (ring of "
+        f"{cfg.window}), 4 requests (prompts 64-1500), {checked}/64 tokens "
+        f"equal to greedy_generate (the rest past a near tie); the "
+        f"{DANUBE_LONG}-token prompt ({DANUBE_LONG} % {cfg.window} = "
+        f"{DANUBE_LONG % cfg.window}): {near}/8 tokens equal to greedy by "
+        f"the no-cache lm_forward; {peak_note(start)}")
+    del params
+    free_card()
+    cfg = family_config("h2o_danube3_4b", torch.bfloat16)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    work = [(rng.integers(0, cfg.vocab_size, int(n)),
+             int(rng.integers(32, 129)))
+            for n in rng.integers(64, 2049, 16)]
+    work.append((rng.integers(0, cfg.vocab_size, DANUBE_LONG), 64))
+    launches, host_ms, _ = family_serve("15b", cfg, params, dev, work,
+                                        danube_engine, label)
+    phase_card_bound(cfg, params, dev, host_ms, label,
+                     make_engine=danube_engine, phase="15c")
+    del params
+    free_card()
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ident_engine(cfg, params, dev, speculate=0):
+    from repro_torch.serve import ServeEngine
+    return ServeEngine(cfg, params, device=dev, max_batch=4, page_size=16,
+                       max_seq_len=256, speculate=speculate)
+
+
+def phase_deepseek(dev, label):
+    """16: deepseek-coder-33b at full width (56 q-heads padded to 64 over 8
+    KV heads, hd 128), 16 of its 62 layers, paged and fused."""
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    start = peak_start()
+    cfg = family_config("deepseek_coder_33b", torch.float32, DEEPSEEK_LAYERS)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(16)
+    prompts = identity_prompts(cfg, rng, (64, 137, 71, 136), shared=(2, 3))
+    checked, m = family_identity("16a fp32 identity", cfg, params, dev,
+                                 prompts, 16, ident_engine, 256)
+    motifs = [rng.integers(0, cfg.vocab_size, k) for k in (4, 7, 16)]
+    spec_prompts = [np.tile(mo, -(-96 // len(mo)))[:96] for mo in motifs] \
+        + [rng.integers(0, cfg.vocab_size, 80)]
+    spec_checked, sm = family_identity(
+        "16a fp32 speculative identity", cfg, params, dev, spec_prompts, 16,
+        lambda c, p, d: ident_engine(c, p, d, speculate=SPECULATE),
+        256)
+    log(f"phase 16a: fp32 deepseek identity OK: paged + fused, 4 requests, "
+        f"{checked}/64 tokens equal to greedy_generate, prefix_hits "
+        f"{m['prefix_hits']} (suffix prefill at hd 128); speculate="
+        f"{SPECULATE}: {spec_checked}/64 tokens equal, {sm['verify_steps']} "
+        f"verify steps, drafts accepted {sm['draft_accepted']} of "
+        f"{sm['draft_proposed']}; {peak_note(start)}")
+    if m["prefix_hits"] < 1 or sm["verify_steps"] < 1:
+        raise AssertionError("16a: no prefix hit or no verify step")
+    del params
+    free_card()
+    cfg = family_config("deepseek_coder_33b", torch.bfloat16,
+                        DEEPSEEK_LAYERS)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    launches, _, d = family_serve("16b", cfg, params, dev,
+                                  serve_workload(cfg, rng), serve_engine,
+                                  label)
+    if d["prefix_hits"] < 1:
+        raise AssertionError("16b: the shared prefix never hit")
+    del params
+    free_card()
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def wide_workload(cfg, rng):
+    """8 requests of 64-512 prompt tokens, 16-32 new."""
+    return [(rng.integers(0, cfg.vocab_size, int(n)),
+             int(rng.integers(16, 33))) for n in rng.integers(64, 513, 8)]
+
+
+def phase_wide(dev, label):
+    """17: llama3-405b and command-r-plus-104b at full width, 2 layers:
+    fp32 identity, then a short bf16 serve."""
+    from repro_torch.models import lm
+    out = {}
+    for name in ("llama3_405b", "command_r_plus_104b"):
+        t_phase = time.perf_counter()
+        start = peak_start()
+        cfg = family_config(name, torch.float32, WIDE_LAYERS)
+        params = lm.init_params(cfg, seed=0, device=dev)
+        rng = np.random.default_rng(17)
+        prompts = identity_prompts(cfg, rng, (64, 151))
+        checked, _ = family_identity(f"17a {name} fp32 identity", cfg,
+                                     params, dev, prompts, 8,
+                                     ident_engine, 256)
+        log(f"phase 17a: fp32 {name} identity OK ({WIDE_LAYERS} layers, d "
+            f"{cfg.d_model}, {cfg.padded_heads}/{cfg.padded_kv_heads} heads, "
+            f"parallel_block={cfg.parallel_block}): {checked}/16 tokens equal "
+            f"to greedy_generate; {peak_note(start)}")
+        del params
+        free_card()
+        cfg = family_config(name, torch.bfloat16, WIDE_LAYERS)
+        params = lm.init_params(cfg, seed=0, device=dev)
+        out[name], _, _ = family_serve("17b", cfg, params, dev,
+                                       wide_workload(cfg, rng), serve_engine,
+                                       label)
+        del params
+        free_card()
+        log(f"phase 17 {name}: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2092,7 +2394,6 @@ def main() -> int:
     del params
     phase_mamba_identity(dev)
     mcfg, mparams, mlaunches, mhost_ms = phase_mamba_serve(dev, label)
-    launches["ssd_scan"] = mlaunches["ssd_scan"]
     phase_card_bound(mcfg, mparams, dev, mhost_ms, label,
                      make_engine=mamba_engine, phase="8b")
     phase_profile(mcfg, mparams, dev, label, window_steps=12,
@@ -2112,15 +2413,35 @@ def main() -> int:
     t_phase = time.perf_counter()
     phase_router(dev, ident, bf16, label)
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    del ident, bf16
+    free_card()
+    # each serving path's launches, its counts set to 0 just before it ran
+    paths = {"paper_demo": launches, "mamba2_370m": mlaunches,
+             "h2o_danube3_4b": phase_danube(dev, label),
+             "deepseek_coder_33b": phase_deepseek(dev, label),
+             **phase_wide(dev, label)}
+    # one entry per (kernel, path that ran it): that path's launches beside
+    # phase 3's case at its shape; a kernel's row is its first path's
+    # entry, every path's entry under "paths"
     kernels = []
-    for name, r in summary.items():
+    for name in KERNEL_NAMES:
         src, replaces = SOURCES[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+        rows = []
+        for path, counts in paths.items():
+            r = summary.get((name, path))
+            if (r is None) != (counts[name] == 0):
+                raise AssertionError(
+                    f"{name} on the {path} path: {counts[name]} launches, "
+                    f"phase 3 case at its shape: {r is not None}")
+            if r is not None:
+                rows.append({
+                    "path": path, "shape": r["shape"],
+                    "launches": counts[name], "max_abs_err": r["err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                    "library_ms": r["library_ms"]})
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, **rows[0], "paths": rows})
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCHITECTURES = ["paper_demo", "mamba2_370m"]
+ARCHITECTURES = ["paper_demo", "mamba2_370m", "h2o_danube3_4b",
+                 "deepseek_coder_33b", "llama3_405b", "command_r_plus_104b"]
 
-_ALIASES = {"paper-demo": "paper_demo", "mamba2-370m": "mamba2_370m"}
+# ``canonical`` maps '-' to '_' first: a key here is a name in that form
+# whose module is spelled otherwise (danube's own ``cfg.name``)
+_ALIASES = {"h2o_danube_3_4b": "h2o_danube3_4b"}
 
 
 def canonical(name: str) -> str:

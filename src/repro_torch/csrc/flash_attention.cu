@@ -26,7 +26,7 @@
 // chain is a quarter of the walk; group 0 merges the four (m, l, acc)
 // through shared memory at the end. QK^T and PV run as mma.sync.m16n8k16
 // bf16 -> fp32, operands loaded with ldmatrix from bf16 shared memory
-// (rows of 128 bytes, 16-byte chunks XOR-swizzled by row so ldmatrix is
+// (rows of 128 or 256 bytes, 16-byte chunks XOR-swizzled by row so ldmatrix is
 // free of bank conflicts). The probabilities stay in registers: the QK^T
 // accumulators are rounded to bf16 and reused as the A operand of PV (the
 // plain version also rounds probabilities to q's dtype); the softmax runs
@@ -38,10 +38,22 @@
 // at these sizes (0.4 GFLOP a call) the serial latency of the KV walk, not
 // the rate, bounds the kernel.
 //
+// Head dims 64 (paper_demo), 120 (h2o-danube3) and 128 (deepseek-coder,
+// llama3, command-r) are instantiated. The bf16 kernel keeps Q/K/V rows in
+// shared memory at a width rounded up to a multiple of 64 (128 for 120):
+// the swizzle needs whole groups of eight 16-byte chunks, and the k16 MMA
+// steps of QK^T need a width that is a multiple of 16. A 120-wide row is
+// 15 chunks; the 16th is zero-filled by the cp.async (src-size 0), so it
+// adds nothing to QK^T, and its PV columns (120..127) are computed from
+// zero V and never stored. At 128 the stages take 136 KB of shared memory
+// (one block per SM), at 64 68 KB.
+//
 // fp32 design (FMAs; tensor cores would mean TF32, which breaks the fp32
 // tolerance): one 256-thread block per (64-row q tile, head, batch); each
-// quad of 4 lanes owns one query row in registers; 64-row K/V tiles are
-// staged in shared memory as fp32 (common.cuh stage_tile / attend_tile).
+// quad of 4 lanes owns one query row in registers; K/V tiles of 64 keys
+// (32 above head_dim 64, so that the two fp32 tiles stay within 48 KB of
+// static shared memory) are staged as fp32 (common.cuh stage_tile /
+// attend_tile). It serves the fp32 identity checks, not speed.
 //
 // Both: scores, running max and running sum in fp32 with the JAX kernel's
 // -1e30 mask and its guards for fully masked rows; tiles wholly in the
@@ -54,8 +66,13 @@ namespace {
 
 // ----------------------------------------------------------- fp32 (FMAs)
 constexpr int kRows = 64;     // query rows per block
-constexpr int kKeys = 64;     // keys per staged tile
 constexpr int kThreads = 4 * kRows;
+// keys per staged fp32 tile: K and V tiles of (HD + 1)-float rows within
+// the 48 KB of static shared memory
+template <int HD>
+__host__ __device__ constexpr int fp32_keys() {
+  return HD <= 64 ? 64 : 32;
+}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -63,6 +80,7 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, T* __restrict__ o, int Sq,
                      int Sk, int H, int KV, int causal, int window,
                      int q_offset, float scale) {
+  constexpr int kKeys = fp32_keys<HD>();
   __shared__ float Ks[kKeys * (HD + 1)];
   __shared__ float Vs[kKeys * (HD + 1)];
   const int qt = blockIdx.x;
@@ -129,9 +147,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------- bf16 (tensor cores)
 using bf16 = __nv_bfloat16;
-constexpr int kMmaHD = 64;      // head_dim of the tensor-core kernel
 constexpr int kMmaKeys = 32;    // keys per K/V tile
-constexpr int kChunks = kMmaHD * 2 / 16;   // 16-byte chunks per row (8)
 
 // 2^x in one MUFU instruction (inputs of -1e30 give 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -156,17 +172,31 @@ __device__ __forceinline__ float exp2_approx(float x) {
 constexpr int kRowWarps = 2;
 constexpr int kGroups = 4;
 constexpr int kMmaThreads = kRowWarps * kGroups * 32;
-constexpr int kMmaSmemBytes =
-    (16 * kRowWarps * kMmaHD + 2 * kGroups * 2 * kMmaKeys * kMmaHD)
-    * static_cast<int>(sizeof(bf16));
 
+// Shared-memory layout of head_dim D: rows of HD = D rounded up to a
+// multiple of 64 elements (8 or 16 swizzled 16-byte chunks), of which the
+// first D / 8 chunks come from device memory.
+template <int D>
+struct MmaDims {
+  static constexpr int HD = (D + 63) / 64 * 64;
+  static constexpr int kChunks = HD / 8;
+  static constexpr int kRealChunks = D / 8;
+  static constexpr int kSmemBytes =
+      (16 * kRowWarps * HD + 2 * kGroups * 2 * kMmaKeys * HD)
+      * static_cast<int>(sizeof(bf16));
+  static_assert(D % 8 == 0, "rows must split into 16-byte chunks");
+};
+
+template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
                          int Sq, int Sk, int H, int KV, int causal,
                          int window, int q_offset, float scale) {
-  constexpr int HD = kMmaHD;
+  constexpr int HD = MmaDims<D>::HD;
+  constexpr int kChunks = MmaDims<D>::kChunks;
+  constexpr int kRealChunks = MmaDims<D>::kRealChunks;
   constexpr int kQRows = 16 * kRowWarps;
   constexpr int kNT = kMmaThreads;
   constexpr int kTile = kMmaKeys * HD;          // elements of one K tile
@@ -201,14 +231,14 @@ __global__ void __launch_bounds__(kMmaThreads)
   // scores are kept as s * scale * log2(e), so exp(x) becomes 2^x
   const float scale_log2 = scale * 1.4426950408889634f;
 
-  const size_t q_stride = static_cast<size_t>(H) * HD;
-  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
   const bf16* qb = q + static_cast<size_t>(b) * Sq * q_stride
-                   + static_cast<size_t>(h) * HD;
+                   + static_cast<size_t>(h) * D;
   const bf16* kb = k + static_cast<size_t>(b) * Sk * kv_stride
-                   + static_cast<size_t>(kvh) * HD;
+                   + static_cast<size_t>(kvh) * D;
   const bf16* vb = v + static_cast<size_t>(b) * Sk * kv_stride
-                   + static_cast<size_t>(kvh) * HD;
+                   + static_cast<size_t>(kvh) * D;
 
   // the KV tiles this q tile visits, with the JAX kernel's skips
   const int n_tiles = (Sk + kMmaKeys - 1) / kMmaKeys;
@@ -226,9 +256,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int idx = tid + i * kNT;
     const int r = idx / kChunks;
     const int c = idx % kChunks;
-    const bool ok = q_row0 + r < Sq;
-    cp_async16(smem_u32(&Qs[swz<kMmaHD>(r, c)]),
-               qb + (ok ? q_row0 + r : 0) * q_stride + c * 8, ok);
+    // past the last row, or the pad chunk of a 120-wide row: zeros
+    const bool ok = q_row0 + r < Sq && c < kRealChunks;
+    cp_async16(smem_u32(&Qs[swz<HD>(r, c)]),
+               qb + (ok ? (q_row0 + r) * q_stride + c * 8 : 0), ok);
   }
   auto load_round = [&](int round, int stage) {
 #pragma unroll
@@ -240,11 +271,11 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int t = t_begin + round * kGroups + gi;
       if (t >= t_end) continue;                // this group idles
       const int kp = t * kMmaKeys + r;
-      const bool ok = kp < Sk;                 // KV tail: zeros
-      const size_t off = (ok ? kp : 0) * kv_stride + c * 8;
+      const bool ok = kp < Sk && c < kRealChunks;   // KV tail, pad: zeros
+      const size_t off = ok ? kp * kv_stride + c * 8 : 0;
       bf16* kt = k_tile(stage, gi);
-      cp_async16(smem_u32(&kt[swz<kMmaHD>(r, c)]), kb + off, ok);
-      cp_async16(smem_u32(&kt[kTile + swz<kMmaHD>(r, c)]), vb + off, ok);
+      cp_async16(smem_u32(&kt[swz<HD>(r, c)]), kb + off, ok);
+      cp_async16(smem_u32(&kt[kTile + swz<HD>(r, c)]), vb + off, ok);
     }
   };
   if (n_rounds > 0) load_round(0, 0);
@@ -271,8 +302,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (round == 0) {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        ldsm_x4(qf[kk], smem_u32(&Qs[swz<kMmaHD>(rw * 16 + (lane & 7)
-                                              + ((lane >> 3) & 1) * 8,
+        ldsm_x4(qf[kk], smem_u32(&Qs[swz<HD>(rw * 16 + (lane & 7)
+                                          + ((lane >> 3) & 1) * 8,
                                           kk * 2 + (lane >> 4))]));
     }
     const int t = t_begin + round * kGroups + grp;
@@ -287,19 +318,19 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int n = 0; n < kMmaKeys / 8; ++n)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        // all fragments of this half first, then the products
+      for (int part = 0; part < HD / 32; ++part) {
+        // 32 columns at a time: all fragments first, then the products
         uint32_t kf[kMmaKeys / 8][4];
 #pragma unroll
         for (int n = 0; n < kMmaKeys / 8; ++n)
-          ldsm_x4(kf[n], smem_u32(&Kt[swz<kMmaHD>(n * 8 + (lane & 7),
-                                          half * 4 + (lane >> 3))]));
+          ldsm_x4(kf[n], smem_u32(&Kt[swz<HD>(n * 8 + (lane & 7),
+                                              part * 4 + (lane >> 3))]));
 #pragma unroll
         for (int n = 0; n < kMmaKeys / 8; ++n)
-          mma_bf16(s[n], qf[2 * half], kf[n][0], kf[n][1]);
+          mma_bf16(s[n], qf[2 * part], kf[n][0], kf[n][1]);
 #pragma unroll
         for (int n = 0; n < kMmaKeys / 8; ++n)
-          mma_bf16(s[n], qf[2 * half + 1], kf[n][2], kf[n][3]);
+          mma_bf16(s[n], qf[2 * part + 1], kf[n][2], kf[n][3]);
       }
       // scale and mask; a tile that every row of the warp sees whole
       // skips the per-element test
@@ -380,16 +411,14 @@ __global__ void __launch_bounds__(kMmaThreads)
             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        uint32_t vf[HD / 16][4];
-#pragma unroll
-        for (int np = 0; np < HD / 16; ++np)
-          ldsm_x4_trans(vf[np], smem_u32(&Vt[swz<kMmaHD>(kk * 16 + (lane & 7)
-                                                     + ((lane >> 3) & 1) * 8,
-                                                 np * 2 + (lane >> 4))]));
 #pragma unroll
         for (int np = 0; np < HD / 16; ++np) {
-          mma_bf16(acc[2 * np], pa, vf[np][0], vf[np][1]);
-          mma_bf16(acc[2 * np + 1], pa, vf[np][2], vf[np][3]);
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, smem_u32(&Vt[swz<HD>(kk * 16 + (lane & 7)
+                                                 + ((lane >> 3) & 1) * 8,
+                                                 np * 2 + (lane >> 4))]));
+          mma_bf16(acc[2 * np], pa, vf[0], vf[1]);
+          mma_bf16(acc[2 * np + 1], pa, vf[2], vf[3]);
         }
       }
     }
@@ -452,49 +481,64 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int qi = q_row0 + rw * 16 + g + 8 * i;
     if (qi >= Sq) continue;
     bf16* op = o + (static_cast<size_t>(b) * Sq + qi) * q_stride
-               + static_cast<size_t>(h) * HD;
+               + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < kRealChunks; ++n)   // the pad columns are dropped
       *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t4) =
           pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
   }
 }
 
+template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Sk, int H, int KV, int causal, int window,
                int q_offset, float scale, cudaStream_t stream) {
-  // once per process: allow more than 48 KB of shared memory
+  constexpr int smem = MmaDims<D>::kSmemBytes;
+  // once per process and head_dim: allow more than 48 KB of shared memory
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMmaSmemBytes);
+      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_qt = (Sq + 16 * kRowWarps - 1) / (16 * kRowWarps);
   if (n_qt > 65535 || B > 65535) return kBadArgument;
   const dim3 grid(H, B, n_qt);
-  flash_fwd_mma_kernel<<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
+  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV,
       causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Sk, int H, int KV, int causal, int window,
                 int q_offset, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<float, 64><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<float, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
       causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           int B, int Sq, int Sk, int H, int KV, int causal, int window,
+           int q_offset, float scale, cudaStream_t s) {
+  if (dtype == kFloat32)
+    return launch_fp32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                          q_offset, scale, s);
+  if (dtype == kBFloat16)
+    return launch_mma<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                         q_offset, scale, s);
+  return kBadArgument;
+}
+
 }  // namespace
 }  // namespace repro
 
 // q, o: (B, Sq, H, D); k, v: (B, Sk, KV, D); all contiguous; H % KV == 0;
-// D == 64 (paper_demo's head_dim; add an instantiation when a ported
-// config needs another).
+// D in {64, 120, 128} (the head dims of the ported configs).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o, int B, int Sq,
                                      int Sk, int H, int KV, int D, int causal,
@@ -502,13 +546,19 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || D != 64) return kBadArgument;
+  if (KV <= 0 || H % KV != 0) return kBadArgument;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return launch_fp32(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                       q_offset, scale, s);
-  if (dtype == kBFloat16)
-    return launch_mma(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                      q_offset, scale, s);
-  return kBadArgument;
+  switch (D) {
+    case 64:
+      return launch<64>(dtype, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                        q_offset, scale, s);
+    case 120:
+      return launch<120>(dtype, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                         q_offset, scale, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                         q_offset, scale, s);
+    default:
+      return kBadArgument;
+  }
 }

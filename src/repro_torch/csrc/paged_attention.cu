@@ -57,6 +57,12 @@
 //   of other slots may read a shared prefix page meanwhile), not rows past
 //   n_valid, not the null page.
 // * fp32 and bf16 share this design (fp32 FMAs on fp32-staged rows).
+// * head dims 64 (paper_demo) and 128 (deepseek-coder, llama3, command-r)
+//   are instantiated. The staged K and V rows, the chunk's query rows and
+//   its scores live in dynamic shared memory: 41 KB at 64, 77 KB at 128,
+//   past the 48 KB a kernel may declare statically. llama3's 16 q-heads a
+//   KV head make a decode chunk of 16 rows; deepseek's 8 (7 real, one
+//   zero-weight pad head) a chunk of 8.
 #include "common.cuh"
 
 namespace repro {
@@ -66,6 +72,14 @@ constexpr int kSplit = 64;     // positions per split, staged at once
 constexpr int kRows = 16;      // query rows per row chunk
 constexpr int kThreads = 128;
 constexpr int kMergeWarps = 4;
+
+// Dynamic shared memory of the split kernel: the chunk's query rows and
+// scores (16-byte aligned, read as float4), then the K and V rows.
+template <int HD>
+constexpr int split_smem_bytes() {
+  return (kRows * HD + kRows * kSplit + 2 * kSplit * (HD + 1))
+         * static_cast<int>(sizeof(float));
+}
 
 // Partial state of split `sp` for output row `row` = (s * W + j) * H + h:
 // acc at part_acc[(sp * rows_total + row) * HD], (m, l) at
@@ -88,10 +102,11 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kQIters = (kRows * kPerRow + kThreads - 1) / kThreads;
   constexpr int kKeyGroups = kThreads / kSplit;   // rows per key thread step
   constexpr int kColGroups = kThreads / HD;       // rows per column step
-  __shared__ float Ks[kSplit * (HD + 1)];
-  __shared__ float Vs[kSplit * (HD + 1)];
-  __shared__ __align__(16) float Qs[kRows * HD];
-  __shared__ __align__(16) float Ps[kRows * kSplit];  // scores, then probs
+  extern __shared__ __align__(16) unsigned char paged_smem[];
+  float* Qs = reinterpret_cast<float*>(paged_smem);
+  float* Ps = Qs + kRows * HD;          // scores, then probs
+  float* Ks = Ps + kRows * kSplit;
+  float* Vs = Ks + kSplit * (HD + 1);
   __shared__ float Ms[kRows];
   __shared__ float Ls[kRows];
   __shared__ int pages[kSplit];   // the split's table entries
@@ -359,8 +374,14 @@ int launch(const void* q, const void* k_new, const void* v_new,
     return kBadArgument;
   float* part_acc = partials;
   float* part_ml = partials + static_cast<size_t>(n_split) * rows_total * HD;
+  constexpr int smem = split_smem_bytes<HD>();
+  // once per process and instantiation: allow more than 48 KB
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_attn_split_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(n_split, KV * n_chunks, S);
-  paged_attn_split_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
+  paged_attn_split_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<T*>(k_pages),
       static_cast<T*>(v_pages), tables, positions, n_valid, part_acc,
@@ -383,10 +404,16 @@ int dispatch_hd(int hd, const void* q, const void* k_new, const void* v_new,
                 const int* positions, const int* n_valid, void* o,
                 float* partials, int S, int W, int H, int KV, int ps, int T_,
                 float scale, cudaStream_t s) {
-  // paper_demo's head_dim; add an instantiation when a ported config needs one
-  if (hd != 64) return kBadArgument;
-  return launch<T, 64>(q, k_new, v_new, k_pages, v_pages, tables, positions,
-                       n_valid, o, partials, S, W, H, KV, ps, T_, scale, s);
+  // the head dims of the ported configs
+  if (hd == 64)
+    return launch<T, 64>(q, k_new, v_new, k_pages, v_pages, tables,
+                         positions, n_valid, o, partials, S, W, H, KV, ps,
+                         T_, scale, s);
+  if (hd == 128)
+    return launch<T, 128>(q, k_new, v_new, k_pages, v_pages, tables,
+                          positions, n_valid, o, partials, S, W, H, KV, ps,
+                          T_, scale, s);
+  return kBadArgument;
 }
 
 }  // namespace
@@ -394,8 +421,8 @@ int dispatch_hd(int hd, const void* q, const void* k_new, const void* v_new,
 
 // q, o: (S, W, H, hd); k_new, v_new: (S, W, KV, hd); k_pages, v_pages:
 // (P + 1, ps, KV, hd), updated in place; tables: (S, T) int32; positions,
-// n_valid: (S,) int32. All contiguous; H % KV == 0; hd == 64. partials:
-// fp32 scratch of n_split * S * W * H * (hd + 2) floats, n_split =
+// n_valid: (S,) int32. All contiguous; H % KV == 0; hd in {64, 128}.
+// partials: fp32 scratch of n_split * S * W * H * (hd + 2) floats, n_split =
 // ceil(T * ps / split_len); split_len must be the kernel's kSplit (64).
 extern "C" int repro_paged_attention(int dtype, const void* q,
                                      const void* k_new, const void* v_new,

@@ -14,7 +14,7 @@ from repro_torch.kernels import _build
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
-HEAD_DIMS = (64,)        # the kernels' instantiations (paper_demo)
+HEAD_DIMS = (64, 120, 128)   # the kernels' instantiations (ported configs)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -29,7 +29,7 @@ from repro_torch.kernels import _build
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
-HEAD_DIMS = (64,)        # the kernels' instantiations (paper_demo)
+HEAD_DIMS = (64, 128)    # the kernels' instantiations (ported configs)
 #: positions per split of the kernel (``kSplit`` in the .cu, which refuses
 #: any other value)
 SPLIT_LEN = 64

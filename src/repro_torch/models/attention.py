@@ -6,8 +6,14 @@ Counterpart of ``repro/models/attention.py`` (``head_mask``,
 ``decode_attention``, ``paged_decode_attention``). Weights keep the
 reference's layouts: ``wq`` ``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``,
 ``wo`` ``(H, hd, d)``. Prefill attention is the flash kernel; paged decode
-the paged kernel; dense decode is plain PyTorch, since it serves only the
-``greedy_generate`` oracle.
+the paged kernel; dense decode is grouped PyTorch matmuls, as the
+reference computes it with einsums outside any Pallas kernel.
+
+The sliding-window cache is a ring of ``L`` slots: absolute position ``p``
+lives in slot ``p % L``, after prefill as after decode. The reference's
+prefill keeps the last ``L`` prompt keys at slots ``0..L-1``, which its
+decode reads as ring slots only when ``S % L == 0`` (ROADMAP C.6); the
+port rolls them into place.
 """
 from __future__ import annotations
 
@@ -91,7 +97,7 @@ def prefill_attention(params, x: torch.Tensor, cfg: ModelConfig,
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: causal attention (flash kernel) + fill the cache. ``cache``
     (B, L, KV, hd) is written in place; a sequence longer than L keeps its
-    last L positions (SWA ring)."""
+    last L positions, position ``p`` in ring slot ``p % L``."""
     S = x.shape[1]
     if rope is None:
         rope = _rope(cfg, torch.arange(S, device=x.device)[None])
@@ -100,43 +106,86 @@ def prefill_attention(params, x: torch.Tensor, cfg: ModelConfig,
     out = _out_proj(params, o, cfg)
     L = cache["k"].shape[1]
     if S >= L:
-        cache["k"].copy_(k[:, S - L:])
-        cache["v"].copy_(v[:, S - L:])
+        # positions S-L .. S-1 into ring slots (S-L+i) % L: a roll by S % L
+        cache["k"].copy_(torch.roll(k[:, S - L:], S % L, dims=1))
+        cache["v"].copy_(torch.roll(v[:, S - L:], S % L, dims=1))
     else:
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
     return out, cache
 
 
+def row_positions(pos: Any, batch: int,
+                  device: torch.device) -> torch.Tensor:
+    """``pos`` as a ``(batch,)`` int64 tensor on ``device``: a host int is
+    broadcast, a tensor of one position per row is taken as it is (never
+    read back on the host)."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=device, dtype=torch.int64)
+        return pos.expand(batch) if pos.dim() == 0 else pos.reshape(batch)
+    return torch.full((batch,), int(pos), dtype=torch.int64, device=device)
+
+
+def check_decode_span(cfg: ModelConfig, L: int, pos: Any, S1: int) -> None:
+    """Only a ring of the whole window may wrap: a host position ``pos``
+    whose ``S1`` tokens pass any other cache of ``L`` slots raises. A
+    device tensor is never read back (the engine admits no request past
+    such a cache)."""
+    if isinstance(pos, torch.Tensor) or (cfg.window and L >= cfg.window):
+        return
+    if int(pos) + S1 > L:
+        raise ValueError(f"decode at positions {int(pos)}..{int(pos) + S1 - 1}"
+                         f" past a cache of {L}"
+                         + (f" (window {cfg.window})" if cfg.window else ""))
+
+
 def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
-                     cache: Dict[str, torch.Tensor], pos: int,
+                     cache: Dict[str, torch.Tensor], pos: Any,
                      rope: Optional[Rope] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Decode ``S1`` new tokens at absolute positions ``pos .. pos+S1-1``
-    against a dense cache (B, L, KV, hd), written in place. Grouped-einsum
-    GQA (the cache is never repeated to the q-head count), fp32 softmax
-    with the ``-1e30`` mask. Plain PyTorch: it serves the
-    ``greedy_generate`` oracle only."""
+    """Decode ``S1`` new tokens per row, row ``b`` at absolute positions
+    ``pos[b] .. pos[b]+S1-1`` (``pos`` an int or a ``(B,)`` tensor), against
+    a dense cache (B, L, KV, hd), written in place. Grouped-einsum GQA (the
+    cache is never repeated to the q-head count), fp32 softmax with the
+    ``-1e30`` mask.
+
+    With a sliding window the cache is a ring (reference
+    ``decode_attention``, one token per row): the new key goes to slot
+    ``pos % L``, and slot ``i`` holds the latest position ``<= pos``
+    congruent to ``i``, visible when it is ``> pos - window``."""
     B, S1, _ = x.shape
-    if cfg.window:
-        raise NotImplementedError("sliding-window decode is not ported yet")
-    pos = int(pos)
-    offs = torch.arange(S1, device=x.device)
-    if rope is None:
-        rope = _rope(cfg, (pos + offs)[None])
-    q, k, v = _project_qkv(params, x, cfg, rope)
+    if cfg.window and S1 > 1:
+        raise NotImplementedError(
+            "multi-token decode against a SWA ring buffer")
+    dev = x.device
     L = cache["k"].shape[1]
-    cache["k"][:, pos:pos + S1] = k
-    cache["v"][:, pos:pos + S1] = v
+    check_decode_span(cfg, L, pos, S1)
+    qpos = row_positions(pos, B, dev)[:, None] \
+        + torch.arange(S1, device=dev)[None, :]                # (B, S1)
+    if rope is None:
+        rope = _rope(cfg, qpos)
+    q, k, v = _project_qkv(params, x, cfg, rope)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, S1)
+    # the remainder wraps the ring and keeps any other write in bounds
+    slots = qpos % L
+    cache["k"][rows, slots] = k
+    cache["v"][rows, slots] = v
     ck, cv = cache["k"], cache["v"]
     KVp = cfg.padded_kv_heads
     G = cfg.padded_heads // KVp
     qg = q.reshape(B, S1, KVp, G, -1)
-    idx = torch.arange(L, device=x.device)
-    valid = idx[None, :] <= (pos + offs)[:, None]              # (S1, L)
+    idx = torch.arange(L, device=dev)
+    if cfg.window:
+        p = qpos[:, :1]                                         # (B, 1)
+        held = idx[None, :] + torch.div(p - idx[None, :], L,
+                                        rounding_mode="floor") * L
+        valid = ((held >= 0) & (held <= p)
+                 & (held > p - cfg.window))[:, None, :]         # (B, 1, L)
+    else:
+        valid = idx[None, None, :] <= qpos[:, :, None]          # (B, S1, L)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float() \
         * cfg.resolved_head_dim ** -0.5
-    scores = scores.masked_fill(~valid, -1e30)
+    scores = scores.masked_fill(~valid[:, None, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
     o = torch.einsum("bkgst,btkd->bskgd", probs, cv)
     o = o.reshape(B, S1, cfg.padded_heads, -1)

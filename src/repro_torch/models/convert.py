@@ -32,7 +32,8 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
                       device: Any = "cuda") -> Any:
     """The reference pytree (nested dicts of numpy leaves) as torch
     tensors on ``device``; nesting and layouts are unchanged. Raises when
-    the tree does not have ``cfg``'s embedding or layer count."""
+    the tree does not have ``cfg``'s embedding, layer count or block form
+    (a parallel block has no ``norm2``)."""
     dev = resolve_device(device)
 
     def convert(node: Any) -> Any:
@@ -51,4 +52,8 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
     if probe.shape[0] != cfg.n_layers:
         raise ValueError(f"{probe.shape[0]} stacked layers, {cfg.name} has "
                          f"{cfg.n_layers}")
+    if cfg.family != SSM and ("norm2" in out["layers"]) == cfg.parallel_block:
+        has = "has" if cfg.parallel_block else "lacks"
+        raise ValueError(f"{cfg.name} has parallel_block="
+                         f"{cfg.parallel_block}, but the tree {has} norm2")
     return out

@@ -8,7 +8,9 @@ leading L axis (``params["layers"]["attn"]["wq"]`` is ``(L, d, H, hd)``,
 ``models.convert.params_from_numpy`` carries the reference's weights over
 unchanged. The reference's ``lax.scan`` over layers is a Python loop over
 per-layer views here. KV caches, SSM states and the page pool are updated
-in place. MoE, hybrid and VLM raise ``NotImplementedError``.
+in place. Parallel blocks (command-r: attention and MLP share one
+pre-norm, no ``norm2``) follow the reference's ``_block_*``. MoE, hybrid
+and VLM raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,15 +30,11 @@ Params = Dict[str, Any]
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet (families other than dense and SSM, MoE, frontends, parallel
-    blocks)."""
+    run yet (families other than dense and SSM, MoE, frontends)."""
     if cfg.family not in (DENSE, SSM) or cfg.moe is not None \
             or cfg.frontend_dim:
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported; see ROADMAP")
-    if cfg.parallel_block:
-        raise NotImplementedError("parallel attn+MLP blocks are not ported "
-                                  "yet; see ROADMAP")
 
 
 # ============================================================ initialization
@@ -82,16 +80,18 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tied_embeddings:
         embed["head"] = _normal(gen, (d, cfg.padded_vocab), d ** -0.5, pd,
                                 dev)
+    layers = {
+        "norm1": {"scale": ones},
+        "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": wo},
+        "mlp": {"wi": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
+                "wg": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
+                "wo": _normal(gen, (L, ff, d), ff ** -0.5, pd, dev)},
+    }
+    if not cfg.parallel_block:
+        layers["norm2"] = {"scale": ones.clone()}
     return {
         "embed": embed,
-        "layers": {
-            "norm1": {"scale": ones},
-            "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": wo},
-            "norm2": {"scale": ones.clone()},
-            "mlp": {"wi": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
-                    "wg": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
-                    "wo": _normal(gen, (L, ff, d), ff ** -0.5, pd, dev)},
-        },
+        "layers": layers,
         "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
                                            device=dev)},
     }
@@ -126,31 +126,36 @@ def layer_views(params: Params) -> List[Dict[str, Any]]:
 
 # ================================================================== blocks
 
+def _mlp_residual(lp, x, h, a, cfg: ModelConfig):
+    """The block's second half after attention output ``a`` of pre-norm
+    ``h``: a parallel block (command-r) feeds the MLP the same ``h``;
+    otherwise the MLP reads ``norm2`` of the attention residual."""
+    if cfg.parallel_block:
+        return x + a + mlp(lp["mlp"], h)
+    x = x + a
+    return x + mlp(lp["mlp"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+
+
 def _block_train(lp, x, cfg: ModelConfig, rope):
     if cfg.family == SSM:
         return x + ssm_mod.ssm_block(lp["ssm"], rmsnorm(
             lp["norm"], x, cfg.norm_eps), cfg)
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    x = x + attn_mod.attention_block(lp["attn"], h, cfg, rope=rope)
-    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2)
+    a = attn_mod.attention_block(lp["attn"], h, cfg, rope=rope)
+    return _mlp_residual(lp, x, h, a, cfg)
 
 
 def _block_prefill(lp, x, cache, cfg: ModelConfig, rope):
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     a, cache = attn_mod.prefill_attention(lp["attn"], h, cfg, cache, rope)
-    x = x + a
-    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2), cache
+    return _mlp_residual(lp, x, h, a, cfg), cache
 
 
 def _block_decode(lp, x, cache, pos, cfg: ModelConfig, rope):
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     a, cache = attn_mod.decode_attention(lp["attn"], h, cfg, cache, pos,
                                          rope)
-    x = x + a
-    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2), cache
+    return _mlp_residual(lp, x, h, a, cfg), cache
 
 
 def _block_paged_decode(lp, x, k_pages, v_pages, cfg: ModelConfig,
@@ -159,9 +164,7 @@ def _block_paged_decode(lp, x, k_pages, v_pages, cfg: ModelConfig,
     a, _, _ = attn_mod.paged_decode_attention(
         lp["attn"], h, cfg, k_pages, v_pages, positions, tables, n_valid,
         page_size=page_size, rope=rope)
-    x = x + a
-    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2)
+    return _mlp_residual(lp, x, h, a, cfg)
 
 
 def _block_ssm_prefill(lp, x, cache, cfg: ModelConfig):
@@ -248,8 +251,10 @@ def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
                    layers: Optional[List[Dict[str, Any]]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode ``token`` (B, S1) at absolute positions ``pos ..`` against a
-    dense cache, written in place. The SSM family decodes one token (B, 1)
-    per row from its state and reads no position. ``layers`` may pass
+    dense cache, written in place; ``pos`` is an int for every row or a
+    ``(B,)`` tensor of per-row positions (dense-mode serve slots), never
+    read back on the host. The SSM family decodes one token (B, 1) per row
+    from its state and reads no position. ``layers`` may pass
     ``layer_views(params)`` computed once by a caller that steps many
     times."""
     require_ported(cfg)
@@ -260,9 +265,10 @@ def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
             x = _block_ssm_decode(lp, x, _layer_cache(cache, i), cfg)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return lm_logits(params["embed"], x, cfg), cache
-    pos = int(pos)
-    rope = _rope(cfg, torch.arange(pos, pos + token.shape[1],
-                                   device=x.device)[None])
+    B, S1 = token.shape
+    attn_mod.check_decode_span(cfg, cache["k"].shape[2], pos, S1)
+    pos = attn_mod.row_positions(pos, B, x.device)
+    rope = _rope(cfg, pos[:, None] + torch.arange(S1, device=x.device))
     for i, lp in enumerate(views):
         x, _ = _block_decode(lp, x, _layer_cache(cache, i), pos, cfg, rope)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -5,9 +5,12 @@ Counterpart of ``repro/serve/engine.py`` in its two memory modes:
 * *paged* (default where ``paged_supported``: the dense family) — fused
   paged steps over a shared ``PagePool`` behind per-slot page tables;
 * *dense* (``paged=False``, and automatically where paged caching is not
-  supported) — a layer-stacked per-slot cache with the slots as its
-  batch. In the port it serves the SSM family (mamba2), whose per-slot
-  state has a constant size.
+  supported: the SSM family and sliding-window configs) — a layer-stacked
+  per-slot cache with the slots as its batch: the SSM state of constant
+  size (mamba2), or a KV cache of ``max_cache_len`` positions per slot, a
+  ring of ``window`` slots for a sliding-window config whose
+  ``max_cache_len`` reaches the window (h2o-danube3). Each slot decodes at
+  its own position, read from a static device buffer.
 
 The decode loop keeps a fixed set of *slots*, each holding one in-flight
 sequence:
@@ -18,7 +21,7 @@ sequence:
   its pages copied into the pool, a prompt that starts with resident
   pages runs only its tail through the fused paged kernel (suffix
   prefill). Dense: a batch-1 prefill at the prompt's exact length (SSD
-  kernel), whose state is then copied into the slot's rows.
+  or flash kernel), written straight into the slot's rows.
 * **decode** — one step (fused paged, or the batched dense decode)
   advances every occupied slot by one token. The step's next-token
   tensor is wrapped in a ``TensorOp`` whose continuation delivers the
@@ -53,8 +56,7 @@ What keeps the loop from blocking, in PyTorch terms:
   a CUDA tensor (``int()``/``.item()``/``.cpu()`` there would sync the
   stream behind the next step already queued).
 
-``fused=False`` and dense mode for families other than SSM are not ported
-yet.
+``fused=False`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -160,10 +162,6 @@ class ServeEngine:
                 "speculate > 0 requires paged=True")
         if fused and not paged:
             raise ValueError("fused paged-attention steps require paged=True")
-        if not paged and cfg.family != SSM:
-            raise NotImplementedError(
-                f"dense mode (paged=False) for {cfg.name!r} (family "
-                f"{cfg.family!r}) is {_NOT_PORTED}")
         self.device = resolve_device(device)
         emb = params["embed"]["tokens"]
         if emb.device.type != self.device.type:
@@ -188,12 +186,15 @@ class ServeEngine:
         S, K = self.max_batch, self.speculate
         i32 = dict(dtype=torch.int32, device=self.device)
         # static step inputs, written in place and never rebound: the next
-        # input token of each slot, and (paged) one buffer holding the
-        # positions, n_valid and drafts of a step, uploaded in one copy
+        # input token of each slot, and one buffer holding the positions
+        # (and, paged, the n_valid and drafts) of a step, uploaded in one
+        # copy
         self._tokens = torch.zeros((S, 1, 1), **i32)
         self._meta = torch.zeros(2 * S + S * K, **i32)
         self.pool: Optional[PagePool] = None
         self._cache: Optional[dict] = None
+        # dense mode: the most tokens (prompt + new) a request may hold
+        self._dense_bound: Optional[int] = None
         self._decode_graph: Optional[StepGraph] = None
         self._verify_graph: Optional[StepGraph] = None
         if self.paged:
@@ -232,9 +233,15 @@ class ServeEngine:
                 self._decode_graph = StepGraph(self._paged_step, self.device)
         else:
             # dense mode: layer-stacked caches, the S slots as their batch;
-            # the warm-up steps every slot's rows, which hold nothing yet
+            # the warm-up steps every slot's rows, which hold nothing yet.
+            # A KV cache bounds a request at its length, unless it is a
+            # whole sliding window (a ring that never runs out)
             self._cache = lm.init_cache(cfg, S, self.max_cache_len,
                                         device=self.device)
+            if cfg.family != SSM:
+                cache_len = self._cache["k"].shape[2]
+                if not (cfg.window and cache_len >= cfg.window):
+                    self._dense_bound = cache_len
             self._decode_fn = make_batched_decode_step(cfg, self._layers)
             self._decode_graph = StepGraph(self._dense_step, self.device)
 
@@ -273,6 +280,12 @@ class ServeEngine:
             if pages_for(total, self.page_size) > self.pool.total_pages:
                 raise ValueError(f"request needs more pages than the pool "
                                  f"holds ({self.pool.total_pages})")
+        elif self._dense_bound is not None:
+            plen = int(np.asarray(request.prompt).reshape(-1).shape[0])
+            total = plen + request.max_new_tokens
+            if total > self._dense_bound:
+                raise ValueError(f"request needs {total} tokens > the dense "
+                                 f"cache's {self._dense_bound} positions")
         tr = _obs.TRACE
         if tr is not None and tr.want(request.req_id):
             tr.evt(_obs_events.REQ_SUBMIT, request.req_id, "engine")
@@ -327,9 +340,13 @@ class ServeEngine:
         return nxt
 
     def _dense_step(self) -> torch.Tensor:
-        """The dense-mode decode of every slot (the SSM decode reads no
-        position); the next tokens become the next inputs in place."""
-        nxt, _ = self._decode_fn(self.params, self._cache, self._tokens, None)
+        """The dense-mode decode of every slot, each at its position in
+        the static buffer (the SSM decode reads none); the next tokens
+        become the next inputs in place."""
+        positions = None if self.cfg.family == SSM \
+            else self._meta[:self.max_batch]
+        nxt, _ = self._decode_fn(self.params, self._cache, self._tokens,
+                                 positions)
         self._tokens.copy_(nxt[..., None])
         return nxt
 
@@ -588,6 +605,8 @@ class ServeEngine:
             meta[[S + i for i, _ in live]] = 1
             self._upload(meta, out=self._meta[:2 * S])
             self._refresh_tables()
+        elif self.cfg.family != SSM:
+            self._upload(self._pos, out=self._meta[:S])
         # dense mode: every slot steps, as under the reference's vmap; an
         # idle slot's rows are garbage until a prefill overwrites them
         nxt = self._decode_graph()

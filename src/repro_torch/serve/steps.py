@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
-from repro_torch.models.common import SSM, ModelConfig
+from repro_torch.models.common import ModelConfig
 from repro_torch.util import resolve_device
 
 
@@ -50,19 +50,14 @@ def make_batched_decode_step(cfg: ModelConfig,
                              layers: Optional[list] = None) -> Callable:
     """Dense-mode slot decode: ``(params, caches, tokens (S,1,1),
     positions (S,) or None) → (next_tokens (S,1) int32, caches)``, one
-    decode step
-    over every slot with the greedy argmax in the step. ``caches`` is the
-    layer-stacked per-slot cache with the S slots as its batch, updated in
-    place. The reference vmaps a batch-1 decode over the slots; the SSM
-    decode is per row, so one batch of S is the same function. Only the
-    SSM family is served this way (its decode reads no position); a dense
-    decoder's cache is written at one position for the whole batch here,
-    so it raises. ``layers`` are ``lm.layer_views(params)`` computed once
-    by the caller."""
-    if cfg.family != SSM:
-        raise NotImplementedError(
-            f"dense-mode batched decode of family {cfg.family!r} is not "
-            "yet ported; see ROADMAP")
+    decode step over every slot with the greedy argmax in the step.
+    ``caches`` is the layer-stacked per-slot cache with the S slots as its
+    batch, updated in place. The reference vmaps a batch-1 decode over the
+    slots; here one batch of S rows decodes at once, row ``s`` at
+    ``positions[s]`` (a device tensor, never read on the host; the SSM
+    family reads none). ``layers`` are ``lm.layer_views(params)`` computed
+    once by the caller."""
+    lm.require_ported(cfg)
 
     def step(params, caches, tokens, positions):
         logits, caches = lm.lm_decode_step(params, tokens[:, 0, :], cfg,

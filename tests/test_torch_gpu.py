@@ -69,6 +69,14 @@ def test_rmsnorm_kernel(cuda, dtype, rows, d):
     (1, 77, 6, 2, 64, True, 0, 76),
     (1024, 1024, 12, 4, 64, True, 0, 0),     # max_seq_len, 64-row q tiles
     (100, 612, 12, 4, 64, True, 0, 512),     # a prompt chunk past 512 keys
+    # the head dims of the other dense configs: 128 (deepseek-coder,
+    # llama3, command-r) and 120 (h2o-danube3, sliding window)
+    (512, 512, 32, 8, 128, True, 0, 0),
+    (300, 300, 16, 1, 128, True, 0, 0),      # llama3's 16 q-heads a KV head
+    (100, 612, 8, 2, 128, True, 0, 512),
+    (333, 333, 32, 8, 120, True, 0, 0),
+    (700, 700, 32, 8, 120, True, 256, 0),
+    (64, 900, 8, 2, 120, True, 300, 836),    # a windowed chunk at an offset
 ])
 def test_flash_attention_kernel(cuda, dtype, Sq, Sk, H, KV, D, causal,
                                 window, q_offset):
@@ -128,6 +136,64 @@ def test_paged_attention_kernel(cuda, dtype, W, positions, n_valid, shared):
     for s, n in enumerate(n_valid):
         if n == 0:
             assert bool((o[s] == 0).all()), "idle slot output not 0"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [8, 16])
+@pytest.mark.parametrize("W,positions,n_valid", [
+    (1, [17, 100, 255, 300, 511, 640, 1000, 0], [1] * 7 + [0]),
+    (16, [256], [13]),
+    (4, [62, 1019], [4, 4]),     # windows across a 64-position split
+])
+def test_paged_attention_kernel_at_head_dim_128(cuda, dtype, G, W, positions,
+                                                n_valid):
+    """head_dim 128 with deepseek's 8 (one a zero-weight pad head in the
+    model) and llama3's 16 q-heads per KV head, 8 KV heads."""
+    S, KV, hd, ps, T = len(positions), 8, 128, 16, 64
+    needs = [-(-(p + W) // ps) for p in positions]
+    P = sum(needs) + 4
+    tables = torch.full((S, T), P, dtype=torch.int32)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(1))
+    nxt = 0
+    for s in range(S):
+        tables[s, :needs[s]] = perm[nxt:nxt + needs[s]]
+        nxt += needs[s]
+    args = [_randn(cuda, (S, W, KV * G, hd), dtype),
+            _randn(cuda, (S, W, KV, hd), dtype),
+            _randn(cuda, (S, W, KV, hd), dtype)]
+    kp = _randn(cuda, (P + 1, ps, KV, hd), dtype)
+    vp = _randn(cuda, (P + 1, ps, KV, hd), dtype)
+    ints = [tables.cuda(), torch.tensor(positions, dtype=torch.int32).cuda(),
+            torch.tensor(n_valid, dtype=torch.int32).cuda()]
+    kk, vk, kq, vq = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    n0 = pa.LAUNCHES
+    o, _, _ = pa.paged_attention(*args, kk, vk, *ints, page_size=ps)
+    assert pa.LAUNCHES == n0 + 1
+    ref, _, _ = pa.paged_attention_plain(*args, kq, vq, *ints, page_size=ps)
+    assert float((o.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert torch.equal(kk, kq) and torch.equal(vk, vq)
+
+
+def test_attention_kernels_refuse_uninstantiated_head_dims(cuda):
+    """No fallback: a head_dim without an instantiation raises on CUDA
+    tensors (96 for both; 120 for the paged kernel, which no paged config
+    uses) and launches nothing."""
+    f0, p0 = fa.LAUNCHES, pa.LAUNCHES
+    q = _randn(cuda, (1, 8, 4, 96), torch.bfloat16)
+    with pytest.raises(ValueError, match="D in"):
+        fa.attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    for hd in (96, 120):
+        S, W, KV, ps, T = 1, 1, 2, 16, 2
+        q = _randn(cuda, (S, W, 4, hd), torch.bfloat16)
+        kn = _randn(cuda, (S, W, KV, hd), torch.bfloat16)
+        pool = _randn(cuda, (3, ps, KV, hd), torch.bfloat16)
+        i32 = dict(dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="hd in"):
+            pa.paged_attention(q, kn, kn.clone(), pool, pool.clone(),
+                               torch.zeros((S, T), **i32),
+                               torch.zeros(S, **i32), torch.ones(S, **i32),
+                               page_size=ps)
+    assert (fa.LAUNCHES, pa.LAUNCHES) == (f0, p0)
 
 
 def _ssd_inputs(gen, B, T, H, P, G, N, dtype):

@@ -82,6 +82,32 @@ def test_flash_attention_matches_jax(B, Sq, Sk, H, KV, D, causal, window,
     np.testing.assert_allclose(got, want_kernel, **TOL)
 
 
+@pytest.mark.parametrize("D", [120, 128])
+@pytest.mark.parametrize("Sq,Sk,window,q_offset", [
+    (64, 64, 0, 0),           # causal prefill
+    (80, 80, 24, 0),          # sliding window (h2o-danube3 at hd 120)
+    (16, 56, 20, 40),         # a windowed chunk at an offset
+])
+def test_flash_attention_matches_jax_at_ported_head_dims(D, Sq, Sk, window,
+                                                         q_offset):
+    """The plain version at the head dims of the ported dense configs (120:
+    h2o-danube3; 128: deepseek-coder, llama3, command-r), GQA 8/2, against
+    the JAX reference and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(2)
+    H, KV = 8, 2
+    q = rng.normal(size=(1, Sq, H, D)).astype(np.float32)
+    k = rng.normal(size=(1, Sk, KV, D)).astype(np.float32)
+    v = rng.normal(size=(1, Sk, KV, D)).astype(np.float32)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    got = fa.attention(_t(q), _t(k), _t(v), **kw).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want_ref = np.asarray(fa_ref.attention(jq, jk, jv, **kw))
+    want_kernel = np.asarray(fa_kernel.flash_attention(
+        jq, jk, jv, block_q=16, block_k=8, interpret=True, **kw))
+    np.testing.assert_allclose(got, want_ref, **TOL)
+    np.testing.assert_allclose(got, want_kernel, **TOL)
+
+
 # ------------------------------------------------------------ paged attention
 def _scenario(seed, S, W, H, KV, hd, ps, T, n_real, positions, n_valid,
               tables=None):
@@ -185,6 +211,25 @@ def test_paged_shared_page_read_only():
                                  [2, 2], tables=tables)
     _, k_p = _compare(arrs, ints, null)
     np.testing.assert_array_equal(k_p[0], arrs["k_pages"][0])
+
+
+@pytest.mark.parametrize("G", [8, 16])
+@pytest.mark.parametrize("W,positions,n_valid", [
+    (1, [5, 17, 30, 0], [1, 1, 1, 0]),      # decode, one idle slot
+    (4, [8, 13], [4, 3]),                   # suffix windows
+])
+def test_paged_matches_jax_at_head_dim_128(G, W, positions, n_valid):
+    """The plain paged version at head_dim 128 with deepseek's 8 and
+    llama3's 16 q-heads per KV head, against the JAX reference and the
+    Pallas kernel in interpret mode."""
+    S, KV, ps, T = len(positions), 2, 8, 5
+    n_real = sum(min(T, -(-(p + W) // ps)) for p in positions)
+    arrs, ints, null = _scenario(7, S, W, KV * G, KV, 128, ps, T, n_real,
+                                 positions, n_valid)
+    o, _ = _compare(arrs, ints, null)
+    for s, n in enumerate(n_valid):
+        if n == 0:
+            assert np.all(o[s] == 0)
 
 
 @pytest.mark.parametrize("S,W,ps,T,positions,n_valid,split_len", [

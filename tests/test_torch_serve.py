@@ -202,14 +202,20 @@ def test_capacity_deferral_serves_everything(model):
 
 
 def test_unported_options_and_missing_cuda_raise(model):
-    """``fused=False`` and dense mode for the dense family still raise;
-    paged ``speculate=2`` constructs, and on the SSM config (dense mode)
-    it raises as in the reference; an SSM config constructs, in dense
-    mode, and refuses the paged cache it has no use for."""
+    """``fused=False`` still raises; dense mode for the dense family
+    constructs, and refuses speculation as in the reference; paged
+    ``speculate=2`` constructs, and on the SSM config (dense mode) it
+    raises as in the reference; an SSM config constructs, in dense mode,
+    and refuses the paged cache it has no use for; a sliding-window config
+    takes dense mode by itself."""
     _, tcfg, _, tp = model
-    for kw in (dict(paged=False), dict(fused=False)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ServeEngine(tcfg, tp, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ServeEngine(tcfg, tp, device="cpu", fused=False)
+    eng = ServeEngine(tcfg, tp, device="cpu", paged=False)
+    assert not eng.paged and eng.pool is None
+    eng.shutdown()
+    with pytest.raises(ValueError, match="speculate > 0 requires paged"):
+        ServeEngine(tcfg, tp, device="cpu", paged=False, speculate=2)
     eng = ServeEngine(tcfg, tp, device="cpu", speculate=2)
     assert eng.paged and eng.speculate == 2
     eng.shutdown()
@@ -233,5 +239,9 @@ def test_unported_options_and_missing_cuda_raise(model):
             lm.init_params(tcfg)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             greedy_generate(tcfg, tp, [[1, 2, 3]], 2, 8)
-    with pytest.raises(NotImplementedError):
-        ServeEngine(dataclasses.replace(tcfg, window=8), tp, device="cpu")
+    eng = ServeEngine(dataclasses.replace(tcfg, window=8), tp, device="cpu")
+    assert not eng.paged and eng._cache["k"].shape[2] == 8
+    eng.shutdown()
+    with pytest.raises(ValueError, match="paged KV cache unsupported"):
+        ServeEngine(dataclasses.replace(tcfg, window=8), tp, device="cpu",
+                    paged=True)
