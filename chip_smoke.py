@@ -21,7 +21,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at Sq 6144 (SDPA with the window as a boolean mask), and at head_dim
    128 over 8 KV heads with 32, 64, 96 and 128 q-heads (32 at Sq 512 and
    4096, the others at 512 and 768); paged at head_dim 128 with 8 KV
-   heads and 8, 16 or 12 q-heads each (decode and a W=16 suffix);
+   heads and 8, 16 or 12 q-heads each (decode and a W=16 suffix); and at
+   the MoE and hybrid configs' shapes (phases 18-20): rmsnorm at 8 rows
+   of 4096, 5120, 2048 and 4096 (zamba2's shared block), flash at head_dim
+   128 with 64 q-heads over 4 KV heads and 48 over 8 (Sq 512 and 768) and
+   32 over 32 (Sq 512 and 2048), paged with 16 q-heads over 4 and 6 over
+   8 (decode and a W=16 suffix), the SSD scan at (head_dim, state) =
+   (64, 64) with 64 heads at T = 512, 64 and 2048;
 3g. graph edges — a paged decode call and an SSD scan captured into a
    CUDA graph: how many of its edges kept programmatic dependent launch,
    and its replay bit-equal to the eager calls;
@@ -140,12 +146,27 @@ every pool must end with no page in use.
 17. llama3-405b and command-r-plus-104b (parallel blocks, tied 256,000
    vocab) at full width, 2 layers: 17a fp32 identity on 2 prompts × 8
    tokens; 17b a bf16 serve of 8 requests.
+18. qwen3-moe-235b-a22b at full width (64/4 heads of head_dim 128, 128
+   experts top-8 of d_ff 1536, untied 151,936 vocab), paged and fused:
+   18a fp32 identity at 2 layers on 4 cold requests × 16 tokens, guarded
+   by the near ties of ``greedy_generate``'s own steps (a no-cache forward
+   routes the whole sequence as one group: another function); 18b phase
+   5's bf16 workload at 8 layers, with MoE routing and dispatch timed as a
+   family of its own; 18c its card-bound loop, as 5b;
+19. llama4-scout-17b-16e at full width (40 q-heads padded to 48 over 8,
+   16 experts top-1 and a shared expert of d_ff 8192), as 18;
+20. zamba2-1.2b whole (38 SSM layers of d 2048, the shared attention
+   block at width 4096 before every 6th, 7 sites), dense mode with 4096
+   positions a slot: 20a fp32 identity on 4 prompts of 64-1500 tokens and
+   ``lm_forward`` against ``lm_prefill`` on 512; 20b a bf16 serve of 16
+   requests of 64-2,048 prompt tokens, 32-128 new; 20c its card-bound
+   loop.
 
 Each phase's weights are freed before the next. Each serve phase sets
 the kernels' launch counts to 0 just before it drives its path and reads
 them just after; a step graph adds its kernels' launches back on every
 replay. The kernels JSON has one entry per kernel and serving path that
-ran it (phase 5 ``paper_demo``, 8 ``mamba2_370m``, 15b-17b): that path's
+ran it (phase 5 ``paper_demo``, 8 ``mamba2_370m``, 15b-20b): that path's
 launches beside the phase 3 case at its shape (a decode step's rows for
 rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
 danube's 6144 rows for its windowed flash); each kernel's row is its
@@ -497,7 +518,8 @@ def busy_ms(fn, runs: int = 5, by_name: bool = False):
 
 
 def ssd_inputs(gen, dev, B, T, dtype, H=32, P=64, G=1, N=128):
-    """mamba2-370m's SSD shapes with inputs distributed like the model's:
+    """mamba2-370m's SSD shapes (zamba2-1.2b's with H=64, N=64) with
+    inputs distributed like the model's:
     dt ~ softplus(N(-3, 0.5)), A = -linspace(1, 16) (the init's A_log),
     |y| below 4 so one bf16 rounding step stays within the tolerance; D
     differs per head, so a kernel reading another head's D disagrees."""
@@ -515,9 +537,9 @@ def ssd_inputs(gen, dev, B, T, dtype, H=32, P=64, G=1, N=128):
     return x, dt, A, Bm, Cm, D
 
 
-def check_ssd(dtype, B, T, gen, dev):
+def check_ssd(dtype, B, T, gen, dev, H=32, N=128):
     from repro_torch.kernels import ssd_scan as K
-    args = ssd_inputs(gen, dev, B, T, dtype)
+    args = ssd_inputs(gen, dev, B, T, dtype, H=H, N=N)
     x, dt, _, Bm, _, _ = args
     H, P, N, Q = x.shape[2], x.shape[3], Bm.shape[3], K.CHUNK
     y, final = K.ssd_scan(*args, return_state=True)
@@ -541,12 +563,17 @@ def check_ssd(dtype, B, T, gen, dev):
                 shape=f"B={B} T={T} H={H} P={P} G=1 N={N} (y, final state)")
 
 
-# each dense config of phases 15-17: (d_model, padded q-heads over its 8
-# KV heads), all at head_dim 128 but danube's 120
-FAMILY_SHAPES = {"h2o_danube3_4b": (3840, 32),
-                 "deepseek_coder_33b": (7168, 64),
-                 "llama3_405b": (16384, 128),
-                 "command_r_plus_104b": (12288, 96)}
+# each attention config of phases 15-19: (d_model, padded q-heads, KV
+# heads, head_dim); zamba2 (20) has cases of its own
+FAMILY_SHAPES = {"h2o_danube3_4b": (3840, 32, 8, 120),
+                 "deepseek_coder_33b": (7168, 64, 8, 128),
+                 "llama3_405b": (16384, 128, 8, 128),
+                 "command_r_plus_104b": (12288, 96, 8, 128),
+                 "qwen3_moe_235b_a22b": (4096, 64, 4, 128),
+                 "llama4_scout_17b_16e": (5120, 48, 8, 128)}
+# zamba2-1.2b (20): its 38 SSM layers' width, the shared block's width and
+# heads, and the SSD scan's heads, head_dim and state
+ZAMBA_SHAPES = dict(d=2048, w=4096, H=32, KV=32, hd=128, ssd=(64, 64, 64))
 
 
 def phase_kernels(dev, label):
@@ -558,12 +585,18 @@ def phase_kernels(dev, label):
         f"(matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}), "
         f"times on {label}")
     from repro_torch.configs import get_config
+    from repro_torch.serve.kv_cache import paged_supported
     for path, shape in FAMILY_SHAPES.items():
         cfg = get_config(path)
-        hd = 120 if shape[1] == 32 else 128
         if (cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads,
-                cfg.resolved_head_dim) != shape + (8, hd):
+                cfg.resolved_head_dim) != shape:
             raise AssertionError(f"FAMILY_SHAPES[{path}] is not {cfg.name}'s")
+    z, zcfg = ZAMBA_SHAPES, get_config("zamba2_1p2b")
+    if (zcfg.d_model, 2 * zcfg.d_model, zcfg.padded_heads,
+            zcfg.padded_kv_heads, zcfg.resolved_head_dim,
+            (zcfg.ssm_heads, zcfg.ssm.head_dim, zcfg.ssm.state_dim)) != (
+            z["d"], z["w"], z["H"], z["KV"], z["hd"], z["ssd"]):
+        raise AssertionError("ZAMBA_SHAPES is not zamba2-1.2b's")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     summary = {}
@@ -599,20 +632,37 @@ def phase_kernels(dev, label):
                                                   H=32, KV=8, D=128)),
             ("flash_attention", "h2o_danube3_4b", check_flash(
                 dtype, gen, dev, S=6144, H=32, KV=8, D=120, window=4096))]
-        for path, (width, H) in FAMILY_SHAPES.items():
-            G = H // 8
+        for path, (width, H, KV, hd) in FAMILY_SHAPES.items():
             cases += [("rmsnorm", path, check_rmsnorm(dtype, 8, width, gen,
                                                       dev))]
-            if H == 32:          # danube: dense mode, its flash case above
-                continue
+            if not paged_supported(get_config(path)):
+                continue         # danube: dense mode, its flash case above
             # flash at a serve's prompts (512; 768 with a shared prefix),
             # paged at a decode step and a 16-row suffix window
             cases += [("flash_attention", path if S == 512 else None,
-                       check_flash(dtype, gen, dev, S=S, H=H, KV=8, D=128))
+                       check_flash(dtype, gen, dev, S=S, H=H, KV=KV, D=hd))
                       for S in (512, 768)]
             cases += [("paged_attention", path if kind == "decode" else None,
-                       check_paged(kind, dtype, gen, dev, KV=8, G=G, hd=128))
+                       check_paged(kind, dtype, gen, dev, KV=KV, G=H // KV,
+                                   hd=hd))
                       for kind in ("decode", "suffix")]
+        # zamba2 (20): rmsnorm at a decode step's 8 rows of the SSM layers'
+        # width and of the shared block's; flash at 32/32 heads (G 1) over
+        # a prompt of 512 and 2048; the SSD scan at (64, 64), 64 heads
+        zp = "zamba2_1p2b"
+        H, P, N = z["ssd"]
+        cases += [
+            ("rmsnorm", zp, check_rmsnorm(dtype, 8, z["d"], gen, dev)),
+            ("rmsnorm", None, check_rmsnorm(dtype, 8, z["w"], gen, dev)),
+            ("flash_attention", zp, check_flash(dtype, gen, dev, S=512,
+                                                H=z["H"], KV=z["KV"],
+                                                D=z["hd"])),
+            ("flash_attention", None, check_flash(dtype, gen, dev, S=2048,
+                                                  H=z["H"], KV=z["KV"],
+                                                  D=z["hd"]))]
+        cases += [("ssd_scan", zp if T == 512 else None,
+                   check_ssd(dtype, 1, T, gen, dev, H=H, N=N))
+                  for T in (512, 64, 2048)]
         for name, path, r in cases:
             tol = TOL[dtype]
             ok = r.get("err_y", r["err"]) <= tol \
@@ -1201,7 +1251,7 @@ def phase_mamba_serve(dev, label):
     params = lm.init_params(cfg, seed=0, device=dev)
     work = mamba_workload(cfg, np.random.default_rng(5))
 
-    def eager_timings(eng):
+    def eager_timings(eng, _card_ms):
         prompt = torch.as_tensor(np.resize(work[1][0], 512)[None],
                                  dtype=torch.int32, device=dev)
         slot0 = {name: t[:, :1] for name, t in eng._cache.items()}
@@ -2072,10 +2122,34 @@ def identity_prompts(cfg, rng, lengths, prefix_len=64, shared=()):
             for i, n in enumerate(lengths)]
 
 
+def greedy_margins(cfg, params, prompt, n, max_len, dev):
+    """The port's greedy decoding as ``greedy_generate`` runs it (prefill,
+    then one dense decode step a token), with each step's top-2 logit
+    margin: returns (tokens, the count before the first near tie). An MoE
+    needs its guard from these steps: a no-cache forward routes the whole
+    sequence as one group, another function (ROADMAP C.8)."""
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    logits, cache = make_prefill_step(cfg, max_len)(params, {
+        "tokens": torch.as_tensor(np.asarray(prompt)[None], dtype=torch.int32,
+                                  device=dev)})
+    decode = make_decode_step(cfg)
+    toks, near = [], n
+    for i in range(n):
+        top2 = torch.topk(logits[0, -1].float(), 2)
+        if near == n and float(top2.values[0] - top2.values[1]) < 1e-3:
+            near = i
+        toks.append(int(top2.indices[0]))
+        if i + 1 < n:
+            logits, cache = decode(params, cache, torch.tensor(
+                [[toks[-1]]], dtype=torch.int32, device=dev), len(prompt) + i)
+    return toks, near
+
+
 def family_identity(tag, cfg, params, dev, prompts, n, make_engine,
-                    oracle_len):
+                    oracle_len, step_guard=False):
     """fp32: the engine's tokens against the port's ``greedy_generate``
-    (dense decode, eager) up to the first near tie; every decode (or
+    (dense decode, eager) up to the first near tie (by ``greedy_margins``
+    with ``step_guard``, else by the no-cache forward); every decode (or
     verify) step one graph replay, every page back in the pool."""
     from repro_torch.serve import Request, greedy_generate
     eng = make_engine(cfg, params, dev)
@@ -2090,10 +2164,44 @@ def family_identity(tag, cfg, params, dev, prompts, n, make_engine,
     eng.shutdown()
     wants = [greedy_generate(cfg, params, p[None], n, oracle_len,
                              device=dev)[0].tolist() for p in prompts]
-    checked = check_identity(tag, cfg, params, prompts, reqs, wants)
+    if step_guard:
+        checked = 0
+        for p, r, want in zip(prompts, reqs, wants):
+            toks, near = greedy_margins(cfg, params, p, n, oracle_len, dev)
+            if toks[:near] != want[:near] or r.tokens[:near] != want[:near]:
+                raise AssertionError(f"{tag}: engine {r.tokens} != greedy "
+                                     f"{want} (its steps: {toks}) within "
+                                     f"{near} tokens")
+            checked += near
+    else:
+        checked = check_identity(tag, cfg, params, prompts, reqs, wants)
     if replays != m["steps"] or m.get("pages_in_use", 0) != 0:
         raise AssertionError(f"{tag}: {dict(m)}, {replays} graph replays")
     return checked, m
+
+
+def tensors_of(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors_of(v)
+    else:
+        yield tree
+
+
+def step_bytes(eng) -> int:
+    """The least bytes a decode step moves: every weight read once (of an
+    untied embedding table only the slots' rows, left out), and in dense
+    mode the whole per-slot cache, which the step reads whatever the
+    positions."""
+    emb = eng.params["embed"]["tokens"]
+    n = sum(t.numel() * t.element_size() for t in tensors_of(eng.params))
+    if not eng.cfg.tied_embeddings:
+        n -= emb.numel() * emb.element_size()
+    if not eng.paged:
+        n += sum(t.numel() * t.element_size()
+                 for t in tensors_of(eng._cache))
+    return n
 
 
 def family_serve(tag, cfg, params, dev, work, make_engine, label,
@@ -2102,12 +2210,13 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     the kernels' counts set to 0 just before and read just after: tokens/s,
     TTFT, the host's and the card's ms per decode step, peak memory.
     Every request must finish its budget, the pool drain, and each kernel
-    launch as often as the steps say it must. ``extra(eng)`` runs on the
-    idle engine before it shuts down (a phase's own timings). Returns
+    launch as often as the steps say it must. ``extra(eng, card_ms)``
+    runs on the idle engine before it shuts down (a phase's own timings;
+    ``card_ms`` is the card's time of one decode step's replay). Returns
     (launches, host ms per step, the run's counts: steps, prefills,
     suffix_steps, prefix_hits)."""
     from repro_torch.core import TensorOp
-    from repro_torch.models.common import SSM
+    from repro_torch.models.common import HYBRID, SSM
     from repro_torch.serve import Request, RequestState
     if not sync_detector_works(dev):
         raise AssertionError("torch.cuda sync debug mode does not flag a "
@@ -2147,18 +2256,27 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
                  f"ms, card {t['eager_ms']:.3f} ms by events")
     else:
         S = eng.max_batch
-        if cfg.family != SSM:
-            # every slot past danube's window: each reads its whole ring
-            eng._meta[:S].copy_(torch.arange(S, device=dev) * 100 + 4096)
+        if eng._dense_kv:
+            # the dense decode reads a slot's whole cache whatever its
+            # position: every slot past danube's window (its whole ring
+            # valid), or zamba2's near the end of its cache
+            L = eng._cache["k"].shape[2]
+            i = torch.arange(S, device=dev) * 100
+            eng._meta[:S].copy_(i + 4096 if cfg.window else L - 1 - i)
         card_ms = median_ms(eng._decode_graph, runs=20)
         replay_enq = enqueue_ms(eng._decode_graph)
         busy, split, names = busy_ms(eng._dense_step, by_name=True)
         eager = ""
     L = cfg.n_layers
-    ssm = cfg.family == SSM
-    norms = (1 if cfg.parallel_block or ssm else 2) * L + 1
-    heads = "" if ssm else (f", {cfg.padded_heads}/{cfg.padded_kv_heads} "
-                            f"heads of hd {cfg.resolved_head_dim}")
+    ssm = cfg.family in (SSM, HYBRID)      # an SSD scan a layer a prefill
+    # norms a step or prefill, and the flash layers of a prefill: a hybrid
+    # runs its shared block (two norms, one attention) at each site
+    sites = cfg.hybrid_sites if cfg.family == HYBRID else 0
+    norms = (1 if cfg.parallel_block or ssm else 2) * L + 2 * sites + 1
+    attn_layers = sites if ssm else L
+    heads = "" if cfg.family == SSM else (
+        f", {cfg.padded_heads}/{cfg.padded_kv_heads} heads of hd "
+        f"{cfg.resolved_head_dim}" + (f" at {sites} sites" if sites else ""))
     log(f"phase {tag}: bf16 serve of {cfg.name} ({L} layers, d "
         f"{cfg.d_model}{heads}) on {label}: "
         f"{'paged + fused' if eng.paged else 'dense mode'}, {len(reqs)} "
@@ -2169,11 +2287,14 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
         f"{d['slot_steps'] / max(steps, 1):.2f} slots/step, {prefills} "
         f"prefills ({d['suffix_steps']} suffix), prefix_hits "
         f"{d['prefix_hits']}; PENDING_AT_FIRST_POLL {pending}")
+    n_bytes = step_bytes(eng)
     log(f"  decode step: host {host_ms:.3f} ms (engine dispatch: uploads, "
         f"graph replay, bookkeeping; mean over the run; graph replay alone "
         f"{replay_enq:.3f} ms), card {card_ms:.3f} ms (events around one "
-        f"graph replay, median of 20, {eng.max_batch} slots){eager}; "
-        f"{peak_note(start)}")
+        f"graph replay, median of 20, {eng.max_batch} slots){eager}; bytes "
+        f"bound {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (weights"
+        + ("" if eng.paged else " and the dense cache")
+        + f" read once: {n_bytes / 1e9:.2f} GB); {peak_note(start)}")
     log(f"  card busy of one eager decode step {busy:.3f} ms (kernel sum, "
         "torch.profiler), by kernel family: " + ", ".join(
             f"{fam} {share:.1%}" for fam, share in split.items()))
@@ -2181,7 +2302,7 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
         log(f"    {share:6.1%} in {n:g} launches a step: {name[:100]}")
     log(f"  {cfg.name} path kernels: {json.dumps(launches)}")
     if extra:
-        extra(eng)
+        extra(eng, card_ms)
     eng.shutdown()
     if not all(r.req_state is RequestState.FINISHED for r in reqs) or any(
             len(r.tokens) != k for r, (_, k) in zip(reqs, work)) \
@@ -2195,7 +2316,7 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
                              f"{steps} steps")
     cold = prefills - d["suffix_steps"]
     want = {"rmsnorm": norms * (prefills + steps),
-            "flash_attention": 0 if ssm else L * cold,
+            "flash_attention": attn_layers * cold,
             "paged_attention": L * (steps + d["suffix_steps"])
             if eng.paged else 0,
             "ssd_scan": L * prefills if ssm else 0}
@@ -2360,6 +2481,147 @@ def phase_wide(dev, label):
     return out
 
 
+# ------------------------------------- the MoE and hybrid families (18-20)
+MOE_LAYERS = 8         # qwen3-moe (94 layers) and llama4-scout (48), bf16
+MOE_IDENT_LAYERS = 2   # the same in fp32 (twice the bytes a layer)
+ZAMBA_CACHE = 4096     # max_cache_len of phase 20: prompts to 2,048 + 128
+
+
+def moe_dispatch_share(cfg, dev):
+    """``extra`` of 18b/19b: MoE routing, dispatch and combine in one
+    decode step, as a family of their own: each stage of layer 0's block
+    at the step's shape (8 slots, one token each, capacity 1) timed by
+    events (median of 20, a sleep ahead), times the layers, against the
+    step's card time."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp
+
+    def extra(eng, card_ms):
+        m, L, S = cfg.moe, cfg.n_layers, eng.max_batch
+        lp = eng._layers[0]["moe"]
+        x = torch.randn((S, 1, cfg.d_model), device=dev).to(cfg.dtype)
+        expert_in, how = moe._dispatch(lp, x, cfg)
+        out = moe._experts_apply(lp, expert_in, cfg)
+        t = {"routing and dispatch": median_ms(
+                 lambda: moe._dispatch(lp, x, cfg), runs=20),
+             "expert products": median_ms(
+                 lambda: moe._experts_apply(lp, expert_in, cfg), runs=20),
+             "combine": median_ms(lambda: moe._combine(out, how, cfg),
+                                  runs=20),
+             "shared expert": median_ms(lambda: mlp(lp["shared"], x),
+                                        runs=20) if m.shared_d_ff else 0.0}
+        block = median_ms(lambda: moe.moe_block(lp, x, cfg), runs=20)
+        own = t["routing and dispatch"] + t["combine"]
+        log(f"  MoE block of one layer at the step's shape, by events: "
+            f"{block:.3f} ms; x {L} layers against the step's card "
+            f"{card_ms:.3f} ms: " + ", ".join(
+                f"{name} {ms * L:.3f} ms ({ms * L / card_ms:.1%})"
+                for name, ms in t.items())
+            + f"; MoE routing, dispatch and combine as one family "
+            f"{own * L:.3f} ms = {own * L / card_ms:.1%} of the step")
+    return extra
+
+
+def phase_moe(tag, name, dev, label):
+    """18 (qwen3-moe-235b-a22b: 64/4 heads, 128 experts top-8) and 19
+    (llama4-scout-17b-16e: 40 q-heads padded to 48 over 8, 16 experts
+    top-1 and a shared expert) at full width, paged and fused: fp32
+    identity on 4 cold requests at 2 layers, phase 5's bf16 workload at 8,
+    and the card-bound loop."""
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    start = peak_start()
+    cfg = family_config(name, torch.float32, MOE_IDENT_LAYERS)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(int(tag))
+    prompts = identity_prompts(cfg, rng, (64, 137, 71, 136))
+    checked, m = family_identity(f"{tag}a fp32 identity", cfg, params, dev,
+                                 prompts, 16, ident_engine, 256,
+                                 step_guard=True)
+    mo = cfg.moe
+    log(f"phase {tag}a: fp32 {name} identity OK ({MOE_IDENT_LAYERS} layers, "
+        f"d {cfg.d_model}, {cfg.padded_heads}/{cfg.padded_kv_heads} heads, "
+        f"{mo.n_experts} experts top-{mo.top_k}"
+        + (f" + a shared expert" if mo.shared_d_ff else "")
+        + f"): paged + fused, 4 cold requests, {checked}/64 tokens equal to "
+        f"greedy_generate (guarded by its own steps' margins); "
+        f"{peak_note(start)}")
+    if m["prefix_hits"]:
+        raise AssertionError(f"{tag}a: a cold request hit the prefix cache")
+    del params
+    free_card()
+    cfg = family_config(name, torch.bfloat16, MOE_LAYERS)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    launches, host_ms, d = family_serve(
+        f"{tag}b", cfg, params, dev, serve_workload(cfg, rng), serve_engine,
+        label, extra=moe_dispatch_share(cfg, dev))
+    if d["prefix_hits"] < 1:
+        raise AssertionError(f"{tag}b: the shared prefix never hit")
+    phase_card_bound(cfg, params, dev, host_ms, label, phase=f"{tag}c")
+    del params
+    free_card()
+    log(f"phase {tag}: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def zamba_engine(cfg, params, dev, max_batch=8):
+    """Dense mode (a hybrid has no paged cache): the SSM state and 7 sites'
+    KV of ``ZAMBA_CACHE`` positions a slot."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, device=dev, max_batch=max_batch,
+                      max_cache_len=ZAMBA_CACHE, max_inflight=2)
+    if eng.paged or tuple(eng._cache["k"].shape[:3]) != (
+            cfg.hybrid_sites, max_batch, ZAMBA_CACHE):
+        raise AssertionError("zamba2 must be served in dense mode with a "
+                             "KV cache a site")
+    return eng
+
+
+def phase_zamba(dev, label):
+    """20: zamba2-1.2b whole (38 SSM layers, the shared block at 7 sites),
+    dense mode: fp32 identity and forward/prefill agreement, a bf16 serve
+    of 16 requests of 64-2,048 prompt tokens, the card-bound loop."""
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    start = peak_start()
+    cfg = family_config("zamba2_1p2b", torch.float32)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(20)
+    prompts = identity_prompts(cfg, rng, (64, 200, 777, 1500))
+    checked, _ = family_identity("20a fp32 identity", cfg, params, dev,
+                                 prompts, 16, zamba_engine, ZAMBA_CACHE)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 512)),
+                           dtype=torch.int32, device=dev)
+    full = lm.lm_forward(params, {"tokens": toks}, cfg)[:, -1]
+    last, _ = lm.lm_prefill(params, {"tokens": toks}, cfg,
+                            lm.init_cache(cfg, 1, 512, device=dev))
+    err = max_err(full, last[:, -1])
+    log(f"phase 20a: fp32 zamba2 identity OK: whole ({cfg.n_layers} SSM "
+        f"layers, the shared block at {cfg.hybrid_sites} sites, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters), engine in dense "
+        f"mode, 4 requests (prompts 64-1500), {checked}/64 tokens equal to "
+        f"greedy_generate (the rest past a near tie); lm_forward vs "
+        f"lm_prefill last-row logits on 512 tokens: max_abs_err {err:.3g} "
+        f"(tol 1e-3); {peak_note(start)}")
+    if err > 1e-3:
+        raise AssertionError("zamba2: lm_forward and lm_prefill disagree")
+    del params, full, last
+    free_card()
+    cfg = family_config("zamba2_1p2b", torch.bfloat16)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    work = [(rng.integers(0, cfg.vocab_size, int(n)),
+             int(rng.integers(32, 129)))
+            for n in rng.integers(64, 2049, 16)]
+    launches, host_ms, _ = family_serve("20b", cfg, params, dev, work,
+                                        zamba_engine, label)
+    phase_card_bound(cfg, params, dev, host_ms, label,
+                     make_engine=zamba_engine, phase="20c")
+    del params
+    free_card()
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2419,7 +2681,12 @@ def main() -> int:
     paths = {"paper_demo": launches, "mamba2_370m": mlaunches,
              "h2o_danube3_4b": phase_danube(dev, label),
              "deepseek_coder_33b": phase_deepseek(dev, label),
-             **phase_wide(dev, label)}
+             **phase_wide(dev, label),
+             "qwen3_moe_235b_a22b": phase_moe("18", "qwen3_moe_235b_a22b",
+                                              dev, label),
+             "llama4_scout_17b_16e": phase_moe("19", "llama4_scout_17b_16e",
+                                               dev, label),
+             "zamba2_1p2b": phase_zamba(dev, label)}
     # one entry per (kernel, path that ran it): that path's launches beside
     # phase 3's case at its shape; a kernel's row is its first path's
     # entry, every path's entry under "paths"

@@ -12,11 +12,14 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 ARCHITECTURES = ["paper_demo", "mamba2_370m", "h2o_danube3_4b",
-                 "deepseek_coder_33b", "llama3_405b", "command_r_plus_104b"]
+                 "deepseek_coder_33b", "llama3_405b", "command_r_plus_104b",
+                 "qwen3_moe_235b_a22b", "llama4_scout_17b_16e",
+                 "zamba2_1p2b"]
 
 # ``canonical`` maps '-' to '_' first: a key here is a name in that form
-# whose module is spelled otherwise (danube's own ``cfg.name``)
-_ALIASES = {"h2o_danube_3_4b": "h2o_danube3_4b"}
+# whose module is spelled otherwise (danube's and llama4's own ``cfg.name``)
+_ALIASES = {"h2o_danube_3_4b": "h2o_danube3_4b",
+            "llama4_scout_17b_a16e": "llama4_scout_17b_16e"}
 
 
 def canonical(name: str) -> str:

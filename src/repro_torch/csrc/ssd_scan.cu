@@ -185,7 +185,8 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
 
 // ------------------------------------------------------ 1. chunk states
 // S_c[p][n] for the block's 16 p: an M = 16 (p), N = N (n), K = 64 (j)
-// product; warp w owns columns 32w .. 32w + 31. A = (diag(w) x)^T as hi +
+// product; warp w owns the N / 4 columns from w N / 4 (32 at N = 128, 16
+// at N = 64), in n8 tiles taken two at a time. A = (diag(w) x)^T as hi +
 // lo fragments built in registers, B = the chunk's B rows via
 // ldmatrix.trans.
 template <int P, int N>
@@ -196,7 +197,9 @@ __global__ void __launch_bounds__(kThreads)
                         const bf16* __restrict__ Bm,
                         float* __restrict__ states, float* __restrict__ decay,
                         int T_, int H, int G, int nC) {
-  static_assert(N == 4 * 32, "four warps of 32 state columns");
+  static_assert(N % 64 == 0, "four warps of 16-column multiples");
+  constexpr int kWN = N / 4;      // state columns a warp owns
+  constexpr int kNT = kWN / 8;    // its n8 tiles
   __shared__ __align__(128) bf16 Bs[kQ * N];
   __shared__ __align__(16) bf16 Xs[kQ * kXLd];
   __shared__ float cum[kQ], dts[kQ], wts[kQ];
@@ -220,7 +223,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   constexpr int kMT = kPS / 16;   // 16-row tiles of p
-  float acc[kMT][4][4] = {};
+  float acc[kMT][kNT][4] = {};
 #pragma unroll
   for (int kk = 0; kk < kQ / 16; ++kk) {
     uint32_t ahi[kMT][4], alo[kMT][4];
@@ -235,11 +238,11 @@ __global__ void __launch_bounds__(kThreads)
                    ahi[mt][q], alo[mt][q]);
       }
 #pragma unroll
-    for (int np = 0; np < 2; ++np) {
+    for (int np = 0; np < kNT / 2; ++np) {
       uint32_t bf[4];
       ldsm_x4_trans(bf, smem_u32(&Bs[swz<N>(
                             kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                            warp * 4 + np * 2 + (lane >> 4))]));
+                            warp * kNT + np * 2 + (lane >> 4))]));
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
         mma_bf16(acc[mt][2 * np], ahi[mt], bf[0], bf[1]);
@@ -254,16 +257,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
       for (int half = 0; half < 2; ++half)
         *reinterpret_cast<float2*>(out + (mt * 16 + g + 8 * half) * N
-                                   + warp * 32 + n * 8 + 2 * t4) =
+                                   + warp * kWN + n * 8 + 2 * t4) =
             make_float2(acc[mt][n][2 * half], acc[mt][n][2 * half + 1]);
 }
 
 // fp32: thread (warp w, lane) owns p = 4w .. 4w + 3 of the slice and
-// n = lane + 32 q.
+// n = lane + 32 q, q < N / 32.
 template <int P, int N>
 __global__ void __launch_bounds__(kThreads)
     ssd_chunk_state_fma(const float* __restrict__ x,
@@ -272,8 +275,9 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ Bm,
                         float* __restrict__ states, float* __restrict__ decay,
                         int T_, int H, int G, int nC) {
-  static_assert(N == 4 * 32 && kPS == 4 * (kThreads / 32),
-                "4 x 4 outputs a thread");
+  static_assert(N % 32 == 0 && kPS == 4 * (kThreads / 32),
+                "4 x N / 32 outputs a thread");
+  constexpr int kNQ = N / 32;
   __shared__ __align__(16) float Bs[kQ * N];
   __shared__ __align__(16) float Xs[kQ * kPS];
   __shared__ float cum[kQ], dts[kQ], wts[kQ];
@@ -292,26 +296,26 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0 && at.ps == 0) decay[at.bc * H + at.h] = expf(total);
   }
   __syncthreads();
-  float acc[4][4] = {};
+  float acc[4][kNQ] = {};
 #pragma unroll 4
   for (int j = 0; j < kQ; ++j) {
     const float w = wts[j];
-    float xv[4], bv[4];
+    float xv[4], bv[kNQ];
 #pragma unroll
     for (int r = 0; r < 4; ++r) xv[r] = Xs[j * kPS + 4 * warp + r] * w;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) bv[q] = Bs[j * N + lane + 32 * q];
+    for (int q = 0; q < kNQ; ++q) bv[q] = Bs[j * N + lane + 32 * q];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(xv[r], bv[q], acc[r][q]);
+      for (int q = 0; q < kNQ; ++q) acc[r][q] = fmaf(xv[r], bv[q], acc[r][q]);
   }
   float* out = states + (static_cast<size_t>(at.bc) * H + at.h) * P * N
                + static_cast<size_t>(at.ps) * kPS * N;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < kNQ; ++q)
       out[(4 * warp + r) * N + lane + 32 * q] = acc[r][q];
 }
 
@@ -663,11 +667,14 @@ int dispatch(const void* x, const float* dt, const float* A, const void* Bm,
              const void* Cm, const float* D, void* y, float* final_state,
              float* scratch, int B, int T_, int H, int G, int P, int N,
              cudaStream_t s) {
-  // mamba2-370m's (head_dim, state_dim); add an instantiation when a
-  // ported config needs one
+  // the ported configs' (head_dim, state_dim): mamba2-370m's, zamba2-1.2b's;
+  // add an instantiation when another config needs one
   if (P == 64 && N == 128)
     return launch<T, 64, 128>(x, dt, A, Bm, Cm, D, y, final_state, scratch,
                               B, T_, H, G, s);
+  if (P == 64 && N == 64)
+    return launch<T, 64, 64>(x, dt, A, Bm, Cm, D, y, final_state, scratch,
+                             B, T_, H, G, s);
   return kBadArgument;
 }
 
@@ -678,7 +685,7 @@ int dispatch(const void* x, const float* dt, const float* A, const void* Bm,
 // (B, T, G, N) of x's dtype; final_state: (B, H, P, N) fp32 or null;
 // scratch: fp32 of B * nC * H * (P * N + 1) floats, nC = ceil(T / 64),
 // its contents on entry unused. All contiguous and 16-byte aligned;
-// H % G == 0; (P, N) == (64, 128).
+// H % G == 0; (P, N) is (64, 128) or (64, 64).
 extern "C" int repro_ssd_scan(int dtype, const void* x, const void* dt,
                               const void* A, const void* Bm, const void* Cm,
                               const void* D, void* y, void* final_state,

@@ -27,8 +27,9 @@ from repro_torch.kernels import _build
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
-#: the kernel's instantiations: (head_dim P, state_dim N) and chunk
-SHAPES = ((64, 128),)
+#: the kernel's instantiations: (head_dim P, state_dim N) of mamba2-370m
+#: and zamba2-1.2b, and chunk
+SHAPES = ((64, 128), (64, 64))
 CHUNK = 64
 #: how the bf16 kernel rounds the operands it computes in fp32 before its
 #: tensor-core products (see ``_ssd_chunk_parallel_plain``)

@@ -164,6 +164,15 @@ class ModelConfig:
         return self.family == SSM
 
     @property
+    def hybrid_sites(self) -> int:
+        """Shared-block sites of a hybrid stack: the block runs before
+        layers 0, every, 2·every, ..., so ceil(L / every) times, each with
+        its own output projector. The reference makes (and counts) L //
+        every projectors and clamps the last site's index onto the one
+        before it when every does not divide L (ROADMAP C.7)."""
+        return max(1, -(-self.n_layers // self.hybrid_attn_every))
+
+    @property
     def ssm_inner(self) -> int:
         assert self.ssm is not None
         return self.ssm.expand * self.d_model
@@ -201,9 +210,11 @@ class ModelConfig:
                    + s.conv_width * (di + 2 * s.n_groups * s.state_dim)
                    + 2 * self.ssm_heads + di + di * d)
             w = 2 * d   # shared block width
+            # one projector per site (``hybrid_sites``); the reference
+            # counts L // every
             shared = (attn_params(w, self.n_heads, self.n_kv_heads)
                       + mlp_params(w, self.d_ff) + 2 * w
-                      + (self.n_layers // self.hybrid_attn_every) * (w * d))
+                      + self.hybrid_sites * (w * d))
             return emb + self.n_layers * (per + d) + shared
         if self.family == AUDIO:
             per_enc = attn_params(d, self.n_heads, self.n_kv_heads) \

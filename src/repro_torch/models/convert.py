@@ -3,7 +3,10 @@
 ``params_from_numpy(tree, cfg, device)`` takes the reference's parameter
 pytree with every leaf already a numpy array (``jax.tree_util.tree_map(
 np.asarray, params)``) and returns the port's parameter dict with the same
-nesting and the same layouts, on ``device``.
+nesting and the same layouts, on ``device``. The one change is a hybrid's
+shared-block projectors: the reference makes ``n_layers // every`` of them
+and its last site reuses the last one (JAX clamps the index; ROADMAP
+C.7), the port one per site, so the last is repeated to the site count.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.common import SSM, ModelConfig
+from repro_torch.models.common import HYBRID, MOE, SSM, ModelConfig
 from repro_torch.util import resolve_device
 
 
@@ -31,9 +34,12 @@ def tensor_from_numpy(a: Any, device: Any = "cuda") -> torch.Tensor:
 def params_from_numpy(tree: Any, cfg: ModelConfig,
                       device: Any = "cuda") -> Any:
     """The reference pytree (nested dicts of numpy leaves) as torch
-    tensors on ``device``; nesting and layouts are unchanged. Raises when
-    the tree does not have ``cfg``'s embedding, layer count or block form
-    (a parallel block has no ``norm2``)."""
+    tensors on ``device``; nesting and layouts are unchanged, but for a
+    hybrid's projectors (the module's docstring). Raises when the tree
+    does not have ``cfg``'s embedding, layer count, block form (a parallel
+    block has no ``norm2``, an MoE block ``cfg.moe.n_experts`` experts in
+    place of the MLP) or, for a hybrid, the reference's or the port's
+    projector count."""
     dev = resolve_device(device)
 
     def convert(node: Any) -> Any:
@@ -46,14 +52,32 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
     if emb != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"embedding {emb} does not fit {cfg.name}: "
                          f"expected {(cfg.padded_vocab, cfg.d_model)}")
+    layers = out["layers"]
+    ssm_stack = cfg.family in (SSM, HYBRID)
     # a stacked leaf every layer of the family has
-    probe = out["layers"]["ssm"]["wx"] if cfg.family == SSM \
-        else out["layers"]["attn"]["wq"]
+    probe = layers["ssm"]["wx"] if ssm_stack else layers["attn"]["wq"]
     if probe.shape[0] != cfg.n_layers:
         raise ValueError(f"{probe.shape[0]} stacked layers, {cfg.name} has "
                          f"{cfg.n_layers}")
-    if cfg.family != SSM and ("norm2" in out["layers"]) == cfg.parallel_block:
+    if not ssm_stack and ("norm2" in layers) == cfg.parallel_block:
         has = "has" if cfg.parallel_block else "lacks"
         raise ValueError(f"{cfg.name} has parallel_block="
                          f"{cfg.parallel_block}, but the tree {has} norm2")
+    if not ssm_stack and ("moe" in layers) != (cfg.family == MOE):
+        raise ValueError(f"{cfg.name} is family {cfg.family!r}, but the "
+                         f"tree's layers hold {sorted(layers)}")
+    if cfg.family == MOE and layers["moe"]["wi"].shape[1] \
+            != cfg.moe.n_experts:
+        raise ValueError(f"{layers['moe']['wi'].shape[1]} experts, "
+                         f"{cfg.name} has {cfg.moe.n_experts}")
+    if cfg.family == HYBRID:
+        proj = out["shared"]["proj"]
+        n_ref = max(1, cfg.n_layers // cfg.hybrid_attn_every)
+        if proj.shape[0] not in (n_ref, cfg.hybrid_sites):
+            raise ValueError(
+                f"{proj.shape[0]} shared-block projectors: {cfg.name} has "
+                f"{cfg.hybrid_sites} sites (the reference makes {n_ref})")
+        extra = cfg.hybrid_sites - proj.shape[0]
+        out["shared"]["proj"] = torch.cat(
+            [proj, proj[-1:].expand((extra,) + tuple(proj.shape[1:]))])
     return out

@@ -17,6 +17,25 @@ from repro_torch.kernels import rmsnorm as rms_kernel
 from repro_torch.models.common import ModelConfig
 
 
+# ---------------------------------------------------------------------- init
+#: elements drawn at once by ``init_normal`` (1 GiB of fp32)
+_INIT_CHUNK = 1 << 28
+
+
+def init_normal(gen: torch.Generator, shape, scale: float, dtype,
+                device) -> torch.Tensor:
+    """``normal * scale`` of ``shape`` in ``dtype``, drawn from ``gen`` in
+    fp32 a chunk at a time: a stack of expert weights in bf16 (13 GB for
+    8 layers of qwen3-moe's ``wi``) never has its fp32 draw whole on the
+    card."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for s in range(0, flat.numel(), _INIT_CHUNK):
+        n = min(_INIT_CHUNK, flat.numel() - s)
+        flat[s:s + n] = torch.randn(n, generator=gen, device=device) * scale
+    return out
+
+
 # --------------------------------------------------------------------- norm
 def rmsnorm(params: Dict[str, Any], x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:

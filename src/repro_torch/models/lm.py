@@ -1,28 +1,35 @@
-"""Decoder-only language models of the dense and SSM families: init,
-forward, prefill, decode and (dense) fused paged decode.
+"""Decoder-only language models of the dense, MoE, SSM and hybrid
+families: init, forward, prefill, decode and (dense and MoE) fused paged
+decode.
 
 Counterpart of ``repro/models/lm.py`` for those families. Parameters are
 a plain dict with the reference's layout: per-layer leaves stacked on a
 leading L axis (``params["layers"]["attn"]["wq"]`` is ``(L, d, H, hd)``,
 ``params["layers"]["ssm"]["wx"]`` ``(L, d, inner)``), so
 ``models.convert.params_from_numpy`` carries the reference's weights over
-unchanged. The reference's ``lax.scan`` over layers is a Python loop over
-per-layer views here. KV caches, SSM states and the page pool are updated
-in place. Parallel blocks (command-r: attention and MLP share one
-pre-norm, no ``norm2``) follow the reference's ``_block_*``. MoE, hybrid
-and VLM raise ``NotImplementedError``.
+unchanged (for a hybrid it adds the projector the reference lacks, C.7).
+The reference's ``lax.scan`` over layers is a Python loop over per-layer
+views here. KV caches, SSM states and the page pool are updated in place.
+Parallel blocks (command-r: attention and MLP share one pre-norm, no
+``norm2``) follow the reference's ``_block_*``; an MoE block
+(``models.moe``) takes the MLP's place. The hybrid (zamba2) runs a shared
+attention block over ``concat(x, x0)`` at width ``2·d_model`` before every
+``hybrid_attn_every``-th SSM layer, each site through its own output
+projector (``_apply_hybrid``). Audio enc-dec and VLM raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import DENSE, SSM, ModelConfig
-from repro_torch.models.layers import (embed_tokens, lm_logits, mlp,
-                                       rmsnorm, rope_tables)
+from repro_torch.models.common import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.models.layers import (embed_tokens, init_normal, lm_logits,
+                                       mlp, rmsnorm, rope_tables)
 from repro_torch.util import resolve_device
 
 Params = Dict[str, Any]
@@ -30,87 +37,97 @@ Params = Dict[str, Any]
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet (families other than dense and SSM, MoE, frontends)."""
-    if cfg.family not in (DENSE, SSM) or cfg.moe is not None \
-            or cfg.frontend_dim:
+    run yet (audio enc-dec, VLM, frontends)."""
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID) or cfg.frontend_dim:
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported; see ROADMAP")
 
 
 # ============================================================ initialization
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype,
-            device) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=device) * scale
-            ).to(dtype)
+def _init_attention(cfg: ModelConfig, gen: torch.Generator, dev, width: int,
+                    lead: Tuple[int, ...] = ()) -> Params:
+    """q/k/v/o weights at ``width`` (the reference's ``init_attention``),
+    stacked on ``lead``; padded head slots carry zero q/o (and k/v)
+    weights, so the function is exactly the unpadded architecture."""
+    Hp, KVp, hd = cfg.padded_heads, cfg.padded_kv_heads, \
+        cfg.resolved_head_dim
+    pd = cfg.param_dtype
+    wq = init_normal(gen, lead + (width, Hp, hd), width ** -0.5, pd, dev)
+    wk = init_normal(gen, lead + (width, KVp, hd), width ** -0.5, pd, dev)
+    wv = init_normal(gen, lead + (width, KVp, hd), width ** -0.5, pd, dev)
+    wo = init_normal(gen, lead + (Hp, hd, width), (Hp * hd) ** -0.5, pd, dev)
+    if Hp != cfg.n_heads or KVp != cfg.n_kv_heads:
+        mask = torch.as_tensor(attn_mod.head_mask(cfg), device=dev).to(pd)
+        wq = wq * mask[:, None]
+        wo = wo * mask[:, None, None]
+    if KVp != cfg.n_kv_heads:
+        wk[..., cfg.n_kv_heads:, :] = 0
+        wv[..., cfg.n_kv_heads:, :] = 0
+    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+
+
+def _init_mlp(cfg: ModelConfig, gen: torch.Generator, dev, width: int,
+              d_ff: int, lead: Tuple[int, ...] = ()) -> Params:
+    def draw(shape, scale):
+        return init_normal(gen, lead + shape, scale, cfg.param_dtype, dev)
+    return {"wi": draw((width, d_ff), width ** -0.5),
+            "wg": draw((width, d_ff), width ** -0.5),
+            "wo": draw((d_ff, width), d_ff ** -0.5)}
+
+
+def _ones(dev, *shape) -> Params:
+    """An rmsnorm's fp32 scale of ones."""
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=dev)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Any = "cuda") -> Params:
     """Random weights from ``seed`` with the reference's shapes and scales
     (normal * fan_in^-1/2, ``wo`` of attention at (H*hd)^-1/2, embedding
-    at 0.02, norm scales 1 in fp32). Draws come from a ``torch.Generator``
-    on ``device``, so they are not the reference's numbers; tests carry
-    the reference's weights over with ``convert.params_from_numpy``."""
+    at 0.02, norm scales 1 in fp32; MoE as ``moe.init_moe``). A hybrid's
+    shared block gets one projector per site (``cfg.hybrid_sites``), where
+    the reference makes one fewer when ``hybrid_attn_every`` does not
+    divide ``n_layers`` (C.7). Draws come from a ``torch.Generator`` on
+    ``device``, so they are not the reference's numbers; tests carry the
+    reference's weights over with ``convert.params_from_numpy``."""
     require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    if cfg.family == SSM:
-        return _init_ssm_params(cfg, gen, dev)
-    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
-    Hp, KVp, hd = cfg.padded_heads, cfg.padded_kv_heads, \
-        cfg.resolved_head_dim
-    pd = cfg.param_dtype
-    wq = _normal(gen, (L, d, Hp, hd), d ** -0.5, pd, dev)
-    wk = _normal(gen, (L, d, KVp, hd), d ** -0.5, pd, dev)
-    wv = _normal(gen, (L, d, KVp, hd), d ** -0.5, pd, dev)
-    wo = _normal(gen, (L, Hp, hd, d), (Hp * hd) ** -0.5, pd, dev)
-    if Hp != cfg.n_heads or KVp != cfg.n_kv_heads:
-        # zero q/o weights of padded head slots: the function is exactly
-        # the unpadded architecture
-        mask = torch.as_tensor(attn_mod.head_mask(cfg), device=dev)
-        wq = wq * mask[None, None, :, None].to(pd)
-        wo = wo * mask[None, :, None, None].to(pd)
-    if KVp != cfg.n_kv_heads:
-        wk[:, :, cfg.n_kv_heads:] = 0
-        wv[:, :, cfg.n_kv_heads:] = 0
-    ones = torch.ones((L, d), dtype=torch.float32, device=dev)
-    embed = {"tokens": _normal(gen, (cfg.padded_vocab, d), 0.02, pd, dev)}
+    L, d = cfg.n_layers, cfg.d_model
+    embed = {"tokens": init_normal(gen, (cfg.padded_vocab, d), 0.02,
+                                   cfg.param_dtype, dev)}
     if not cfg.tied_embeddings:
-        embed["head"] = _normal(gen, (d, cfg.padded_vocab), d ** -0.5, pd,
-                                dev)
-    layers = {
-        "norm1": {"scale": ones},
-        "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": wo},
-        "mlp": {"wi": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
-                "wg": _normal(gen, (L, d, ff), d ** -0.5, pd, dev),
-                "wo": _normal(gen, (L, ff, d), ff ** -0.5, pd, dev)},
-    }
-    if not cfg.parallel_block:
-        layers["norm2"] = {"scale": ones.clone()}
-    return {
-        "embed": embed,
-        "layers": layers,
-        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
-                                           device=dev)},
-    }
-
-
-def _init_ssm_params(cfg: ModelConfig, gen: torch.Generator,
-                     dev: torch.device) -> Params:
-    d = cfg.d_model
-    return {
-        "embed": {"tokens": _normal(gen, (cfg.padded_vocab, d), 0.02,
-                                    cfg.param_dtype, dev)},
-        "layers": {
-            "norm": {"scale": torch.ones((cfg.n_layers, d),
-                                         dtype=torch.float32, device=dev)},
-            "ssm": ssm_mod.init_ssm(gen, cfg, cfg.n_layers, dev),
-        },
-        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
-                                           device=dev)},
-    }
+        embed["head"] = init_normal(gen, (d, cfg.padded_vocab), d ** -0.5,
+                                    cfg.param_dtype, dev)
+    params = {"embed": embed, "final_norm": _ones(dev, d)}
+    if cfg.family in (SSM, HYBRID):
+        params["layers"] = {"norm": _ones(dev, L, d),
+                            "ssm": ssm_mod.init_ssm(gen, cfg, L, dev)}
+    else:
+        layers = {"norm1": _ones(dev, L, d),
+                  "attn": _init_attention(cfg, gen, dev, d, (L,))}
+        if cfg.family == MOE:
+            layers["moe"] = moe_mod.init_moe(gen, cfg, L, dev)
+        else:
+            layers["mlp"] = _init_mlp(cfg, gen, dev, d, cfg.d_ff, (L,))
+        if not cfg.parallel_block:
+            layers["norm2"] = _ones(dev, L, d)
+        params["layers"] = layers
+    if cfg.family == HYBRID:
+        w = 2 * d
+        params["shared"] = {
+            "norm1": _ones(dev, w),
+            "attn": _init_attention(cfg, gen, dev, w),
+            "norm2": _ones(dev, w),
+            "mlp": _init_mlp(cfg, gen, dev, w, cfg.d_ff),
+            # per-site output projectors 2d → d, at the reference's scale
+            # (its ``_init_dense`` takes the first dimension as fan_in)
+            "proj": init_normal(gen, (cfg.hybrid_sites, w, d),
+                                cfg.hybrid_sites ** -0.5, cfg.param_dtype,
+                                dev)}
+    return params
 
 
 def layer_views(params: Params) -> List[Dict[str, Any]]:
@@ -129,15 +146,19 @@ def layer_views(params: Params) -> List[Dict[str, Any]]:
 def _mlp_residual(lp, x, h, a, cfg: ModelConfig):
     """The block's second half after attention output ``a`` of pre-norm
     ``h``: a parallel block (command-r) feeds the MLP the same ``h``;
-    otherwise the MLP reads ``norm2`` of the attention residual."""
+    otherwise the MLP, or the MoE block, reads ``norm2`` of the attention
+    residual."""
     if cfg.parallel_block:
         return x + a + mlp(lp["mlp"], h)
     x = x + a
-    return x + mlp(lp["mlp"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    if cfg.family == MOE:
+        return x + moe_mod.moe_block(lp["moe"], h2, cfg)
+    return x + mlp(lp["mlp"], h2)
 
 
 def _block_train(lp, x, cfg: ModelConfig, rope):
-    if cfg.family == SSM:
+    if cfg.family in (SSM, HYBRID):
         return x + ssm_mod.ssm_block(lp["ssm"], rmsnorm(
             lp["norm"], x, cfg.norm_eps), cfg)
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
@@ -185,10 +206,43 @@ def _block_ssm_decode(lp, x, cache, cfg: ModelConfig):
     return x + y
 
 
-def _layer_cache(cache: Dict[str, torch.Tensor], i: int
+#: the leaves of a hybrid cache stacked over layers, and over sites
+_SSM_LEAVES = ("ssm", "conv_x", "conv_B", "conv_C")
+_KV_LEAVES = ("k", "v")
+
+
+def _layer_cache(cache: Dict[str, torch.Tensor], i: int,
+                 names: Optional[Tuple[str, ...]] = None
                  ) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s views of a layer-stacked cache (KV or SSM state)."""
-    return {name: t[i] for name, t in cache.items()}
+    """Index ``i``'s views of a stacked cache (KV or SSM state), of the
+    leaves ``names`` (default: all): a hybrid's layer ``i`` reads
+    ``_SSM_LEAVES``, its site ``i`` ``_KV_LEAVES``."""
+    return {name: cache[name][i] for name in (names or cache)}
+
+
+def _apply_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                  views: List[Dict[str, Any]], attend: Callable,
+                  ssm_layer: Callable) -> torch.Tensor:
+    """zamba2's stack (the reference's ``_apply_hybrid``): before every
+    ``hybrid_attn_every``-th SSM layer, the shared transformer block over
+    ``concat(x, x0)`` at width 2·d, added to ``x`` through the site's own
+    projector. ``attend(attn_params, h, site)`` is the mode's attention
+    (returning its output), ``ssm_layer(lp, x, i)`` the mode's SSM
+    layer."""
+    sh = params["shared"]
+    x0 = x
+    site = 0
+    for i, lp in enumerate(views):
+        if i % cfg.hybrid_attn_every == 0:
+            w_in = torch.cat([x, x0], dim=-1)
+            h = rmsnorm(sh["norm1"], w_in, cfg.norm_eps)
+            w_mid = w_in + attend(sh["attn"], h, site)
+            w_out = w_mid + mlp(sh["mlp"], rmsnorm(sh["norm2"], w_mid,
+                                                   cfg.norm_eps))
+            x = x + w_out @ sh["proj"][site].to(cfg.dtype)
+            site += 1
+        x = ssm_layer(lp, x, i)
+    return x
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
@@ -206,8 +260,15 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
-    for lp in layer_views(params):
-        x = _block_train(lp, x, cfg, rope)
+    if cfg.family == HYBRID:
+        x = _apply_hybrid(
+            params, x, cfg, layer_views(params),
+            lambda ap, h, site: attn_mod.attention_block(ap, h, cfg,
+                                                         rope=rope),
+            lambda lp, x, i: _block_train(lp, x, cfg, rope))
+    else:
+        for lp in layer_views(params):
+            x = _block_train(lp, x, cfg, rope)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg)
 
@@ -217,12 +278,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Layer-stacked dense KV cache ``(L, batch, max_len, KV, hd)``, or for
     the SSM family the constant-size state ``{"ssm": (L, batch, H, P, N)
     fp32, "conv_x"/"conv_B"/"conv_C": (L, batch, W-1, C)}`` (``max_len``
-    unused)."""
+    unused). A hybrid's is both in one flat dict: the SSM leaves stacked
+    over its layers, ``"k"``/``"v"`` ``(sites, batch, max_len, KV, hd)``
+    over its shared-block sites (the reference keeps per-layer and
+    per-site lists); every leaf has the batch on axis 1."""
     require_ported(cfg)
     device = resolve_device(device)
-    if cfg.family == SSM:
-        return ssm_mod.init_ssm_state(cfg, batch, n_layers=cfg.n_layers,
-                                      device=device)
+    if cfg.family in (SSM, HYBRID):
+        cache = ssm_mod.init_ssm_state(cfg, batch, n_layers=cfg.n_layers,
+                                       device=device)
+        if cfg.family == HYBRID:
+            cache.update(attn_mod.init_kv_cache(
+                cfg, batch, max_len, n_layers=cfg.hybrid_sites,
+                device=device))
+        return cache
     return attn_mod.init_kv_cache(cfg, batch, max_len,
                                   n_layers=cfg.n_layers, device=device)
 
@@ -236,10 +305,18 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
-    for i, lp in enumerate(layer_views(params)):
-        if cfg.family == SSM:
+    if cfg.family == HYBRID:
+        x = _apply_hybrid(
+            params, x, cfg, layer_views(params),
+            lambda ap, h, site: attn_mod.prefill_attention(
+                ap, h, cfg, _layer_cache(cache, site, _KV_LEAVES), rope)[0],
+            lambda lp, x, i: _block_ssm_prefill(
+                lp, x, _layer_cache(cache, i, _SSM_LEAVES), cfg))
+    elif cfg.family == SSM:
+        for i, lp in enumerate(layer_views(params)):
             x = _block_ssm_prefill(lp, x, _layer_cache(cache, i), cfg)
-        else:
+    else:
+        for i, lp in enumerate(layer_views(params)):
             x, _ = _block_prefill(lp, x, _layer_cache(cache, i), cfg, rope)
     x = rmsnorm(params["final_norm"], x[:, -1:, :].contiguous(),
                 cfg.norm_eps)
@@ -254,7 +331,8 @@ def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
     dense cache, written in place; ``pos`` is an int for every row or a
     ``(B,)`` tensor of per-row positions (dense-mode serve slots), never
     read back on the host. The SSM family decodes one token (B, 1) per row
-    from its state and reads no position. ``layers`` may pass
+    from its state and reads no position; a hybrid decodes one token per
+    row, its shared-block sites at ``pos``. ``layers`` may pass
     ``layer_views(params)`` computed once by a caller that steps many
     times."""
     require_ported(cfg)
@@ -269,8 +347,18 @@ def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
     attn_mod.check_decode_span(cfg, cache["k"].shape[2], pos, S1)
     pos = attn_mod.row_positions(pos, B, x.device)
     rope = _rope(cfg, pos[:, None] + torch.arange(S1, device=x.device))
-    for i, lp in enumerate(views):
-        x, _ = _block_decode(lp, x, _layer_cache(cache, i), pos, cfg, rope)
+    if cfg.family == HYBRID:
+        x = _apply_hybrid(
+            params, x, cfg, views,
+            lambda ap, h, site: attn_mod.decode_attention(
+                ap, h, cfg, _layer_cache(cache, site, _KV_LEAVES), pos,
+                rope)[0],
+            lambda lp, x, i: _block_ssm_decode(
+                lp, x, _layer_cache(cache, i, _SSM_LEAVES), cfg))
+    else:
+        for i, lp in enumerate(views):
+            x, _ = _block_decode(lp, x, _layer_cache(cache, i), pos, cfg,
+                                 rope)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg), cache
 
@@ -291,7 +379,7 @@ def lm_paged_decode(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     that steps many times. Returns ``(logits (S, W, vocab), pool)``.
     """
     require_ported(cfg)
-    if cfg.family == SSM:
+    if cfg.family in (SSM, HYBRID):
         raise NotImplementedError("paged decode requires KV attention")
     x = embed_tokens(params["embed"], tokens, cfg)
     W = tokens.shape[1]

@@ -1,0 +1,170 @@
+"""Mixture-of-Experts block: router, capacity-based dispatch, per-expert
+SwiGLU, combine, and the optional shared expert.
+
+Counterpart of ``repro/models/moe.py``, with both of its dispatch modes
+over one ``(expert, capacity)`` buffer:
+
+* ``"einsum"`` — GShard one-hot dispatch and combine products (what the
+  configurations use);
+* ``"scatter"`` — the same buffer built by indexing, no dispatch products.
+
+A routing group is one of the input's leading ``B`` rows, as in the
+reference: the capacity is ``expert_capacity(cfg, S)`` and assignments past
+it are dropped in (s, k) order. So the same tokens routed in other groups
+(a whole prompt, one decode token, a padded suffix window) may drop other
+assignments (ROADMAP C.8).
+
+The reference computes the block with einsums outside any Pallas kernel;
+here they are batched matmuls. Nothing reads back to the host or allocates
+by data: the one-hots are comparisons with an ``arange`` and the positions
+an exclusive cumsum, so the block runs inside a captured decode graph.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import init_normal, mlp
+
+Params = Dict[str, Any]
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+             device: Any) -> Params:
+    """Layer-stacked MoE weights ``(n_layers, ...)`` with the reference's
+    leaves, dtypes and scales: its ``_init_dense`` draws normal * fan_in^-1/2
+    with fan_in the first dimension, which for the expert stacks ``wi``/
+    ``wg`` ``(E, d, d_ff)`` is the expert count; ``wo`` ``(E, d_ff, d)`` at
+    d_ff^-1/2; the router ``(d, E)`` in fp32."""
+    m = cfg.moe
+    d, E, pd = cfg.d_model, m.n_experts, cfg.param_dtype
+
+    def dense(shape, dtype=pd, scale=None):
+        scale = shape[0] ** -0.5 if scale is None else scale
+        return init_normal(gen, (n_layers,) + shape, scale, dtype, device)
+
+    p = {"router": dense((d, E), torch.float32),
+         "wi": dense((E, d, m.d_ff)), "wg": dense((E, d, m.d_ff)),
+         "wo": dense((E, m.d_ff, d), scale=m.d_ff ** -0.5)}
+    if m.shared_d_ff:
+        f = m.shared_d_ff
+        p["shared"] = {"wi": dense((d, f)), "wg": dense((d, f)),
+                       "wo": dense((f, d))}
+    return p
+
+
+def expert_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    m = cfg.moe
+    cap = int(tokens_per_group * m.top_k / m.n_experts * m.capacity_factor)
+    cap = max(cap, 1)
+    return cap + (-cap) % 4 if cap > 4 else cap
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``idx (...)`` → ``(..., n)``; an index outside ``[0, n)`` gives a
+    zero row (as ``jax.nn.one_hot``), and nothing is checked on the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _route(params: Params, x: torch.Tensor, cfg: ModelConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Router in ``router_dtype``: softmax, top-k, gates renormalised.
+    ``x (B, S, d)`` → gates ``(B, S, k)`` and expert indices ``(B, S, k)``.
+    Which of a token's k indices comes first does not change any
+    position in an expert (a token's k experts differ)."""
+    m = cfg.moe
+    logits = x.to(m.router_dtype) @ params["router"].to(m.router_dtype)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, m.top_k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+    return gate, idx
+
+
+def _positions_in_expert(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """``idx (B, S, k)`` → the position of each assignment within its
+    expert, counted in (s, k) order per group: an exclusive cumsum."""
+    B, S, k = idx.shape
+    flat = idx.reshape(B, S * k)
+    onehot = _one_hot(flat, n_experts, torch.int32)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    return torch.gather(pos, 2, flat[..., None]).reshape(B, S, k)
+
+
+def _experts_apply(params: Params, expert_in: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """``expert_in (E, B, C, d)`` → ``(E, B, C, d)`` through each expert's
+    SwiGLU: one batched matmul over the experts per weight."""
+    E, B, C, d = expert_in.shape
+    xe = expert_in.reshape(E, B * C, d)
+    h = torch.bmm(xe, params["wi"].to(cfg.dtype))
+    g = torch.bmm(xe, params["wg"].to(cfg.dtype))
+    out = torch.bmm(F.silu(g) * h, params["wo"].to(cfg.dtype))
+    return out.view(E, B, C, d)
+
+
+def _dispatch(params: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, Any]:
+    """Route ``x (B, S, d)`` and fill the buffer: the experts' inputs
+    ``(E, B, C, d)`` and what ``_combine`` needs to bring their outputs
+    back (the einsum mode's combine weights ``(B, S, E·C)``, the scatter
+    mode's buffer slots and gates)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.n_experts, m.top_k
+    gate, idx = _route(params, x, cfg)
+    C = expert_capacity(cfg, S)
+    pos = _positions_in_expert(idx, E)                   # (B, S, k)
+    keep = pos < C
+    gate = (gate * keep).to(cfg.dtype)
+    if m.dispatch == "einsum":
+        # per token: its (E, k) expert one-hot times its (k, C) slot
+        # one-hot (zero rows past the capacity) → dispatch (E, C); combine
+        # carries the gates
+        oe = _one_hot(idx, E, cfg.dtype).reshape(B * S, k, E) \
+            .transpose(1, 2)
+        oc = _one_hot(pos, C, cfg.dtype).reshape(B * S, k, C)
+        dispatch = torch.bmm(oe, oc).view(B, S, E * C)
+        combine = torch.bmm(oe * gate.reshape(B * S, 1, k), oc) \
+            .view(B, S, E * C)
+        expert_in = torch.bmm(dispatch.transpose(1, 2), x)   # (B, E·C, d)
+        return expert_in.view(B, E, C, d).transpose(0, 1), combine
+    if m.dispatch == "scatter":
+        # the same buffer by indexing; dropped assignments go to a trash
+        # row past the buffer
+        slot = torch.where(keep, idx * C + pos,
+                           torch.full_like(idx, E * C))
+        flat_slot = slot.reshape(B, S * k, 1).expand(B, S * k, d)
+        buf = x.new_zeros((B, E * C + 1, d))
+        buf.scatter_(1, flat_slot, x.repeat_interleave(k, dim=1))
+        return buf[:, :-1].reshape(B, E, C, d).transpose(0, 1), \
+            (flat_slot, gate)
+    raise ValueError(f"unknown MoE dispatch {m.dispatch!r}")
+
+
+def _combine(out: torch.Tensor, how: Any, cfg: ModelConfig) -> torch.Tensor:
+    """The experts' outputs ``(E, B, C, d)`` back to ``(B, S, d)``, each
+    token's kept assignments weighted by their gates."""
+    E, B, C, d = out.shape
+    flat = out.transpose(0, 1).reshape(B, E * C, d)
+    if cfg.moe.dispatch == "einsum":
+        return torch.bmm(how, flat)
+    flat_slot, gate = how
+    S, k = gate.shape[1:]
+    picked = torch.gather(torch.cat([flat, flat.new_zeros((B, 1, d))], 1),
+                          1, flat_slot)                      # (B, S·k, d)
+    return (gate.view(B, S, 1, k) @ picked.view(B, S, k, d))[:, :, 0]
+
+
+def moe_block(params: Params, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """``x (B, S, d)`` → ``(B, S, d)``; each of the B rows is one routing
+    group of S tokens: dispatch, the experts, combine, plus the shared
+    expert where there is one."""
+    expert_in, how = _dispatch(params, x, cfg)
+    y = _combine(_experts_apply(params, expert_in, cfg), how, cfg)
+    if cfg.moe.shared_d_ff:
+        y = y + mlp(params["shared"], x)
+    return y

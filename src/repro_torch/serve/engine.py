@@ -2,14 +2,16 @@
 
 Counterpart of ``repro/serve/engine.py`` in its two memory modes:
 
-* *paged* (default where ``paged_supported``: the dense family) — fused
-  paged steps over a shared ``PagePool`` behind per-slot page tables;
+* *paged* (default where ``paged_supported``: the dense and MoE
+  families) — fused paged steps over a shared ``PagePool`` behind per-slot
+  page tables;
 * *dense* (``paged=False``, and automatically where paged caching is not
-  supported: the SSM family and sliding-window configs) — a layer-stacked
-  per-slot cache with the slots as its batch: the SSM state of constant
-  size (mamba2), or a KV cache of ``max_cache_len`` positions per slot, a
-  ring of ``window`` slots for a sliding-window config whose
-  ``max_cache_len`` reaches the window (h2o-danube3). Each slot decodes at
+  supported: the SSM and hybrid families and sliding-window configs) — a
+  layer-stacked per-slot cache with the slots as its batch: the SSM state
+  of constant size (mamba2), a KV cache of ``max_cache_len`` positions per
+  slot, a ring of ``window`` slots for a sliding-window config whose
+  ``max_cache_len`` reaches the window (h2o-danube3), or a hybrid's SSM
+  state beside its shared-block sites' KV (zamba2). Each slot decodes at
   its own position, read from a static device buffer.
 
 The decode loop keeps a fixed set of *slots*, each holding one in-flight
@@ -70,7 +72,7 @@ import torch
 from repro_torch.core import (ContinueFlags, Engine, Promise, Scheduler,
                               TensorOp)
 from repro_torch.models import lm
-from repro_torch.models.common import SSM, ModelConfig
+from repro_torch.models.common import ModelConfig
 from repro_torch.obs import events as _obs_events
 from repro_torch.obs import tracer as _obs
 from repro_torch.serve.batcher import Batcher
@@ -195,6 +197,8 @@ class ServeEngine:
         self._cache: Optional[dict] = None
         # dense mode: the most tokens (prompt + new) a request may hold
         self._dense_bound: Optional[int] = None
+        # dense mode with a KV cache (dense, hybrid): reads positions
+        self._dense_kv = False
         self._decode_graph: Optional[StepGraph] = None
         self._verify_graph: Optional[StepGraph] = None
         if self.paged:
@@ -238,7 +242,8 @@ class ServeEngine:
             # whole sliding window (a ring that never runs out)
             self._cache = lm.init_cache(cfg, S, self.max_cache_len,
                                         device=self.device)
-            if cfg.family != SSM:
+            self._dense_kv = "k" in self._cache
+            if self._dense_kv:
                 cache_len = self._cache["k"].shape[2]
                 if not (cfg.window and cache_len >= cfg.window):
                     self._dense_bound = cache_len
@@ -341,10 +346,9 @@ class ServeEngine:
 
     def _dense_step(self) -> torch.Tensor:
         """The dense-mode decode of every slot, each at its position in
-        the static buffer (the SSM decode reads none); the next tokens
-        become the next inputs in place."""
-        positions = None if self.cfg.family == SSM \
-            else self._meta[:self.max_batch]
+        the static buffer (a cache without KV, the SSM family's, reads
+        none); the next tokens become the next inputs in place."""
+        positions = self._meta[:self.max_batch] if self._dense_kv else None
         nxt, _ = self._decode_fn(self.params, self._cache, self._tokens,
                                  positions)
         self._tokens.copy_(nxt[..., None])
@@ -605,7 +609,7 @@ class ServeEngine:
             meta[[S + i for i, _ in live]] = 1
             self._upload(meta, out=self._meta[:2 * S])
             self._refresh_tables()
-        elif self.cfg.family != SSM:
+        elif self._dense_kv:
             self._upload(self._pos, out=self._meta[:S])
         # dense mode: every slot steps, as under the reference's vmap; an
         # idle slot's rows are garbage until a prefill overwrites them

@@ -238,6 +238,64 @@ def test_ssd_scan_kernel(cuda, dtype, B, T, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", [
+    (1, 64),          # one chunk
+    (1, 509),         # a prime length: masked tail chunk
+    (1, 2048),        # zamba2's longest prompt in chip_smoke
+    (3, 100),         # several sequences, a tail of 36 rows
+])
+def test_ssd_scan_kernel_at_zamba2_shape(cuda, dtype, B, T):
+    """zamba2-1.2b's (head_dim, state) = (64, 64) over its 64 SSD heads:
+    each warp of a chunk-state block owns 16 state columns."""
+    args = _ssd_inputs(cuda, B, T, 64, 64, 1, 64, dtype)
+    n0 = ssd.LAUNCHES
+    y, final = ssd.ssd_scan(*args, return_state=True)
+    assert ssd.LAUNCHES == n0 + 1
+    y_ref, final_ref = ssd.ssd_scan_plain(*args, return_state=True)
+    assert final.shape == (B, 64, 64, 64)
+    assert float((y.float() - y_ref.float()).abs().max()) <= TOL[dtype]
+    assert float((final - final_ref).abs().max()) <= STATE_TOL
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_block_captures_in_a_graph_without_host_reads(cuda, dispatch):
+    """The MoE block reads nothing back and allocates nothing by data: it
+    runs under sync debug mode "error" and in a CUDA graph, whose replay
+    equals the eager block."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    # qwen3-moe's routing (128 experts, top-8) at a small width
+    cfg = get_config("qwen3_moe_235b_a22b", reduced=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        get_config("qwen3_moe_235b_a22b").moe, d_ff=128, dispatch=dispatch))
+    params = {k: v[0] for k, v in moe.init_moe(cuda, cfg, 1, "cuda").items()}
+    # a prompt of 768 tokens (one group), then 8 slots' 5-row windows
+    prompt = _randn(cuda, (1, 768, cfg.d_model), cfg.dtype)
+    x = _randn(cuda, (8, 5, cfg.d_model), cfg.dtype)
+    want = [moe.moe_block(params, t, cfg) for t in (prompt, x)]  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [moe.moe_block(params, t, cfg) for t in (prompt, x)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    want = want[1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_block(params, x, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.moe_block(params, x, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_scratch_reuse(cuda, dtype):
     """The wrapper's scratch comes from the caching allocator, holding
     what earlier calls (of other lengths) or other tensors left there:

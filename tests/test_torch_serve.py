@@ -230,7 +230,7 @@ def test_unported_options_and_missing_cuda_raise(model):
     with pytest.raises(ValueError, match="paged KV cache unsupported"):
         ServeEngine(scfg, sp, device="cpu", paged=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServeEngine(dataclasses.replace(tcfg, family="moe"), tp,
+        ServeEngine(dataclasses.replace(tcfg, family="audio"), tp,
                     device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

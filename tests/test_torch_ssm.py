@@ -220,7 +220,7 @@ def test_paged_decode_and_dense_batched_decode_of_other_families_raise(
                            torch.ones(1, dtype=torch.int32), page_size=4)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         make_batched_decode_step(dataclasses.replace(
-            get_config("paper_demo", reduced=True), family="moe"))
+            get_config("paper_demo", reduced=True), family="audio"))
 
 
 # ------------------------------------------------------------------- serve
