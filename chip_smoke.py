@@ -27,7 +27,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    128 with 64 q-heads over 4 KV heads and 48 over 8 (Sq 512 and 768) and
    32 over 32 (Sq 512 and 2048), paged with 16 q-heads over 4 and 6 over
    8 (decode and a W=16 suffix), the SSD scan at (head_dim, state) =
-   (64, 64) with 64 heads at T = 512, 64 and 2048;
+   (64, 64) with 64 heads at T = 512, 64 and 2048; and at the enc-dec's
+   and the VLM's (phases 21-22): rmsnorm at 8 and 12,000 rows of 1280
+   and 8 of 6144, flash non-causal at head_dim 64 over 32/32 heads with
+   Sq = Sk = 1500 (whisper's encoder) and with one row a clip against
+   1500 keys at B = 8 (its cross-attention at a decode step), flash
+   causal at head_dim 128 over 48/8 heads at Sq 1536 (internvl2's
+   prefill of 1024 patches and 512 tokens);
 3g. graph edges — a paged decode call and an SSD scan captured into a
    CUDA graph: how many of its edges kept programmatic dependent launch,
    and its replay bit-equal to the eager calls;
@@ -161,15 +167,38 @@ every pool must end with no page in use.
    ``lm_forward`` against ``lm_prefill`` on 512; 20b a bf16 serve of 16
    requests of 64-2,048 prompt tokens, 32-128 new; 20c its card-bound
    loop.
+21. whisper-large-v3 whole (32 encoder and 32 decoder layers, d 1280, 20
+   heads padded to 32, tied 51,866 vocabulary), audio embeddings from a
+   seed at its 1500 frames, ``max_cache_len`` 448, through the AUDIO step
+   factories: 21a fp32, 2 clips x 32 greedy tokens, each step's logits
+   within 2e-3 of the teacher-forced forward and the tokens equal up to
+   its first near tie; 21b bf16, 8 clips x 64 new tokens: the prefill's
+   ms by events (the time to the first token), the decode step captured
+   as a ``StepGraph`` and replayed (its tokens equal the eager loop's),
+   host and card ms a step against its bytes bound, tokens/s, peak
+   memory, the launches exact; 21c 16 replays posted by continuations
+   (one ``TensorOp`` a replay, whose continuation takes the tokens and
+   posts the next) behind a 50 ms sleep each, under sync debug mode
+   "error": >= 90% pending at their first poll, the tokens the eager
+   loop's;
+22. internvl2-26b (48/8 heads of head_dim 128, d 6144, 1024 patches of
+   3200 prepended): 22a fp32 at 4 layers, prompts of 64 and 300 tokens
+   with patches x 16 greedy tokens, logits within 1e-3 of ``lm_forward``
+   and tokens equal up to its first near tie; 22b bf16 whole (39.8 GB),
+   4 requests of 1024 patches and 512 tokens, 32 new: the prefill's ms,
+   the dense decode step's card ms as a replay against its bound, peak
+   memory, the launches exact; 22c ``ServeEngine`` refuses both configs
+   at construction.
 
 Each phase's weights are freed before the next. Each serve phase sets
 the kernels' launch counts to 0 just before it drives its path and reads
 them just after; a step graph adds its kernels' launches back on every
 replay. The kernels JSON has one entry per kernel and serving path that
-ran it (phase 5 ``paper_demo``, 8 ``mamba2_370m``, 15b-20b): that path's
+ran it (phase 5 ``paper_demo``, 8 ``mamba2_370m``, 15b-22b): that path's
 launches beside the phase 3 case at its shape (a decode step's rows for
 rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
-danube's 6144 rows for its windowed flash); each kernel's row is its
+danube's 6144 rows for its windowed flash, whisper's encoder over 1500
+frames, internvl2's 1536 prefill rows); each kernel's row is its
 first path's entry, with every path's entry under ``paths``. The
 next-to-last line is the kernels JSON, the last line the device JSON.
 """
@@ -341,18 +370,37 @@ def check_rmsnorm(dtype, rows, D, gen, dev):
                 shape=f"({rows}, {D})")
 
 
-def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0):
-    """Causal (or windowed) prefill attention at one shape, with SDPA as
-    the library yardstick (with the window as a boolean mask). Long
-    prompts take fewer timed runs."""
+def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0,
+                causal=True, Sq=None):
+    """Prefill attention at one shape: causal (or windowed) over a prompt
+    of ``S``, or non-causal with ``Sq`` query rows against ``S`` keys (an
+    encoder, a cross-attention); SDPA as the library yardstick (with the
+    window as a boolean mask). Long prompts take fewer timed runs.
+
+    A bf16 case's error is taken against the plain version run in fp32 on
+    the same (bf16-valued) inputs. The plain version in bf16 rounds the
+    normalised probabilities to bf16 before P.V, as the JAX reference
+    does, so it is itself off the fp32 result, by more than the bf16
+    tolerance where an output nears 4 (one bf16 ulp there is 2^-5): two
+    bf16 results can then differ by more than the tolerance while the
+    kernel is within it of the fp32 one. ``low`` logs the kernel against
+    the bf16 plain version, and that version against the fp32 one."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K
-    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    Sq = S if Sq is None else Sq
+    if causal and Sq != S:
+        raise ValueError("check_flash: causal cases have Sq == Sk")
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     out = K.attention(q, k, v, **kw)
     ref = K.attention_plain(q, k, v, **kw)
+    low = None
+    if dtype is not torch.float32:
+        exact = K.attention_plain(q.float(), k.float(), v.float(), **kw)
+        low = dict(err_bf16=max_err(out, ref), plain_err=max_err(ref, exact))
+        ref = exact
     err = max_err(out, ref)
     del out, ref
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -363,20 +411,25 @@ def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0):
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
     else:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     item = q.element_size()
-    # (query, key) pairs each row attends: its causal past, cut to the window
-    pairs = sum(min(r + 1, window) if window else r + 1 for r in range(S))
+    # (query, key) pairs each row attends: its causal past, cut to the
+    # window, or every key
+    pairs = sum(min(r + 1, window) if window else r + 1
+                for r in range(S)) if causal else Sq * S
     runs = 10 if S >= 4096 else TIMED_RUNS
-    return dict(err=err,
+    return dict(err=err, low=low,
                 ms=median_ms(lambda: K.attention(q, k, v, **kw), runs=runs),
                 plain_ms=median_ms(lambda: K.attention_plain(q, k, v, **kw),
                                    runs=runs),
                 library_ms=median_ms(library, runs=runs),
-                bound=bound_ms((2 * B * S * H * D + 2 * B * S * KV * D)
+                bound=bound_ms((2 * B * Sq * H * D + 2 * B * S * KV * D)
                                * item, 4 * B * H * D * pairs, dtype),
-                shape=f"B={B} Sq=Sk={S} H={H} KV={KV} D={D} causal"
-                      + (f" window={window}" if window else ""),
+                shape=(f"B={B} Sq=Sk={S}" if Sq == S else
+                       f"B={B} Sq={Sq} Sk={S}")
+                + f" H={H} KV={KV} D={D} "
+                + ("causal" if causal else "non-causal")
+                + (f" window={window}" if window else ""),
                 head_dim=D)
 
 
@@ -574,6 +627,12 @@ FAMILY_SHAPES = {"h2o_danube3_4b": (3840, 32, 8, 120),
 # zamba2-1.2b (20): its 38 SSM layers' width, the shared block's width and
 # heads, and the SSD scan's heads, head_dim and state
 ZAMBA_SHAPES = dict(d=2048, w=4096, H=32, KV=32, hd=128, ssd=(64, 64, 64))
+# whisper-large-v3 (21): d_model, padded q-heads (20 of 32 real), KV heads,
+# head_dim, encoder frames (a 30 s window, arXiv:2212.04356) and clips a
+# decode batch; internvl2-26b (22): d_model, q-heads, KV heads, head_dim,
+# a prefill's rows (1024 patches and 512 tokens) and requests a batch
+WHISPER_SHAPES = dict(d=1280, H=32, KV=32, hd=64, frames=1500, clips=8)
+VLM_SHAPES = dict(d=6144, H=48, KV=8, hd=128, rows=1536, batch=4)
 
 
 def phase_kernels(dev, label):
@@ -597,9 +656,18 @@ def phase_kernels(dev, label):
             (zcfg.ssm_heads, zcfg.ssm.head_dim, zcfg.ssm.state_dim)) != (
             z["d"], z["w"], z["H"], z["KV"], z["hd"], z["ssd"]):
         raise AssertionError("ZAMBA_SHAPES is not zamba2-1.2b's")
+    w, wcfg = WHISPER_SHAPES, get_config("whisper_large_v3")
+    if (wcfg.d_model, wcfg.padded_heads, wcfg.padded_kv_heads,
+            wcfg.resolved_head_dim) != (w["d"], w["H"], w["KV"], w["hd"]):
+        raise AssertionError("WHISPER_SHAPES is not whisper-large-v3's")
+    vl, vcfg = VLM_SHAPES, get_config("internvl2_26b")
+    if (vcfg.d_model, vcfg.padded_heads, vcfg.padded_kv_heads,
+            vcfg.resolved_head_dim, vcfg.n_patches + VLM_PROMPT) != (
+            vl["d"], vl["H"], vl["KV"], vl["hd"], vl["rows"]):
+        raise AssertionError("VLM_SHAPES is not internvl2-26b's")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    summary = {}
+    summary, bad = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         # (kernel, the serving path whose shape the case is, result): the
         # kernels JSON reports each path's case beside its launches
@@ -663,6 +731,37 @@ def phase_kernels(dev, label):
         cases += [("ssd_scan", zp if T == 512 else None,
                    check_ssd(dtype, 1, T, gen, dev, H=H, N=N))
                   for T in (512, 64, 2048)]
+        # whisper-large-v3 (21), at 21b's shapes: rmsnorm at a decode
+        # step's 8 rows and at the encoder's 8 clips x 1500 frames; flash
+        # non-causal at 32/32 heads of hd 64 with one row a clip against
+        # its frames (the cross-attention at the BOS and every step: most
+        # of the path's flash launches, so its entry), over the 8 clips'
+        # frames (the encoder) and over one clip's. internvl2-26b (22), at
+        # 22b's: rmsnorm at a decode step's 4 rows and a prefill's 4 x 1536
+        # (and at 8 rows); flash causal at 48/8 heads of hd 128 over the 4
+        # prompts of 1536 rows (and over one)
+        wp, vp = "whisper_large_v3", "internvl2_26b"
+        fw = dict(H=w["H"], KV=w["KV"], D=w["hd"], causal=False)
+        fv = dict(S=vl["rows"], H=vl["H"], KV=vl["KV"], D=vl["hd"])
+        cases += [
+            ("rmsnorm", wp, check_rmsnorm(dtype, w["clips"], w["d"], gen,
+                                          dev)),
+            ("rmsnorm", None, check_rmsnorm(dtype, w["clips"] * w["frames"],
+                                            w["d"], gen, dev)),
+            ("flash_attention", wp, check_flash(
+                dtype, gen, dev, B=w["clips"], Sq=1, S=w["frames"], **fw)),
+            ("flash_attention", None, check_flash(
+                dtype, gen, dev, B=w["clips"], S=w["frames"], **fw)),
+            ("flash_attention", None, check_flash(dtype, gen, dev,
+                                                  S=w["frames"], **fw)),
+            ("rmsnorm", vp, check_rmsnorm(dtype, vl["batch"], vl["d"], gen,
+                                          dev)),
+            ("rmsnorm", None, check_rmsnorm(dtype, vl["batch"] * vl["rows"],
+                                            vl["d"], gen, dev)),
+            ("rmsnorm", None, check_rmsnorm(dtype, 8, vl["d"], gen, dev)),
+            ("flash_attention", vp, check_flash(dtype, gen, dev,
+                                                B=vl["batch"], **fv)),
+            ("flash_attention", None, check_flash(dtype, gen, dev, **fv))]
         for name, path, r in cases:
             tol = TOL[dtype]
             ok = r.get("err_y", r["err"]) <= tol \
@@ -673,6 +772,10 @@ def phase_kernels(dev, label):
                 + (f"y {r['err_y']:.3g} (tol {tol:g}), final state "
                    f"{r['err_state']:.3g} (tol {STATE_TOL:g})"
                    if "err_y" in r else f"{r['err']:.3g} (tol {tol:g})")
+                + (f" vs the plain version in fp32 (vs it in bf16 "
+                   f"{r['low']['err_bf16']:.3g}; the bf16 plain version vs "
+                   f"the fp32 one {r['low']['plain_err']:.3g})"
+                   if r.get("low") else "")
                 + (f" pools_exact={r['pools_exact']}"
                    if "pools_exact" in r else "")
                 + f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -688,13 +791,15 @@ def phase_kernels(dev, label):
                     f"{re.search(r'ssd_\w+', n).group(0)} {t:.4f} ms"
                     for n, t in r["grids"].items()) if "grids" in r else ""))
             if not ok:
-                raise AssertionError(f"{name} {dtype} disagrees with its "
-                                     f"plain version: {r}")
+                bad.append(f"{name} {dtype} {r['shape']}: {r}")
             # the JSON line reports the bf16 run at each path's shape: a
-            # decode step's for rmsnorm and paged, a prompt's for flash and
-            # the SSD scan
+            # decode step's for rmsnorm and paged, a prompt's for flash
+            # (whisper's: a decode step's cross-attention) and the SSD scan
             if dtype is torch.bfloat16 and path:
                 summary[name, path] = r
+    if bad:
+        raise AssertionError("kernels that disagree with their plain "
+                             "versions:\n" + "\n".join(bad))
     log("kernels: " + json.dumps({
         "rmsnorm": rmsnorm.LAUNCHES, "flash_attention":
         flash_attention.LAUNCHES, "paged_attention":
@@ -2189,18 +2294,25 @@ def tensors_of(tree):
         yield tree
 
 
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors_of(tree))
+
+
+def tree_numel(tree) -> int:
+    return sum(t.numel() for t in tensors_of(tree))
+
+
 def step_bytes(eng) -> int:
     """The least bytes a decode step moves: every weight read once (of an
     untied embedding table only the slots' rows, left out), and in dense
     mode the whole per-slot cache, which the step reads whatever the
     positions."""
     emb = eng.params["embed"]["tokens"]
-    n = sum(t.numel() * t.element_size() for t in tensors_of(eng.params))
+    n = tree_bytes(eng.params)
     if not eng.cfg.tied_embeddings:
         n -= emb.numel() * emb.element_size()
     if not eng.paged:
-        n += sum(t.numel() * t.element_size()
-                 for t in tensors_of(eng._cache))
+        n += tree_bytes(eng._cache)
     return n
 
 
@@ -2295,11 +2407,7 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
         f"bound {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (weights"
         + ("" if eng.paged else " and the dense cache")
         + f" read once: {n_bytes / 1e9:.2f} GB); {peak_note(start)}")
-    log(f"  card busy of one eager decode step {busy:.3f} ms (kernel sum, "
-        "torch.profiler), by kernel family: " + ", ".join(
-            f"{fam} {share:.1%}" for fam, share in split.items()))
-    for name, (share, n) in list(names.items())[:8]:
-        log(f"    {share:6.1%} in {n:g} launches a step: {name[:100]}")
+    log_busy(busy, split, names)
     log(f"  {cfg.name} path kernels: {json.dumps(launches)}")
     if extra:
         extra(eng, card_ms)
@@ -2324,6 +2432,16 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
         raise AssertionError(f"{tag}: launches {launches}, the steps say "
                              f"{want}")
     return launches, host_ms, d
+
+
+def log_busy(busy, split, names) -> None:
+    """``busy_ms(..., by_name=True)`` of one eager decode step, printed:
+    the kernel sum, its split by family, the 8 costliest kernels."""
+    log(f"  card busy of one eager decode step {busy:.3f} ms (kernel sum, "
+        "torch.profiler), by kernel family: " + ", ".join(
+            f"{fam} {share:.1%}" for fam, share in split.items()))
+    for name, (share, n) in list(names.items())[:8]:
+        log(f"    {share:6.1%} in {n:g} launches a step: {name[:100]}")
 
 
 def long_prompt_check(cfg, params, dev, prompt, n):
@@ -2622,6 +2740,478 @@ def phase_zamba(dev, label):
     return launches
 
 
+# ------------------------------------- the enc-dec and the VLM (21-22)
+WHISPER_TOKENS = 64    # 21b's new tokens a clip (the BOS's and 63 steps')
+WHISPER_IDENT = 32     # 21a's greedy tokens a clip
+CARD_BOUND_STEPS = 16  # 21c's continuation-driven replays
+STEP_SLEEP_MS = 50.0   # the sleep ahead of each of 21c's replays
+VLM_PROMPT = 512       # 22b's tokens a request after its 1024 patches
+VLM_NEW = 32           # 22b's new tokens a request
+VLM_IDENT_LAYERS = 4   # internvl2-26b cut from 48 layers for 22a's fp32
+
+
+def events_ms(fn):
+    """``fn()``'s result and its ms by events around one call (the host's
+    enqueue and the card's work, whichever ends later)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def near_tie_free(logits, margin=1e-3) -> int:
+    """Positions of ``logits (S, V)`` before the first whose top-2 margin
+    is below ``margin``: greedy tokens past it may flip."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    near = torch.nonzero(top2[:, 0] - top2[:, 1] < margin)
+    return int(near[0, 0]) if len(near) else logits.shape[0]
+
+
+def decode_graph(step, first, pos, dev):
+    """``step(tokens, positions)`` → logits, captured as a ``StepGraph``
+    over static token (B, 1) and position (B,) buffers with the greedy
+    argmax in the graph; returns (graph, token buffer, position buffer).
+    The capture runs the step once eagerly first, at ``first``/``pos``."""
+    from repro_torch.serve.graphs import StepGraph
+    tok_buf = first.clone()
+    pos_buf = torch.full((first.shape[0],), pos, dtype=torch.int64,
+                         device=dev)
+
+    def fn():
+        logits = step(tok_buf, pos_buf)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    return StepGraph(fn, dev), tok_buf, pos_buf
+
+
+def greedy_replays(graph, tok_buf, pos_buf, first, pos, n):
+    """``n`` greedy steps from token ``first`` at position ``pos``, one
+    replay each; the next step's token and positions are set on the card
+    (no host read). Returns the (B, n) tokens the steps emitted."""
+    tok_buf.copy_(first)
+    pos_buf.fill_(pos)
+    out = []
+    for _ in range(n):
+        nxt = graph()
+        out.append(nxt.clone())
+        tok_buf.copy_(nxt)
+        pos_buf.add_(1)
+    return torch.cat(out, dim=1)
+
+
+def greedy_eager(step, first, pos, n):
+    """The same ``n`` greedy steps through the eager step function."""
+    tok, out = first, []
+    for i in range(n):
+        logits = step(tok, pos + i)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def clone_state(state):
+    """An enc-dec decode state whose self-KV is a copy (the cross-KV is
+    only read, so it is shared)."""
+    return {"cross": state["cross"],
+            "self": {n: t.clone() for n, t in state["self"].items()}}
+
+
+def continuation_loop(graph, tok_buf, pos_buf, first, pos, n, dev):
+    """21c: ``n`` replays driven by the port's continuation engine. Each
+    replay is queued behind a ``STEP_SLEEP_MS`` sleep kernel, its tokens
+    start down to a pinned host tensor, and its completion is one
+    ``TensorOp``; the op's continuation takes the tokens and posts the
+    next step. The host only polls (``Engine.tick``), under sync debug
+    mode "error". Returns (tokens (B, n) on the host, steps pending at
+    their first poll, wall s)."""
+    from repro_torch.core import ContinueFlags, Engine, TensorOp
+    engine = Engine()
+    cr = engine.continue_init()
+    flags = ContinueFlags(enqueue_complete=True)
+    cycles = int(STEP_SLEEP_MS * sleep_cycles_per_ms())
+    got = []
+
+    def post(i):
+        torch.cuda._sleep(cycles)
+        nxt = graph()
+        host = torch.empty(nxt.shape, dtype=nxt.dtype, pin_memory=True)
+        host.copy_(nxt, non_blocking=True)
+        tok_buf.copy_(nxt)
+        pos_buf.add_(1)
+        engine.continue_when(TensorOp(nxt, payload=host), on_done,
+                             (i, host), cr=cr, flags=flags)
+
+    def on_done(statuses, meta):
+        i, host = meta
+        got.append(host.numpy().copy())
+        if i + 1 < n:
+            post(i + 1)
+
+    tok_buf.copy_(first)
+    pos_buf.fill_(pos)
+    torch.cuda.synchronize()
+    TensorOp.PENDING_AT_FIRST_POLL = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    deadline = t0 + 60 + n * STEP_SLEEP_MS / 1e3
+    try:
+        post(0)
+        while len(got) < n:
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"21c: {len(got)} of {n} steps delivered")
+            engine.tick()
+            time.sleep(0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wall = time.perf_counter() - t0
+    engine.shutdown()
+    return (np.concatenate(got, axis=1), TensorOp.PENDING_AT_FIRST_POLL,
+            wall)
+
+
+def whisper_identity(dev, label):
+    """21a: fp32, whole, 2 clips x 32 greedy tokens through the two step
+    factories, each step's logits held to the teacher-forced forward."""
+    from repro_torch.models import encdec
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    start = peak_start()
+    cfg = family_config("whisper_large_v3", torch.float32)
+    params = encdec.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(21)
+    audio = torch.as_tensor(rng.standard_normal(
+        (2, WHISPER_SHAPES["frames"], cfg.frontend_dim), dtype=np.float32),
+        device=dev)
+    logits, state = make_prefill_step(cfg, cfg.max_target_len)(
+        params, {"audio_embed": audio})
+    decode = make_decode_step(cfg)
+    steps, toks = [logits[:, -1]], []
+    for i in range(1, WHISPER_IDENT):
+        toks.append(torch.argmax(steps[-1], -1).to(torch.int32)[:, None])
+        logits, state = decode(params, state, toks[-1], i)
+        steps.append(logits[:, -1])
+    toks.append(torch.argmax(steps[-1], -1).to(torch.int32)[:, None])
+    step_logits = torch.stack(steps, dim=1)                 # (2, 32, V)
+    tokens = torch.cat(toks, dim=1)
+    # the teacher-forced forward over BOS and the first 31 tokens
+    seq = torch.cat([torch.zeros_like(tokens[:, :1]), tokens[:, :-1]], 1)
+    full = encdec.encdec_logits(params, audio, seq, cfg)
+    err = max_err(step_logits, full)
+    checked = 0
+    for b in range(2):
+        near = near_tie_free(full[b])
+        if not torch.equal(torch.argmax(full[b, :near], -1).to(torch.int32),
+                           tokens[b, :near]):
+            raise AssertionError(f"21a: clip {b}: the steps' greedy tokens "
+                                 "differ from the forward's before a near "
+                                 "tie")
+        checked += near
+    log(f"phase 21a: fp32 whisper-large-v3 whole ({cfg.n_enc_layers} + "
+        f"{cfg.n_dec_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads padded to {cfg.padded_heads}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters) on {label}: 2 clips of "
+        f"{WHISPER_SHAPES['frames']} frames x {WHISPER_IDENT} greedy tokens "
+        f"(prefill step, then decode steps): logits vs the teacher-forced "
+        f"forward max_abs_err {err:.3g} (tol 2e-3); {checked}/"
+        f"{2 * WHISPER_IDENT} tokens equal to the forward's greedy (the rest "
+        f"past a near tie); {peak_note(start)}")
+    if err > 2e-3 or not torch.isfinite(step_logits[..., :cfg.vocab_size]
+                                        ).all():
+        raise AssertionError("21a: cached decoding disagrees with the "
+                             "teacher-forced forward")
+
+
+def whisper_serve(dev, label):
+    """21b and 21c: bf16, whole, 8 clips x 64 new tokens; the decode step
+    captured once and replayed, against the eager loop; then the replays
+    driven by continuations with a sleep ahead of each."""
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import layer_views
+    from repro_torch.serve import make_prefill_step
+    start = peak_start()
+    cfg = family_config("whisper_large_v3", torch.bfloat16)
+    params = encdec.init_params(cfg, seed=0, device=dev)
+    B, T = WHISPER_SHAPES["clips"], WHISPER_SHAPES["frames"]
+    rng = np.random.default_rng(22)
+    audio = torch.as_tensor(rng.standard_normal(
+        (B, T, cfg.frontend_dim), dtype=np.float32), device=dev)
+    prefill = make_prefill_step(cfg, cfg.max_target_len)
+    views = layer_views(params, "decoder")
+
+    def decode(params, state, token, pos):
+        # the model's step on layer views made once, so that the eager
+        # loop's host time does not remake them every step
+        return encdec.encdec_decode_step(params, token, cfg, state, pos,
+                                         layers=views)
+    prefill(params, {"audio_embed": audio})          # warm: cuBLAS, kernels
+    zero_counts()
+    (logits, state), prefill_ms = events_ms(
+        lambda: prefill(params, {"audio_embed": audio}))
+    first = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    eager_state = clone_state(state)
+    n = WHISPER_TOKENS - 1
+    graph, tok_buf, pos_buf = decode_graph(
+        lambda t, p: decode(params, state, t, p)[0], first, 1, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replayed = greedy_replays(graph, tok_buf, pos_buf, first, 1, n)
+    pace_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = {"rmsnorm": 2 * cfg.n_enc_layers + 1 + (3 * cfg.n_dec_layers + 1)
+            * (2 + n), "flash_attention": cfg.n_enc_layers
+            + cfg.n_dec_layers * (2 + n), "paged_attention": 0,
+            "ssd_scan": 0}
+    eager = greedy_eager(lambda t, p: decode(params, eager_state, t, p)[0],
+                         first, 1, n)
+    if not torch.equal(eager, replayed):
+        raise AssertionError("21b: the replayed steps' tokens differ from "
+                             "the eager loop's")
+    if launches != want:
+        raise AssertionError(f"21b: launches {launches}, one prefill, the "
+                             f"capture's eager step and {n} replays say "
+                             f"{want}")
+    card_ms = median_ms(graph, runs=20)
+    host_ms = enqueue_ms(graph)
+    eager_step = lambda: decode(params, eager_state, first, 1)  # noqa: E731
+    eager_host = enqueue_ms(eager_step)
+    busy = busy_ms(eager_step, by_name=True)
+    # the least bytes a step moves: the decoder's weights, the tied
+    # embedding (the logits read all of it) and the final norm once, the
+    # cross-KV and the whole self-KV cache (the dense decode reads it
+    # whatever the position); the prefill's operations: the frontend, the
+    # encoder's and the cross-KV projections' products, the encoder's
+    # attention over every (frame, frame) pair
+    step_bytes_ = tree_bytes(params["decoder"]) + tree_bytes(params["embed"]) \
+        + tree_bytes(params["dec_norm"]) + tree_bytes(state)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    enc_w = tree_numel(params["encoder"])
+    cross_w = 2 * d * cfg.padded_kv_heads * hd * cfg.n_dec_layers
+    rows = B * T
+    prefill_flops = 2 * rows * (cfg.frontend_dim * d + enc_w + cross_w) \
+        + 4 * B * cfg.padded_heads * hd * T * T * cfg.n_enc_layers
+    prefill_bound = bound_ms(tree_bytes(params) + tree_bytes(state),
+                             prefill_flops, cfg.dtype)
+    step_bound = step_bytes_ / HBM_BYTES_PER_S * 1e3
+    tokens_s = B * WHISPER_TOKENS / (prefill_ms / 1e3 + decode_s)
+    log(f"phase 21b: bf16 whisper-large-v3 whole on {label}: {B} clips of "
+        f"{T} frames x {WHISPER_TOKENS} new tokens: prefill (encoder, "
+        f"cross-KV, BOS) {prefill_ms:.3f} ms by events = TTFT (bound "
+        f"{prefill_bound[0]:.3f} ms, {prefill_bound[1]}); decode step: host "
+        f"{host_ms:.3f} ms (one replay's enqueue on the idle card, median of "
+        f"10; the loop of {n} replays paced {pace_ms:.3f} ms a step; eager "
+        f"step function {eager_host:.3f} ms), card {card_ms:.3f} ms (events "
+        f"around one "
+        f"replay, median of 20) against a bytes bound of {step_bound:.3f} ms "
+        f"({step_bytes_ / 1e9:.2f} GB: decoder weights, embedding, cross-KV "
+        f"{tree_bytes(state['cross']) / 1e9:.2f} GB, self-KV "
+        f"{tree_bytes(state['self']) / 1e9:.2f} GB at "
+        f"{cfg.max_target_len}); {B * WHISPER_TOKENS} tokens in "
+        f"{prefill_ms / 1e3 + decode_s:.3f} s = {tokens_s:.1f} tokens/s; "
+        f"replayed tokens equal to the eager loop's ({B}x{n}); "
+        f"{peak_note(start)}")
+    log_busy(*busy)
+    log(f"  whisper_large_v3 path kernels: {json.dumps(launches)} (one "
+        f"prefill, the capture's eager step, {n} replays)")
+    # 21c: from where 21b stopped; its tokens held to the eager loop's
+    last, pos = replayed[:, -1:], WHISPER_TOKENS
+    eager = greedy_eager(lambda t, p: decode(params, eager_state, t, p)[0],
+                         eager[:, -1:], pos, CARD_BOUND_STEPS)
+    got, pending, wall = continuation_loop(graph, tok_buf, pos_buf, last,
+                                           pos, CARD_BOUND_STEPS, dev)
+    log(f"phase 21c: card-bound loop on {label}: {CARD_BOUND_STEPS} replays "
+        f"posted by continuations, {STEP_SLEEP_MS:.0f} ms of sleep queued "
+        f"ahead of each; {wall * 1e3:.1f} ms wall; PENDING_AT_FIRST_POLL "
+        f"{pending} of {CARD_BOUND_STEPS} steps; tokens equal to the eager "
+        f"loop's: {bool(np.array_equal(got, eager.cpu().numpy()))}")
+    if not np.array_equal(got, eager.cpu().numpy()):
+        raise AssertionError("21c: the continuation-driven replays' tokens "
+                             "differ from the eager loop's")
+    if wall * 1e3 < 0.9 * CARD_BOUND_STEPS * STEP_SLEEP_MS:
+        raise AssertionError("21c: the sleep kernels did not hold the card")
+    if pending < 0.9 * CARD_BOUND_STEPS:
+        raise AssertionError(f"21c: only {pending} of {CARD_BOUND_STEPS} "
+                             "steps were running at their first poll")
+    if not all(0 <= t < cfg.vocab_size for t in got.ravel()):
+        raise AssertionError("21c: token outside the vocabulary")
+    return launches
+
+
+def phase_whisper(dev, label):
+    """21: whisper-large-v3 whole: fp32 identity, the bf16 8-clip decode
+    as graph replays, and the continuation-driven card-bound loop."""
+    t_phase = time.perf_counter()
+    whisper_identity(dev, label)
+    free_card()
+    launches = whisper_serve(dev, label)
+    free_card()
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def vlm_inputs(cfg, rng, B, S, dev):
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device=dev)
+    patches = torch.as_tensor(rng.standard_normal(
+        (B, cfg.n_patches, cfg.frontend_dim), dtype=np.float32), device=dev)
+    return tokens, patches
+
+
+def vlm_identity(dev, label):
+    """22a: fp32 at 4 layers, 2 prompts of 64 and 300 tokens with 1024
+    patches, 16 greedy tokens each (prefill with patches, then decode at
+    n_patches + S + i), held to ``lm_forward`` over patches, prompt and
+    generated tokens."""
+    from repro_torch.models import lm
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    start = peak_start()
+    cfg = family_config("internvl2_26b", torch.float32, VLM_IDENT_LAYERS)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(23)
+    n, errs, checked = 16, [], 0
+    decode = make_decode_step(cfg)
+    for S in (64, 300):
+        tokens, patches = vlm_inputs(cfg, rng, 1, S, dev)
+        base = cfg.n_patches + S
+        logits, cache = make_prefill_step(cfg, base + n)(
+            params, {"tokens": tokens, "patches": patches})
+        steps, toks = [logits[:, -1]], []
+        for i in range(n):
+            toks.append(torch.argmax(steps[-1], -1).to(torch.int32)[:, None])
+            if i + 1 < n:
+                logits, cache = decode(params, cache, toks[-1], base + i)
+                steps.append(logits[:, -1])
+        gen = torch.cat(toks, dim=1)
+        full = lm.lm_forward(params, {"tokens": torch.cat(
+            [tokens, gen[:, :-1]], 1), "patches": patches}, cfg)[0, base - 1:]
+        errs.append(max_err(torch.stack(steps, 1)[0], full))
+        near = near_tie_free(full)
+        if not torch.equal(torch.argmax(full[:near], -1).to(torch.int32),
+                           gen[0, :near]):
+            raise AssertionError(f"22a: prompt {S}: greedy tokens differ from "
+                                 "the forward's before a near tie")
+        checked += near
+        del full, cache
+    log(f"phase 22a: fp32 internvl2-26b ({VLM_IDENT_LAYERS} of 48 layers, d "
+        f"{cfg.d_model}, {cfg.padded_heads}/{cfg.padded_kv_heads} heads of hd "
+        f"{cfg.resolved_head_dim}, {cfg.n_patches} patches of "
+        f"{cfg.frontend_dim}) on {label}: prompts of 64 and 300 tokens x {n}: "
+        f"prefill with patches, decode at n_patches + S + i: logits vs "
+        f"lm_forward max_abs_err {max(errs):.3g} (tol 1e-3); {checked}/"
+        f"{2 * n} tokens equal to the forward's greedy; {peak_note(start)}")
+    if max(errs) > 1e-3:
+        raise AssertionError("22a: decoding after patches disagrees with "
+                             "lm_forward")
+
+
+def vlm_serve(dev, label):
+    """22b, 22c: bf16, whole (48 layers): 4 requests of 1024 patches and
+    512 tokens, 32 new; the dense decode step captured and replayed; then
+    the engine's refusals."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import layer_views
+    from repro_torch.serve import ServeEngine, make_prefill_step
+    start = peak_start()
+    cfg = family_config("internvl2_26b", torch.bfloat16)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    held = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(24)
+    B, S = VLM_SHAPES["batch"], VLM_PROMPT
+    tokens, patches = vlm_inputs(cfg, rng, B, S, dev)
+    base = cfg.n_patches + S
+    prefill = make_prefill_step(cfg, base + VLM_NEW)
+    views = layer_views(params)
+
+    def decode(params, cache, token, pos):
+        # as in 21b: the model's step on layer views made once
+        return lm.lm_decode_step(params, token, cfg, cache, pos,
+                                 layers=views)
+    batch = {"tokens": tokens, "patches": patches}
+    prefill(params, batch)                            # warm
+    zero_counts()
+    (logits, cache), prefill_ms = events_ms(lambda: prefill(params, batch))
+    first = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    n = VLM_NEW - 1
+    graph, tok_buf, pos_buf = decode_graph(
+        lambda t, p: decode(params, cache, t, p)[0], first, base, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = greedy_replays(graph, tok_buf, pos_buf, first, base, n)
+    pace_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    launches = read_counts()
+    L = cfg.n_layers
+    want = {"rmsnorm": (2 * L + 1) * (2 + n), "flash_attention": L,
+            "paged_attention": 0, "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"22b: launches {launches}, one prefill, the "
+                             f"capture's eager step and {n} replays say "
+                             f"{want}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()) \
+            or not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError("22b: non-finite logits or a token outside "
+                             "the vocabulary")
+    card_ms = median_ms(graph, runs=20)
+    host_ms = enqueue_ms(graph)
+    busy = busy_ms(lambda: decode(params, cache, first, base), by_name=True)
+    # a step's least bytes: every weight but the token table (4 rows of
+    # it) and the patch projector, and the whole dense KV cache; the
+    # prefill's operations: every layer's products over its rows, causal
+    # attention, and the patch projection
+    emb = params["embed"]["tokens"]
+    step_b = tree_bytes(params) - emb.numel() * emb.element_size() \
+        - tree_bytes(params["frontend"]) + tree_bytes(cache)
+    rows = B * VLM_SHAPES["rows"]
+    layer_w = tree_numel(params["layers"])
+    pairs = VLM_SHAPES["rows"] * (VLM_SHAPES["rows"] + 1) // 2
+    prefill_flops = 2 * rows * (layer_w + cfg.frontend_dim * cfg.d_model) \
+        + 4 * B * cfg.padded_heads * cfg.resolved_head_dim * pairs * L \
+        + 2 * B * cfg.d_model * cfg.padded_vocab
+    prefill_bound = bound_ms(tree_bytes(params) + tree_bytes(cache),
+                             prefill_flops, cfg.dtype)
+    log(f"phase 22b: bf16 internvl2-26b whole ({L} layers, "
+        f"{tree_bytes(params) / 1e9:.2f} GB of weights) on {label}: {B} "
+        f"requests of {cfg.n_patches} patches + {S} tokens, {VLM_NEW} new: "
+        f"prefill {prefill_ms:.3f} ms by events (bound "
+        f"{prefill_bound[0]:.3f} ms, {prefill_bound[1]}); dense decode "
+        f"step: host {host_ms:.3f} ms (one replay's enqueue on the idle "
+        f"card; the loop paced {pace_ms:.3f} ms a step), card "
+        f"{card_ms:.3f} ms "
+        f"(events around one replay, median of 20) against a bytes bound of "
+        f"{step_b / HBM_BYTES_PER_S * 1e3:.3f} ms ({step_b / 1e9:.2f} GB: "
+        f"weights and the {tree_bytes(cache) / 1e9:.2f} GB KV cache of "
+        f"{base + VLM_NEW} positions); weights held "
+        f"{mib(held - start)}; {peak_note(start)}")
+    log_busy(*busy)
+    log(f"  internvl2_26b path kernels: {json.dumps(launches)} (one prefill, "
+        f"the capture's eager step, {n} replays)")
+    refused = []
+    for c, p in ((cfg, params), (family_config("whisper_large_v3",
+                                               torch.bfloat16), {})):
+        try:
+            ServeEngine(c, p, device=dev)
+        except NotImplementedError as e:
+            refused.append(f"{c.name}: {e}")
+        else:
+            raise AssertionError(f"22c: ServeEngine built for {c.name}")
+    log("phase 22c: ServeEngine refuses at construction: "
+        + "; ".join(refused))
+    return launches
+
+
+def phase_vlm(dev, label):
+    """22: internvl2-26b: fp32 identity at 4 layers, the bf16 whole model's
+    prefill and captured decode step, the engine's refusals."""
+    t_phase = time.perf_counter()
+    vlm_identity(dev, label)
+    free_card()
+    launches = vlm_serve(dev, label)
+    free_card()
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2686,7 +3276,9 @@ def main() -> int:
                                               dev, label),
              "llama4_scout_17b_16e": phase_moe("19", "llama4_scout_17b_16e",
                                                dev, label),
-             "zamba2_1p2b": phase_zamba(dev, label)}
+             "zamba2_1p2b": phase_zamba(dev, label),
+             "whisper_large_v3": phase_whisper(dev, label),
+             "internvl2_26b": phase_vlm(dev, label)}
     # one entry per (kernel, path that ran it): that path's launches beside
     # phase 3's case at its shape; a kernel's row is its first path's
     # entry, every path's entry under "paths"

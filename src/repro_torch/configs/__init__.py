@@ -1,8 +1,10 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the exact published configuration;
-``get_config(name, reduced=True)`` the CPU smoke-test reduction. Only the
-configurations whose serving path is ported have a module here.
+``get_config(name, reduced=True)`` the CPU smoke-test reduction. Every
+configuration of the reference package has a module here: the decoder-only
+families run through ``models.lm``, the audio enc-dec
+(``whisper_large_v3``) through ``models.encdec``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from repro_torch.models.common import ModelConfig
 ARCHITECTURES = ["paper_demo", "mamba2_370m", "h2o_danube3_4b",
                  "deepseek_coder_33b", "llama3_405b", "command_r_plus_104b",
                  "qwen3_moe_235b_a22b", "llama4_scout_17b_16e",
-                 "zamba2_1p2b"]
+                 "zamba2_1p2b", "whisper_large_v3", "internvl2_26b"]
 
 # ``canonical`` maps '-' to '_' first: a key here is a name in that form
 # whose module is spelled otherwise (danube's and llama4's own ``cfg.name``)

@@ -3,11 +3,14 @@ paged decode, with RoPE and head padding.
 
 Counterpart of ``repro/models/attention.py`` (``head_mask``,
 ``init_kv_cache``, ``_project_qkv``, ``prefill_attention``,
-``decode_attention``, ``paged_decode_attention``). Weights keep the
+``decode_attention``, ``paged_decode_attention``, and the enc-dec's
+``precompute_cross_kv`` and ``cross_attention``). Weights keep the
 reference's layouts: ``wq`` ``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``,
 ``wo`` ``(H, hd, d)``. Prefill attention is the flash kernel; paged decode
 the paged kernel; dense decode is grouped PyTorch matmuls, as the
 reference computes it with einsums outside any Pallas kernel.
+Cross-attention runs the flash kernel non-causally against the encoder's
+keys, at every query length (``Sq = 1`` at each decode step).
 
 The sliding-window cache is a ring of ``L`` slots: absolute position ``p``
 lives in slot ``p % L``, after prefill as after decode. The reference's
@@ -25,7 +28,8 @@ import torch
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import paged_attention as paged_kernel
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import apply_rope_tables, rope_tables
+from repro_torch.models.layers import (apply_rope_tables, init_normal,
+                                       rope_tables)
 from repro_torch.util import resolve_device
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -37,6 +41,31 @@ def head_mask(cfg: ModelConfig) -> np.ndarray:
     Gp = cfg.padded_kv_groups
     n = np.arange(cfg.padded_heads)
     return (n // Gp < cfg.n_kv_heads) & (n % Gp < cfg.kv_groups)
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator, dev,
+                   width: int = 0, lead: Tuple[int, ...] = ()
+                   ) -> Dict[str, torch.Tensor]:
+    """q/k/v/o weights at ``width`` (default ``d_model``; the reference's
+    ``init_attention``), stacked on ``lead``; padded head slots carry zero
+    q/o (and k/v) weights, so the function is exactly the unpadded
+    architecture."""
+    width = width or cfg.d_model
+    Hp, KVp, hd = cfg.padded_heads, cfg.padded_kv_heads, \
+        cfg.resolved_head_dim
+    pd = cfg.param_dtype
+    wq = init_normal(gen, lead + (width, Hp, hd), width ** -0.5, pd, dev)
+    wk = init_normal(gen, lead + (width, KVp, hd), width ** -0.5, pd, dev)
+    wv = init_normal(gen, lead + (width, KVp, hd), width ** -0.5, pd, dev)
+    wo = init_normal(gen, lead + (Hp, hd, width), (Hp * hd) ** -0.5, pd, dev)
+    if Hp != cfg.n_heads or KVp != cfg.n_kv_heads:
+        mask = torch.as_tensor(head_mask(cfg), device=dev).to(pd)
+        wq = wq * mask[:, None]
+        wo = wo * mask[:, None, None]
+    if KVp != cfg.n_kv_heads:
+        wk[..., cfg.n_kv_heads:, :] = 0
+        wv[..., cfg.n_kv_heads:, :] = 0
+    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -54,11 +83,17 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
-def _rope(cfg: ModelConfig, positions: torch.Tensor) -> Rope:
+def _rope(cfg: ModelConfig, positions: torch.Tensor) -> Optional[Rope]:
+    """Rotary tables of ``positions``; None without RoPE (``rope_theta``
+    0: whisper's sinusoidal positions), which ``_project_qkv`` never
+    reads then."""
+    if cfg.rope_theta <= 0:
+        return None
     return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, rope: Rope
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 rope: Optional[Rope]
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, S, H, hd), k/v (B, S, KV, hd); ``rope`` = ``rope_tables`` of
     the rows' absolute positions."""
@@ -215,3 +250,30 @@ def paged_decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
         q, k, v, k_pages, v_pages, tables, positions, n_valid,
         page_size=page_size, scale=cfg.resolved_head_dim ** -0.5)
     return _out_proj(params, o.to(cfg.dtype), cfg), k_pages, v_pages
+
+
+# ------------------------------------------------------------ cross-attn
+def precompute_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig
+                        ) -> Dict[str, torch.Tensor]:
+    """The encoder output's keys and values for one decoder layer:
+    contiguous ``(B, T_enc, KVp, hd)`` each, no RoPE."""
+    B, T, d = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ params["wk"].to(cfg.dtype).reshape(d, -1)).view(
+        B, T, -1, hd)
+    v = (enc_out @ params["wv"].to(cfg.dtype).reshape(d, -1)).view(
+        B, T, -1, hd)
+    return {"k": k, "v": v}
+
+
+def cross_attention(params, x: torch.Tensor,
+                    cross_kv: Dict[str, torch.Tensor],
+                    cfg: ModelConfig) -> torch.Tensor:
+    """``x (B, S, d)`` attends to all of ``cross_kv``'s encoder positions
+    (flash kernel, non-causal, no window), at any ``S``."""
+    B, S, d = x.shape
+    q = (x @ params["wq"].to(cfg.dtype).reshape(d, -1)).view(
+        B, S, -1, cfg.resolved_head_dim)
+    o = flash_kernel.attention(q, cross_kv["k"], cross_kv["v"],
+                               causal=False, window=0)
+    return _out_proj(params, o, cfg)

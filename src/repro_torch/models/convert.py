@@ -7,6 +7,8 @@ nesting and the same layouts, on ``device``. The one change is a hybrid's
 shared-block projectors: the reference makes ``n_layers // every`` of them
 and its last site reuses the last one (JAX clamps the index; ROADMAP
 C.7), the port one per site, so the last is repeated to the site count.
+An audio enc-dec's tree has ``encoder`` and ``decoder`` stacks where a
+decoder-only tree has ``layers``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.common import HYBRID, MOE, SSM, ModelConfig
+from repro_torch.models.common import (AUDIO, HYBRID, MOE, SSM, VLM,
+                                       ModelConfig)
 from repro_torch.util import resolve_device
 
 
@@ -39,7 +42,9 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
     does not have ``cfg``'s embedding, layer count, block form (a parallel
     block has no ``norm2``, an MoE block ``cfg.moe.n_experts`` experts in
     place of the MLP) or, for a hybrid, the reference's or the port's
-    projector count."""
+    projector count; for an enc-dec, its encoder and decoder layer counts;
+    for an enc-dec or a VLM, the frontend's ``(frontend_dim, d_model)``. A
+    tree of another family (stacks of the other kind) raises too."""
     dev = resolve_device(device)
 
     def convert(node: Any) -> Any:
@@ -47,11 +52,32 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
             return {k: convert(v) for k, v in node.items()}
         return tensor_from_numpy(node, dev)
 
+    encdec = cfg.family == AUDIO
+    want, other = (("encoder", "decoder"), "layers") if encdec \
+        else (("layers",), "encoder")
+    if other in tree or not all(k in tree for k in want):
+        raise ValueError(f"{cfg.name} is family {cfg.family!r}: its tree "
+                         f"has {list(want)}, this one {sorted(tree)}")
     out = convert(tree)
     emb = tuple(out["embed"]["tokens"].shape)
     if emb != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"embedding {emb} does not fit {cfg.name}: "
                          f"expected {(cfg.padded_vocab, cfg.d_model)}")
+    if encdec or cfg.family == VLM:
+        proj = tuple(out["frontend"]["proj"].shape) \
+            if "frontend" in out else None
+        if proj != (cfg.frontend_dim, cfg.d_model):
+            raise ValueError(f"frontend projector {proj} does not fit "
+                             f"{cfg.name}: expected "
+                             f"{(cfg.frontend_dim, cfg.d_model)}")
+    if encdec:
+        for stack, leaf, n in (("encoder", "attn", cfg.n_enc_layers),
+                               ("decoder", "self_attn", cfg.n_dec_layers)):
+            got = out[stack][leaf]["wq"].shape[0]
+            if got != n:
+                raise ValueError(f"{got} stacked {stack} layers, "
+                                 f"{cfg.name} has {n}")
+        return out
     layers = out["layers"]
     ssm_stack = cfg.family in (SSM, HYBRID)
     # a stacked leaf every layer of the family has

@@ -8,7 +8,7 @@ are dropped.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +34,36 @@ def init_normal(gen: torch.Generator, shape, scale: float, dtype,
         n = min(_INIT_CHUNK, flat.numel() - s)
         flat[s:s + n] = torch.randn(n, generator=gen, device=device) * scale
     return out
+
+
+def init_rmsnorm(dev, *shape) -> Dict[str, torch.Tensor]:
+    """An rmsnorm's fp32 scale of ones, of ``shape`` (the width, after any
+    stacked axes)."""
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=dev)}
+
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, dev, width: int,
+             d_ff: int, lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """A SwiGLU MLP's ``wi``/``wg`` ``(width, d_ff)`` and ``wo`` ``(d_ff,
+    width)`` at fan_in^-1/2, stacked on ``lead``."""
+    def draw(shape, scale):
+        return init_normal(gen, lead + shape, scale, cfg.param_dtype, dev)
+    return {"wi": draw((width, d_ff), width ** -0.5),
+            "wg": draw((width, d_ff), width ** -0.5),
+            "wo": draw((d_ff, width), d_ff ** -0.5)}
+
+
+def layer_views(params: Dict[str, Any], key: str = "layers"
+                ) -> List[Dict[str, Any]]:
+    """Per-layer parameter dicts, views into the stacked leaves of
+    ``params[key]`` (an enc-dec's ``"encoder"`` and ``"decoder"``)."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            parts = {k: unbind(v) for k, v in tree.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return tree.unbind(0)
+    return unbind(params[key])
 
 
 # --------------------------------------------------------------------- norm
@@ -81,6 +111,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return apply_rope_tables(x, cos, sin, lean=lean)
 
 
+# --------------------------------------------------------------- sinusoidal
+def sinusoidal_pe(positions: torch.Tensor, width: int) -> torch.Tensor:
+    """Fixed sinusoidal embedding of ``positions (...)``, fp32 ``(...,
+    width)``: ``pos / 10000 ** (dim / width)`` for the even ``dim``, sines
+    then cosines (concatenated, not interleaved), in the reference's
+    operation order. The power is taken in fp64 and rounded once, as the
+    reference's fp32 power is rounded (torch's fp32 ``pow`` is an ulp off
+    in places, which moves a sine at position 1500 by 3e-5). ``positions``
+    may be a device tensor (a captured decode step's position buffer):
+    nothing is read on the host."""
+    pos = positions.float()[..., None]
+    dim = torch.arange(0, width, 2, dtype=torch.float32,
+                       device=positions.device)
+    angle = pos / torch.pow(10000.0, (dim / width).double()).float()
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, width: int,
+                         device: Any = None) -> torch.Tensor:
+    """Whisper-style fixed positional embedding (encoder), ``(seq_len,
+    width)``."""
+    return sinusoidal_pe(torch.arange(seq_len, device=device), width)
+
+
 # ---------------------------------------------------------------------- mlp
 def mlp(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP."""
@@ -90,6 +144,18 @@ def mlp(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- embedding
+def init_embedding(cfg: ModelConfig, gen: torch.Generator,
+                   dev) -> Dict[str, torch.Tensor]:
+    """The token table ``(padded_vocab, d)`` at 0.02 and, untied, the head
+    ``(d, padded_vocab)`` at d^-1/2 (the reference's ``init_embedding``)."""
+    V, d = cfg.padded_vocab, cfg.d_model
+    embed = {"tokens": init_normal(gen, (V, d), 0.02, cfg.param_dtype, dev)}
+    if not cfg.tied_embeddings:
+        embed["head"] = init_normal(gen, (d, V), d ** -0.5, cfg.param_dtype,
+                                    dev)
+    return embed
+
+
 def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     return F.embedding(tokens, params["tokens"]).to(cfg.dtype)

@@ -15,7 +15,11 @@ Parallel blocks (command-r: attention and MLP share one pre-norm, no
 (``models.moe``) takes the MLP's place. The hybrid (zamba2) runs a shared
 attention block over ``concat(x, x0)`` at width ``2·d_model`` before every
 ``hybrid_attn_every``-th SSM layer, each site through its own output
-projector (``_apply_hybrid``). Audio enc-dec and VLM raise
+projector (``_apply_hybrid``). A VLM (internvl2) is a dense decoder whose
+``lm_forward`` and ``lm_prefill`` prepend ``batch["patches"] @
+frontend.proj`` to the token embeddings (``_embed_inputs``); its decode
+steps sit at ``n_patches + S`` onward. The audio enc-dec (whisper) has its
+own model functions, ``models.encdec``: here it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -27,59 +31,35 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import DENSE, HYBRID, MOE, SSM, ModelConfig
-from repro_torch.models.layers import (embed_tokens, init_normal, lm_logits,
-                                       mlp, rmsnorm, rope_tables)
+from repro_torch.models.common import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
+                                       ModelConfig)
+from repro_torch.models.layers import (embed_tokens, init_embedding,
+                                       init_mlp, init_normal, init_rmsnorm,
+                                       layer_views, lm_logits, mlp, rmsnorm)
 from repro_torch.util import resolve_device
 
 Params = Dict[str, Any]
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet (audio enc-dec, VLM, frontends)."""
-    if cfg.family not in (DENSE, MOE, SSM, HYBRID) or cfg.frontend_dim:
+    """Raise ``NotImplementedError`` for a configuration these decoder-only
+    functions do not run: the audio enc-dec (``models.encdec`` runs it), a
+    family the port lacks, or a frontend outside the VLM family; a
+    ``ValueError`` for a VLM without its patch frontend."""
+    if cfg.family == AUDIO:
+        raise NotImplementedError(
+            f"{cfg.name} is an audio encoder-decoder: its model functions "
+            "are repro_torch.models.encdec")
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID, VLM) or (
+            cfg.frontend_dim and cfg.family != VLM):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported; see ROADMAP")
+    if cfg.family == VLM and not (cfg.frontend_dim and cfg.n_patches):
+        raise ValueError(f"{cfg.name}: a VLM needs frontend_dim and "
+                         "n_patches")
 
 
 # ============================================================ initialization
-
-def _init_attention(cfg: ModelConfig, gen: torch.Generator, dev, width: int,
-                    lead: Tuple[int, ...] = ()) -> Params:
-    """q/k/v/o weights at ``width`` (the reference's ``init_attention``),
-    stacked on ``lead``; padded head slots carry zero q/o (and k/v)
-    weights, so the function is exactly the unpadded architecture."""
-    Hp, KVp, hd = cfg.padded_heads, cfg.padded_kv_heads, \
-        cfg.resolved_head_dim
-    pd = cfg.param_dtype
-    wq = init_normal(gen, lead + (width, Hp, hd), width ** -0.5, pd, dev)
-    wk = init_normal(gen, lead + (width, KVp, hd), width ** -0.5, pd, dev)
-    wv = init_normal(gen, lead + (width, KVp, hd), width ** -0.5, pd, dev)
-    wo = init_normal(gen, lead + (Hp, hd, width), (Hp * hd) ** -0.5, pd, dev)
-    if Hp != cfg.n_heads or KVp != cfg.n_kv_heads:
-        mask = torch.as_tensor(attn_mod.head_mask(cfg), device=dev).to(pd)
-        wq = wq * mask[:, None]
-        wo = wo * mask[:, None, None]
-    if KVp != cfg.n_kv_heads:
-        wk[..., cfg.n_kv_heads:, :] = 0
-        wv[..., cfg.n_kv_heads:, :] = 0
-    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
-
-
-def _init_mlp(cfg: ModelConfig, gen: torch.Generator, dev, width: int,
-              d_ff: int, lead: Tuple[int, ...] = ()) -> Params:
-    def draw(shape, scale):
-        return init_normal(gen, lead + shape, scale, cfg.param_dtype, dev)
-    return {"wi": draw((width, d_ff), width ** -0.5),
-            "wg": draw((width, d_ff), width ** -0.5),
-            "wo": draw((d_ff, width), d_ff ** -0.5)}
-
-
-def _ones(dev, *shape) -> Params:
-    """An rmsnorm's fp32 scale of ones."""
-    return {"scale": torch.ones(shape, dtype=torch.float32, device=dev)}
-
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Any = "cuda") -> Params:
@@ -88,57 +68,48 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     at 0.02, norm scales 1 in fp32; MoE as ``moe.init_moe``). A hybrid's
     shared block gets one projector per site (``cfg.hybrid_sites``), where
     the reference makes one fewer when ``hybrid_attn_every`` does not
-    divide ``n_layers`` (C.7). Draws come from a ``torch.Generator`` on
-    ``device``, so they are not the reference's numbers; tests carry the
-    reference's weights over with ``convert.params_from_numpy``."""
+    divide ``n_layers`` (C.7). A VLM gets the patch projector
+    ``frontend.proj (frontend_dim, d_model)`` at frontend_dim^-1/2. Draws
+    come from a ``torch.Generator`` on ``device``, so they are not the
+    reference's numbers; tests carry the reference's weights over with
+    ``convert.params_from_numpy``."""
     require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     L, d = cfg.n_layers, cfg.d_model
-    embed = {"tokens": init_normal(gen, (cfg.padded_vocab, d), 0.02,
-                                   cfg.param_dtype, dev)}
-    if not cfg.tied_embeddings:
-        embed["head"] = init_normal(gen, (d, cfg.padded_vocab), d ** -0.5,
-                                    cfg.param_dtype, dev)
-    params = {"embed": embed, "final_norm": _ones(dev, d)}
+    params = {"embed": init_embedding(cfg, gen, dev),
+              "final_norm": init_rmsnorm(dev, d)}
     if cfg.family in (SSM, HYBRID):
-        params["layers"] = {"norm": _ones(dev, L, d),
+        params["layers"] = {"norm": init_rmsnorm(dev, L, d),
                             "ssm": ssm_mod.init_ssm(gen, cfg, L, dev)}
     else:
-        layers = {"norm1": _ones(dev, L, d),
-                  "attn": _init_attention(cfg, gen, dev, d, (L,))}
+        layers = {"norm1": init_rmsnorm(dev, L, d),
+                  "attn": attn_mod.init_attention(cfg, gen, dev, d, (L,))}
         if cfg.family == MOE:
             layers["moe"] = moe_mod.init_moe(gen, cfg, L, dev)
         else:
-            layers["mlp"] = _init_mlp(cfg, gen, dev, d, cfg.d_ff, (L,))
+            layers["mlp"] = init_mlp(cfg, gen, dev, d, cfg.d_ff, (L,))
         if not cfg.parallel_block:
-            layers["norm2"] = _ones(dev, L, d)
+            layers["norm2"] = init_rmsnorm(dev, L, d)
         params["layers"] = layers
     if cfg.family == HYBRID:
         w = 2 * d
         params["shared"] = {
-            "norm1": _ones(dev, w),
-            "attn": _init_attention(cfg, gen, dev, w),
-            "norm2": _ones(dev, w),
-            "mlp": _init_mlp(cfg, gen, dev, w, cfg.d_ff),
+            "norm1": init_rmsnorm(dev, w),
+            "attn": attn_mod.init_attention(cfg, gen, dev, w),
+            "norm2": init_rmsnorm(dev, w),
+            "mlp": init_mlp(cfg, gen, dev, w, cfg.d_ff),
             # per-site output projectors 2d → d, at the reference's scale
             # (its ``_init_dense`` takes the first dimension as fan_in)
             "proj": init_normal(gen, (cfg.hybrid_sites, w, d),
                                 cfg.hybrid_sites ** -0.5, cfg.param_dtype,
                                 dev)}
+    if cfg.family == VLM:
+        F = cfg.frontend_dim
+        params["frontend"] = {"proj": init_normal(
+            gen, (F, d), F ** -0.5, cfg.param_dtype, dev)}
     return params
-
-
-def layer_views(params: Params) -> List[Dict[str, Any]]:
-    """Per-layer parameter dicts, views into the stacked leaves."""
-    def unbind(tree):
-        if isinstance(tree, dict):
-            parts = {k: unbind(v) for k, v in tree.items()}
-            n = len(next(iter(parts.values())))
-            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-        return tree.unbind(0)
-    return unbind(params["layers"])
 
 
 # ================================================================== blocks
@@ -248,18 +219,32 @@ def _apply_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig,
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
     if cfg.family == SSM:      # attention-free: no rotary tables
         return None
-    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    return attn_mod._rope(cfg, positions)
+
+
+def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The token embeddings; a VLM prepends its projected patches
+    ``batch["patches"] (B, n_patches, frontend_dim) @ frontend.proj``
+    (the reference's ``_embed_inputs``), so the sequence is ``n_patches +
+    S`` long."""
+    x = embed_tokens(params["embed"], batch["tokens"], cfg)
+    if cfg.family != VLM:
+        return x
+    px = batch["patches"].to(cfg.dtype) \
+        @ params["frontend"]["proj"].to(cfg.dtype)
+    return torch.cat([px, x], dim=1)
 
 
 # ============================================================ public forward
 
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> torch.Tensor:
-    """Logits for the whole sequence (tests / generation without cache)."""
+    """Logits for the whole sequence (tests / generation without cache);
+    a VLM's first ``n_patches`` rows are its patches'."""
     require_ported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, cfg)
-    rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
+    x = _embed_inputs(params, batch, cfg)
+    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
     if cfg.family == HYBRID:
         x = _apply_hybrid(
             params, x, cfg, layer_views(params),
@@ -300,11 +285,11 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, cache: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the prompt; returns (last-position logits (B, 1, V), the
-    cache primed in place)."""
+    cache primed in place). A VLM's cache holds its ``n_patches`` patch
+    rows ahead of the prompt, so its decode starts at ``n_patches + S``."""
     require_ported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, cfg)
-    rope = _rope(cfg, torch.arange(tokens.shape[1], device=x.device)[None])
+    x = _embed_inputs(params, batch, cfg)
+    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
     if cfg.family == HYBRID:
         x = _apply_hybrid(
             params, x, cfg, layer_views(params),

@@ -58,7 +58,9 @@ What keeps the loop from blocking, in PyTorch terms:
   a CUDA tensor (``int()``/``.item()``/``.cpu()`` there would sync the
   stream behind the next step already queued).
 
-``fused=False`` is not ported yet.
+``fused=False`` is not ported yet. The engine refuses the audio
+enc-dec (whisper) and the VLM (internvl2) at construction, as the
+reference's refuses the first: both serve through ``serve.steps``.
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ import torch
 from repro_torch.core import (ContinueFlags, Engine, Promise, Scheduler,
                               TensorOp)
 from repro_torch.models import lm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import AUDIO, VLM, ModelConfig
 from repro_torch.obs import events as _obs_events
 from repro_torch.obs import tracer as _obs
 from repro_torch.serve.batcher import Batcher
@@ -149,6 +151,16 @@ class ServeEngine:
                  speculate: int = 0,
                  drafter: Optional[Drafter] = None,
                  fused: Optional[bool] = None) -> None:
+        if cfg.family == AUDIO:
+            raise NotImplementedError(
+                "ServeEngine drives token-in/token-out LM decode; audio "
+                "enc-dec serving still goes through serve.steps directly")
+        if cfg.family == VLM:
+            raise NotImplementedError(
+                f"ServeEngine takes token prompts only, and {cfg.name} is a "
+                "VLM whose prefill needs image patches: serve it through "
+                "serve.steps (make_prefill_step with batch['patches'], then "
+                "make_decode_step at n_patches + S)")
         if fused is False:
             raise NotImplementedError(f"fused=False is {_NOT_PORTED}")
         lm.require_ported(cfg)

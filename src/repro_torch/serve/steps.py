@@ -1,6 +1,7 @@
 """Serving step factories: prefill, dense decode, the dense-mode batched
 slot decode, fused paged decode, speculative verify and suffix prefill,
-the prefill scatter, and the ``greedy_generate`` oracle.
+the prefill scatter, and the ``greedy_generate`` oracle. The prefill and
+decode factories also take the audio enc-dec (``models.encdec``).
 
 Counterpart of ``repro/serve/steps.py``. The reference's steps are jitted
 with donated caches; here they are plain functions that queue work on the
@@ -23,14 +24,29 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import lm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models import encdec, lm
+from repro_torch.models.common import AUDIO, ModelConfig
 from repro_torch.util import resolve_device
 
 
 def make_prefill_step(cfg: ModelConfig, max_cache_len: int) -> Callable:
     """(params, batch) → (next-token logits (B, 1, V), primed cache of
-    ``max_cache_len`` positions)."""
+    ``max_cache_len`` positions). A VLM's batch carries ``patches`` beside
+    its ``tokens``. The audio enc-dec's batch is ``{"audio_embed": (B,
+    T_enc, frontend_dim)}``: the prefill encodes it, precomputes each
+    decoder layer's cross-KV, and decodes a BOS (token 0) at position 0,
+    so its state is the enc-dec decode state and its logits predict the
+    first token."""
+    if cfg.family == AUDIO:
+        def prefill(params, batch):
+            audio = batch["audio_embed"]
+            state = encdec.init_decode_state(params, audio, cfg,
+                                             max_cache_len)
+            bos = torch.zeros((audio.shape[0], 1), dtype=torch.int32,
+                              device=audio.device)
+            return encdec.encdec_decode_step(params, bos, cfg, state, 0)
+        return prefill
+
     def prefill(params, batch):
         tokens = batch["tokens"]
         cache = lm.init_cache(cfg, tokens.shape[0], max_cache_len,
@@ -40,7 +56,13 @@ def make_prefill_step(cfg: ModelConfig, max_cache_len: int) -> Callable:
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
-    """(params, cache, token, pos) → (logits, cache updated in place)."""
+    """(params, cache, token, pos) → (logits, cache updated in place); for
+    the audio enc-dec the cache is its decode state."""
+    if cfg.family == AUDIO:
+        def decode(params, cache, token, pos):
+            return encdec.encdec_decode_step(params, token, cfg, cache, pos)
+        return decode
+
     def decode(params, cache, token, pos):
         return lm.lm_decode_step(params, token, cfg, cache, pos)
     return decode

@@ -49,7 +49,10 @@ def _randn(gen, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d", [(8, 768), (513, 768), (3, 64),
                                     (8, 1024),
-                                    (5, 4096)])   # longer than a lane caches
+                                    (5, 4096),    # longer than a lane caches
+                                    # whisper's decode rows and one clip's
+                                    # encoder rows, internvl2's decode rows
+                                    (8, 1280), (1500, 1280), (8, 6144)])
 def test_rmsnorm_kernel(cuda, dtype, rows, d):
     x = _randn(cuda, (rows, d), dtype)
     scale = 1 + 0.1 * torch.randn((d,), generator=cuda, device="cuda")
@@ -91,6 +94,28 @@ def test_flash_attention_kernel(cuda, dtype, Sq, Sk, H, KV, D, causal,
     assert fa.LAUNCHES == n0 + 1
     err = (out.float() - fa.attention_plain(q, k, v, **kw).float()).abs().max()
     assert float(err) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq", [(1, 1500), (8, 1)])
+def test_flash_attention_non_causal_at_whisper_shapes(cuda, dtype, B, Sq):
+    """whisper-large-v3's attention: 32/32 heads of head_dim 64 against
+    its 1500 encoder frames, non-causal: the encoder (Sq = Sk) and a
+    decode step's cross-attention (one query row a clip, 8 clips). 1500 is
+    not a multiple of the 32-key tiles (the KV tail mask). Heads 20-31
+    get all-zero K and V, as whisper's padded heads do: their rows must
+    come out exactly zero."""
+    q = _randn(cuda, (B, Sq, 32, 64), dtype)
+    k = _randn(cuda, (B, 1500, 32, 64), dtype)
+    v = _randn(cuda, (B, 1500, 32, 64), dtype)
+    k[:, :, 20:] = 0
+    v[:, :, 20:] = 0
+    n0 = fa.LAUNCHES
+    out = fa.attention(q, k, v, causal=False)
+    assert fa.LAUNCHES == n0 + 1
+    ref = fa.attention_plain(q, k, v, causal=False)
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert bool((out[:, :, 20:] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -478,3 +503,48 @@ def test_cholesky_on_card(cuda, backend):
     want = torch.linalg.cholesky(A)
     assert float((L - want).abs().max() / want.abs().max()) <= 1e-10
     assert potrf_failures(meta) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whisper_decode_step_graph_bit_equal_to_eager(cuda, dtype):
+    """whisper-large-v3 at full width, 2 encoder and 2 decoder layers: the
+    decode step captured as a ``StepGraph`` over static token and position
+    buffers gives, replay by replay, the eager step's logits and self-KV
+    bit for bit, at per-row positions; each replay adds the step's
+    launches back (flash once a layer, rmsnorm three times a layer and
+    once more)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.graphs import StepGraph
+    cfg = dataclasses.replace(
+        get_config("whisper_large_v3", dtype=dtype, param_dtype=dtype),
+        n_enc_layers=2, n_dec_layers=2)
+    params = encdec.init_params(cfg, seed=0, device="cuda")
+    audio = torch.randn((3, 1500, cfg.frontend_dim), generator=cuda,
+                        device="cuda")
+    logits, state = make_prefill_step(cfg, 64)(params,
+                                               {"audio_embed": audio})
+    eager = {"cross": state["cross"],
+             "self": {n: t.clone() for n, t in state["self"].items()}}
+    decode = make_decode_step(cfg)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    pos = torch.tensor([1, 1, 1], device="cuda")
+    tok_buf, pos_buf = tok.clone(), pos.clone()
+    graph = StepGraph(lambda: decode(params, state, tok_buf, pos_buf)[0],
+                      torch.device("cuda"))
+    # the capture's warm-up wrote the position-1 rows: rewrite them below
+    n_fa, n_rn = fa.LAUNCHES, rn.LAUNCHES
+    for i in range(4):
+        want, eager = decode(params, eager, tok, pos)
+        tok_buf.copy_(tok)
+        pos_buf.copy_(pos)
+        got = graph()
+        assert torch.equal(got, want)
+        assert torch.equal(state["self"]["k"], eager["self"]["k"])
+        tok = torch.argmax(want[:, -1], -1).to(torch.int32)[:, None]
+        pos = pos + torch.tensor([1, 2, 3], device="cuda")
+    L = cfg.n_dec_layers
+    assert fa.LAUNCHES - n_fa == 2 * 4 * L
+    assert rn.LAUNCHES - n_rn == 2 * 4 * (3 * L + 1)

@@ -109,19 +109,24 @@ def test_bf16_leaves_convert_bit_exactly():
 
 
 def test_other_families_not_ported():
-    """Dense, MoE, SSM and hybrid are ported; audio enc-dec and VLM
-    still raise, as config and as model."""
+    """Every family of the reference is ported; the decoder-only model
+    functions refuse the audio enc-dec (``models.encdec`` runs it), a
+    frontend outside the VLM family, and a VLM without its frontend; an
+    unknown config name raises."""
     jcfg, tcfg = _cfgs()
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError):
-            lm.init_params(dataclasses.replace(tcfg, family=family),
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        lm.init_params(dataclasses.replace(tcfg, family="audio"),
+                       device="cpu")
+    with pytest.raises(ValueError, match="frontend_dim"):
+        lm.init_params(dataclasses.replace(tcfg, family="vlm"),
+                       device="cpu")
     with pytest.raises(NotImplementedError):
         lm.init_params(dataclasses.replace(tcfg, frontend_dim=64),
                        device="cpu")
-    for name in ("whisper_large_v3", "internvl2_26b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(name)
+    assert [get_config(name).family for name in
+            ("whisper_large_v3", "internvl2_26b")] == ["audio", "vlm"]
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_config("no_such_model")
 
 
 # ------------------------------------------------------------------ layers

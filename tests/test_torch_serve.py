@@ -229,7 +229,7 @@ def test_unported_options_and_missing_cuda_raise(model):
         ServeEngine(scfg, sp, device="cpu", speculate=2)
     with pytest.raises(ValueError, match="paged KV cache unsupported"):
         ServeEngine(scfg, sp, device="cpu", paged=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="audio enc-dec"):
         ServeEngine(dataclasses.replace(tcfg, family="audio"), tp,
                     device="cpu")
     if not torch.cuda.is_available():

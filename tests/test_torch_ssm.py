@@ -218,7 +218,7 @@ def test_paged_decode_and_dense_batched_decode_of_other_families_raise(
                            {}, torch.zeros(1, dtype=torch.int32),
                            torch.zeros((1, 1), dtype=torch.int32),
                            torch.ones(1, dtype=torch.int32), page_size=4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="models.encdec"):
         make_batched_decode_step(dataclasses.replace(
             get_config("paper_demo", reduced=True), family="audio"))
 
