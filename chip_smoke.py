@@ -189,12 +189,36 @@ every pool must end with no page in use.
    the dense decode step's card ms as a replay against its bound, peak
    memory, the launches exact; 22c ``ServeEngine`` refuses both configs
    at construction.
+23. unfused paged serving — ``paper_demo`` at full width through
+   ``ServeEngine(fused=False)`` (each slot's pages gathered into a
+   contiguous view for the dense decode, the written pages copied back;
+   decode and verify captured as step graphs): 23a fp32, phase 4's
+   requests plain and with ``speculate=4``, tokens equal to phase 4's
+   fused engine and to greedy up to the first near tie; 23b bf16, phase
+   5's workload as the path ``paper_demo_unfused`` (no paged-kernel
+   launch), beside phase 5's fused numbers of the same call; 23c its
+   card-bound loop, as 5b;
+24. the bench on the card (``repro_torch.bench``), bf16 ``paper_demo`` at
+   full width: a 48-request Poisson trace of phase 5's length ranges
+   (4 shared 64-token prefixes); 24a the colocated engine's saturation
+   sweep (1-100 requests/s, 3 bisections, a failed probe retried once)
+   for lambda*, the highest rate whose TTFT p99 stays under 1 s with
+   every request finished; 24b the engine, ``DisaggServer`` at
+   ``chunk_pages=8`` and a 2-replica ``Router`` at 0.5 and 0.9 lambda*,
+   2 samples each, replayed through ``ServeClient`` (its loop thread
+   steps the tier built on this thread): the SLO report (tokens/s,
+   goodput, TTFT p50/p99, ITL p99, the cv of each), every request
+   finished; 24c one more sample a tier with an ``obs.Recorder``: the
+   cause split (queue delay, compute, KV shipping, notify latency) and a
+   Perfetto trace under ``build/``.
 
+Phases 23 and 24 run right after 14, on phase 4's and 13's weights.
 Each phase's weights are freed before the next. Each serve phase sets
 the kernels' launch counts to 0 just before it drives its path and reads
 them just after; a step graph adds its kernels' launches back on every
 replay. The kernels JSON has one entry per kernel and serving path that
-ran it (phase 5 ``paper_demo``, 8 ``mamba2_370m``, 15b-22b): that path's
+ran it (phase 5 ``paper_demo``, 23b ``paper_demo_unfused``, 8
+``mamba2_370m``, 15b-22b): that path's
 launches beside the phase 3 case at its shape (a decode step's rows for
 rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
 danube's 6144 rows for its windowed flash, whisper's encoder over 1500
@@ -635,6 +659,11 @@ WHISPER_SHAPES = dict(d=1280, H=32, KV=32, hd=64, frames=1500, clips=8)
 VLM_SHAPES = dict(d=6144, H=48, KV=8, hd=128, rows=1536, batch=4)
 
 
+# the paths whose decode steps run paper_demo's shapes: paged + fused (5)
+# and paged, unfused (23b)
+PAPER_PATHS = ("paper_demo", "paper_demo_unfused")
+
+
 def phase_kernels(dev, label):
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      rmsnorm, ssd_scan)
@@ -672,14 +701,16 @@ def phase_kernels(dev, label):
         # (kernel, the serving path whose shape the case is, result): the
         # kernels JSON reports each path's case beside its launches
         cases = [
-            # rmsnorm at a decode step's 8 rows of each path's width
-            ("rmsnorm", "paper_demo", check_rmsnorm(dtype, 8, 768, gen,
-                                                    dev)),
+            # rmsnorm at a decode step's 8 rows of each path's width; the
+            # unfused paged path (23b) runs paper_demo's rmsnorm and flash
+            # shapes, so their cases stand for both paths
+            ("rmsnorm", PAPER_PATHS, check_rmsnorm(dtype, 8, 768, gen,
+                                                   dev)),
             ("rmsnorm", None, check_rmsnorm(dtype, 512, 768, gen, dev)),
             ("rmsnorm", "mamba2_370m", check_rmsnorm(dtype, 8, 1024, gen,
                                                      dev)),
             ("rmsnorm", None, check_rmsnorm(dtype, 512, 1024, gen, dev)),
-            ("flash_attention", "paper_demo", check_flash(dtype, gen, dev)),
+            ("flash_attention", PAPER_PATHS, check_flash(dtype, gen, dev)),
             ("paged_attention", "paper_demo", check_paged("decode", dtype,
                                                           gen, dev)),
             ("paged_attention", None, check_paged("suffix", dtype, gen, dev)),
@@ -796,7 +827,8 @@ def phase_kernels(dev, label):
             # decode step's for rmsnorm and paged, a prompt's for flash
             # (whisper's: a decode step's cross-attention) and the SSD scan
             if dtype is torch.bfloat16 and path:
-                summary[name, path] = r
+                for one in (path if isinstance(path, tuple) else (path,)):
+                    summary[name, one] = r
     if bad:
         raise AssertionError("kernels that disagree with their plain "
                              "versions:\n" + "\n".join(bad))
@@ -1002,7 +1034,7 @@ def serve_workload(cfg, rng):
 
 
 def decode_step_times(eng, split: bool = False) -> dict:
-    """One fused decode step with all 8 slots live at mixed positions,
+    """One paged decode step with all 8 slots live at mixed positions,
     eager (``_decode_fn`` on its own tensors) and replayed (the engine's
     step graph, its static buffers filled with the same inputs): the
     card's time by events (a sleep kernel ahead keeps host gaps out) and
@@ -1021,7 +1053,10 @@ def decode_step_times(eng, split: bool = False) -> dict:
     eng._tables_dev[:, :eng.max_pages].copy_(tables)
 
     def eager():
-        eng._decode_fn(eng.params, eng.pool.arrays, toks, pos, tables, nv)
+        if eng.fused:
+            eng._decode_fn(eng.params, eng.pool.arrays, toks, pos, tables, nv)
+        else:
+            eng._decode_fn(eng.params, eng.pool.arrays, toks, pos, tables)
     graph = eng._decode_graph
     return dict(eager_ms=median_ms(eager, runs=20),
                 graph_ms=median_ms(graph, runs=20),
@@ -1055,13 +1090,14 @@ def phase_serve(dev, label):
                                         serve_engine, label)
     if d["prefix_hits"] <= 0:
         raise AssertionError("bf16 serve: the shared prefix never hit")
-    return cfg, params, launches, host_ms
+    return cfg, params, launches, host_ms, d
 
 
-def serve_engine(cfg, params, dev, speculate=0):
+def serve_engine(cfg, params, dev, speculate=0, fused=None):
     from repro_torch.serve import ServeEngine
     return ServeEngine(cfg, params, device=dev, max_batch=8, page_size=16,
-                       max_seq_len=1024, max_inflight=2, speculate=speculate)
+                       max_seq_len=1024, max_inflight=2, speculate=speculate,
+                       fused=fused)
 
 
 def spec_engine(cfg, params, dev):
@@ -2165,6 +2201,209 @@ def phase_router(dev, ident, bf16, label):
                              f"{dict(m)}")
     r.shutdown()
 
+# ------------------------------------------------- unfused paged serving (23)
+def unfused_engine(cfg, params, dev, speculate=0):
+    return serve_engine(cfg, params, dev, speculate=speculate, fused=False)
+
+
+def phase_unfused(dev, ident, bf16, fused_d, label):
+    """23: ``paper_demo`` at full width through ``ServeEngine(fused=False)``:
+    each slot's pages gathered for the dense decode and the written pages
+    copied back, captured as step graphs like the fused steps. 23a fp32:
+    phase 4's requests, plain and with ``speculate=4``, must emit phase 4's
+    fused tokens and greedy's up to the first near tie; 23b bf16: phase
+    5's workload as the path ``paper_demo_unfused`` (no paged-kernel
+    launch), beside phase 5's fused numbers of this call; 23c its
+    card-bound loop. Returns 23b's launches."""
+    from repro_torch.serve import Request
+    t_phase = time.perf_counter()
+    cfg, params = ident["cfg"], ident["params"]
+    for what, prompts, n, spec, fused_toks, greedy in (
+            ("plain", ident["prompts"], ident["n"], 0, ident["colocated"],
+             ident["greedy"]),
+            (f"speculate={SPECULATE}", ident["spec_prompts"],
+             ident["spec_n"], SPECULATE, ident["spec_colocated"],
+             ident["spec_greedy"])):
+        eng = unfused_engine(cfg, params, dev, speculate=spec)
+        graph = eng._verify_graph if spec else eng._decode_graph
+        if eng.fused or graph.graph is None:
+            raise AssertionError("23a: the unfused engine took the fused "
+                                 "path or captured no step graph")
+        reqs = [Request(p, n) for p in prompts]
+        serve_checked(eng, reqs)
+        m = eng.metrics()
+        eng.shutdown()
+        checked = check_identity(f"23a unfused {what} vs greedy", cfg,
+                                 params, prompts, reqs, greedy)
+        check_identity(f"23a unfused {what} vs the fused engine", cfg,
+                       params, prompts, reqs, fused_toks)
+        if graph.replays != m["steps"] or m["pages_in_use"] != 0 \
+                or m["draft_accepted" if spec else "prefix_hits"] <= 0:
+            raise AssertionError(f"23a unfused {what}: {dict(m)}, "
+                                 f"{graph.replays} graph replays")
+        log(f"phase 23a: fp32 unfused {what} identity OK: {len(reqs)} "
+            f"requests, {checked}/{n * len(reqs)} tokens equal to greedy and "
+            f"to phase 4's fused engine, {graph.replays} steps (graph "
+            f"replays), prefix_hits {m['prefix_hits']}, drafts accepted "
+            f"{m['draft_accepted']}")
+    bcfg, bparams = bf16
+    work = serve_workload(bcfg, np.random.default_rng(2))
+    launches, host_ms, d = family_serve("23b", bcfg, bparams, dev, work,
+                                       unfused_engine, label)
+    if launches["paged_attention"] != 0 or d["prefix_hits"] <= 0:
+        raise AssertionError(f"23b: {launches}, prefix_hits "
+                             f"{d['prefix_hits']}")
+    log(f"phase 23b: unfused / fused paper_demo on {label}, this call: "
+        f"tokens/s {d['tokens_per_s']:.1f} / {fused_d['tokens_per_s']:.1f} "
+        f"({d['tokens_per_s'] / fused_d['tokens_per_s']:.3f}x); TTFT p50 "
+        f"{d['ttft_p50_s'] * 1e3:.1f} / {fused_d['ttft_p50_s'] * 1e3:.1f} ms, "
+        f"p99 {d['ttft_p99_s'] * 1e3:.1f} / "
+        f"{fused_d['ttft_p99_s'] * 1e3:.1f} ms; card ms a step "
+        f"{d['card_ms']:.3f} / {fused_d['card_ms']:.3f}; host ms a step "
+        f"{host_ms:.3f} / "
+        f"{fused_d['dispatch_s'] / max(fused_d['steps'], 1) * 1e3:.3f}")
+    phase_card_bound(bcfg, bparams, dev, host_ms, label,
+                     make_engine=unfused_engine, phase="23c")
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ------------------------------------------- the bench on the card (24)
+# phase 24's trace and sweep, cut from 64 requests and 4 bisections to
+# keep phases 23-24 near 90 s: the 1 request/s probe alone spans the
+# trace's arrivals at that rate (47 s)
+BENCH_REQUESTS = 48
+BENCH_ITERS = 3
+BENCH_SLO_TTFT_S = 1.0
+
+
+def bench_trace():
+    """Phase 5's length ranges (prompts 64-512 over 4 shared 64-token
+    prefixes, 32-128 new), arriving as a Poisson process."""
+    from repro_torch.bench import synthetic_trace
+    return synthetic_trace(BENCH_REQUESTS, seed=0, vocab_size=16384,
+                           arrival="poisson", prompt_len=(64, 512),
+                           output_len=(32, 128), n_prefix_groups=4,
+                           shared_len=64)
+
+
+def bench_tiers(cfg, params, dev):
+    """The three serving tiers of phase 24, each built on this thread (the
+    one that owns the card's work; their step graphs are captured here)
+    when its turn comes."""
+    from repro_torch.serve import Router
+    return (("engine", lambda: serve_engine(cfg, params, dev)),
+            ("disagg", lambda: disagg_server(cfg, params, dev,
+                                             chunk_pages=8)),
+            ("router", lambda: Router(cfg, params, n_replicas=2, device=dev,
+                                      max_batch=8, page_size=16,
+                                      max_seq_len=1024, max_inflight=2)))
+
+
+def all_finished(results) -> bool:
+    return all(r.count("finished") == len(r.records) for r in results)
+
+
+def phase_bench(dev, bf16, label):
+    """24: TTFT under open-loop arrivals on the three serving tiers through
+    ``repro_torch.bench``, bf16 ``paper_demo`` at full width. 24a: the
+    colocated engine's saturation sweep over 1-100 requests/s (the highest
+    Poisson rate whose TTFT p99 stays under 1 s with every request
+    finished: lambda*; 100 if the SLO holds at every probe); 24b:
+    each tier at 0.5 and 0.9 lambda*, 2 untraced samples each, its SLO
+    report; 24c: one more sample a tier with a ``Recorder`` attached: the
+    cause split and a Perfetto trace under ``build/``. A tier that misses
+    the SLO is a finding; a request lost or unfinished fails the phase."""
+    from repro_torch.bench import (SLO, Replayer, rescale_qps, slo_report,
+                                   sweep_tier, to_markdown)
+    from repro_torch.obs import Recorder
+    t_phase = time.perf_counter()
+    cfg, params = bf16
+    trace = bench_trace()
+    slo = SLO(ttft_p99_s=BENCH_SLO_TTFT_S, min_finished_frac=1.0)
+    tiers = bench_tiers(cfg, params, dev)
+    rp = Replayer(tiers[0][1](), name="engine")
+    t0 = time.perf_counter()
+    sweep = sweep_tier(rp, trace, slo, lo_qps=1.0, hi_qps=100.0,
+                       iters=BENCH_ITERS, retries=1)
+    lam = sweep.max_qps
+    log(f"phase 24a: saturation sweep of the colocated engine on {label}: "
+        f"{len(trace)} requests (Poisson, prompts 64-512 over 4 shared "
+        f"64-token prefixes, 32-128 new), SLO TTFT p99 <= "
+        f"{BENCH_SLO_TTFT_S} s with every request finished: lambda* = "
+        f"{lam} requests/s"
+        + (" (the SLO held at every probe: the boundary lies past the "
+           "probed range)" if sweep.saturated_range else "")
+        + "; probes " + json.dumps(sweep.to_dict()["points"])
+        + f"; {time.perf_counter() - t0:.1f} s")
+    if lam is None:
+        rp.close()
+        raise AssertionError("24a: the engine misses the SLO even at 1 "
+                             "request/s")
+    rates = (0.5 * lam, 0.9 * lam)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(out_dir, exist_ok=True)
+    table = {}
+    for i, (name, make) in enumerate(tiers):
+        t0 = time.perf_counter()
+        if i:
+            rp = Replayer(make(), name=name)
+        for rate in rates:
+            results = rp.run(rescale_qps(trace, rate), samples=2,
+                             timeout=600.0)
+            report = slo_report(results, slo)
+            if not all_finished(results):
+                rp.close()
+                raise AssertionError(
+                    f"24b: {name} at {rate:.3f} requests/s lost or left "
+                    "requests unfinished: " + json.dumps(report["metrics"]))
+            mt = report["metrics"]
+            table[name, rate] = mt
+            log(f"phase 24b: {name} at {rate:.3f} requests/s "
+                f"({rate / lam:.1f} lambda*) on {label}: tokens/s "
+                f"{mt['tokens_per_s']['mean']:.1f} (cv "
+                f"{mt['tokens_per_s']['cv']:.3f}), goodput "
+                f"{mt['goodput_tokens_per_s']['mean']:.1f} tokens/s, TTFT "
+                f"p50 {mt['ttft_p50_s']['mean'] * 1e3:.1f} ms (cv "
+                f"{mt['ttft_p50_s']['cv']:.3f}), p99 "
+                f"{mt['ttft_p99_s']['mean'] * 1e3:.1f} ms (cv "
+                f"{mt['ttft_p99_s']['cv']:.3f}), ITL p99 "
+                f"{mt['itl_p99_s']['mean'] * 1e3:.2f} ms (cv "
+                f"{mt['itl_p99_s']['cv']:.3f}); SLO "
+                f"{'holds' if report['slo']['ok'] else 'missed'}; samples "
+                + json.dumps({k: mt[k]['values'] for k in (
+                    'tokens_per_s', 'ttft_p50_s', 'ttft_p99_s')}))
+            for line in to_markdown(report).splitlines():
+                log("  " + line)
+        rec = Recorder()
+        rp.recorder = rec
+        traced = rp.run(rescale_qps(trace, rates[1]), samples=1,
+                        timeout=600.0)
+        rp.recorder = None
+        rp.close()
+        if not all_finished(traced):
+            raise AssertionError(f"24c: {name}: a traced request did not "
+                                 "finish")
+        path = rec.write(os.path.join(out_dir, f"phase24_{name}.json"))
+        causes = rec.cause_summary()
+        log(f"phase 24c: {name}, one traced sample at {rates[1]:.3f} "
+            f"requests/s on {label}: cause split (mean a request) "
+            + json.dumps(causes) + f"; Perfetto trace {path} "
+            f"({os.path.getsize(path) / 2 ** 20:.1f} MiB); tier "
+            f"{time.perf_counter() - t0:.1f} s")
+        if causes["requests"] < len(trace) or causes["compute_ms_mean"] <= 0:
+            raise AssertionError(f"24c: {name}: trace saw {causes}")
+        free_card()
+    log(f"phase 24: TTFT under open-loop arrivals on {label}, lambda* "
+        f"{lam} requests/s: " + json.dumps({
+            f"{name}@{rate / lam:.1f}": {
+                k: round(table[name, rate][k]["mean"], 6)
+                for k in ("tokens_per_s", "ttft_p50_s", "ttft_p99_s")}
+            for name, _ in tiers for rate in rates})
+        + f"; {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------- the dense family at head_dim 120 and 128
 DANUBE_LONG = 6000     # a prompt past danube's 4096 window, 6000 % 4096 > 0
 DANUBE_CACHE = 8192    # max_cache_len of phase 15: a ring of the 4096 window
@@ -2326,7 +2565,8 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     runs on the idle engine before it shuts down (a phase's own timings;
     ``card_ms`` is the card's time of one decode step's replay). Returns
     (launches, host ms per step, the run's counts: steps, prefills,
-    suffix_steps, prefix_hits)."""
+    suffix_steps, prefix_hits, and its tokens/s, TTFT p50/p99 s and card
+    ms a step)."""
     from repro_torch.core import TensorOp
     from repro_torch.models.common import HYBRID, SSM
     from repro_torch.serve import Request, RequestState
@@ -2386,12 +2626,14 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     sites = cfg.hybrid_sites if cfg.family == HYBRID else 0
     norms = (1 if cfg.parallel_block or ssm else 2) * L + 2 * sites + 1
     attn_layers = sites if ssm else L
+    mode = ("paged + fused" if eng.fused else "paged, unfused") \
+        if eng.paged else "dense mode"
     heads = "" if cfg.family == SSM else (
         f", {cfg.padded_heads}/{cfg.padded_kv_heads} heads of hd "
         f"{cfg.resolved_head_dim}" + (f" at {sites} sites" if sites else ""))
     log(f"phase {tag}: bf16 serve of {cfg.name} ({L} layers, d "
         f"{cfg.d_model}{heads}) on {label}: "
-        f"{'paged + fused' if eng.paged else 'dense mode'}, {len(reqs)} "
+        f"{mode}, {len(reqs)} "
         f"requests, {n_tokens} tokens in {wall:.3f} s = "
         f"{n_tokens / wall:.1f} tokens/s; TTFT {ttft_ms(reqs)} (all "
         f"submitted at t=0); {steps} decode steps, "
@@ -2426,11 +2668,16 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     want = {"rmsnorm": norms * (prefills + steps),
             "flash_attention": attn_layers * cold,
             "paged_attention": L * (steps + d["suffix_steps"])
-            if eng.paged else 0,
+            if eng.fused else 0,
             "ssd_scan": L * prefills if ssm else 0}
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches}, the steps say "
                              f"{want}")
+    ttft = sorted(r.ttft for r in reqs)
+    d.update(tokens_per_s=n_tokens / wall, card_ms=card_ms,
+             ttft_p50_s=ttft[len(ttft) // 2],
+             ttft_p99_s=ttft[min(len(ttft) - 1,
+                                 round(0.99 * (len(ttft) - 1)))])
     return launches, host_ms, d
 
 
@@ -3237,7 +3484,7 @@ def main() -> int:
     summary = phase_kernels(dev, label)
     phase_graph_edges(dev)
     ident = phase_identity(dev)
-    cfg, params, launches, host_ms = phase_serve(dev, label)
+    cfg, params, launches, host_ms, fused_d = phase_serve(dev, label)
     phase_card_bound(cfg, params, dev, host_ms, label)
     phase_spec_serve(cfg, params, dev, label)
     phase_card_bound(cfg, params, dev, host_ms, label,
@@ -3265,10 +3512,15 @@ def main() -> int:
     t_phase = time.perf_counter()
     phase_router(dev, ident, bf16, label)
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    # the paper_demo paths added later run here, on phase 4's and 13's
+    # weights: unfused paged serving (23), the bench's tiers (24)
+    unfused = phase_unfused(dev, ident, bf16, fused_d, label)
+    phase_bench(dev, bf16, label)
     del ident, bf16
     free_card()
     # each serving path's launches, its counts set to 0 just before it ran
-    paths = {"paper_demo": launches, "mamba2_370m": mlaunches,
+    paths = {"paper_demo": launches, "paper_demo_unfused": unfused,
+             "mamba2_370m": mlaunches,
              "h2o_danube3_4b": phase_danube(dev, label),
              "deepseek_coder_33b": phase_deepseek(dev, label),
              **phase_wide(dev, label),

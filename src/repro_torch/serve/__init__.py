@@ -3,8 +3,8 @@
 Layers (counterparts of ``repro.serve``):
 
 * ``serve.steps``    — prefill / dense decode / batched slot decode /
-  fused paged decode, verify and suffix steps, the prefill scatter, and
-  the ``greedy_generate`` oracle.
+  paged decode, verify and suffix steps (fused and unfused), the prefill
+  scatter, and the ``greedy_generate`` oracle.
 * ``serve.graphs``   — ``StepGraph``: a fixed-shape step captured as one
   CUDA graph on the card (the counterpart of the reference's ``jax.jit``),
   run eagerly on the CPU.
@@ -54,6 +54,9 @@ from repro_torch.serve.steps import (greedy_generate,
                                      make_fused_paged_decode_step,
                                      make_fused_paged_suffix_step,
                                      make_fused_paged_verify_step,
+                                     make_paged_decode_step,
+                                     make_paged_suffix_step,
+                                     make_paged_verify_step,
                                      make_prefill_scatter, make_prefill_step)
 
 __all__ = [
@@ -63,7 +66,9 @@ __all__ = [
     "greedy_generate", "make_batched_decode_step", "make_decode_step",
     "make_fused_paged_decode_step",
     "make_fused_paged_suffix_step", "make_fused_paged_verify_step",
-    "make_prefill_scatter", "make_prefill_step", "StepGraph", "Drafter",
+    "make_paged_decode_step", "make_paged_suffix_step",
+    "make_paged_verify_step", "make_prefill_scatter", "make_prefill_step",
+    "StepGraph", "Drafter",
     "NgramDrafter", "RepeatDrafter", "ServeClient", "Session", "TokenStream",
     "EngineLike", "FairBatcher", "QuotaExceeded", "DecodeWorker",
     "DisaggServer", "KVBlockMsg", "PrefillWorker", "serve_requests_disagg",

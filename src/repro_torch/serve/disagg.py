@@ -451,13 +451,15 @@ class PrefillWorker:
         transport holds the block until the export's copy has run on the
         card, then delivers it."""
         msg = KVBlockMsg(job.req.req_id, idx, kv["k"], kv["v"])
+        # logged before the send: a block the transport delivers at once
+        # (a host tensor) is installed inside ``isend``
+        self._log("ship", job.req.req_id, idx)
         op = self.transport.isend(self.rank, self.peer,
                                   block_tag(job.req.req_id), msg)
         job.sends.append(op)
         job.shipped += 1
         self.bytes_shipped += msg.nbytes
         self.stats["blocks_shipped"] += 1
-        self._log("ship", job.req.req_id, idx)
 
     # ----------------------------------------------------------- teardown
     def _abort(self, job: _PrefillJob, notify: bool = True) -> None:

@@ -3,8 +3,11 @@
 Counterpart of ``repro/serve/engine.py`` in its two memory modes:
 
 * *paged* (default where ``paged_supported``: the dense and MoE
-  families) — fused paged steps over a shared ``PagePool`` behind per-slot
-  page tables;
+  families) — paged steps over a shared ``PagePool`` behind per-slot page
+  tables: fused (default: the paged kernel walks the tables) or, with
+  ``fused=False``, unfused (each slot's pages gathered into a contiguous
+  view for the dense decode, the written pages copied back, the verify
+  step's write targets built on the host by ``PagePool.write_table``);
 * *dense* (``paged=False``, and automatically where paged caching is not
   supported: the SSM and hybrid families and sliding-window configs) — a
   layer-stacked per-slot cache with the slots as its batch: the SSM state
@@ -21,10 +24,10 @@ sequence:
   enqueue_complete`` CR (paper §3.5) and are admitted into free slots at
   step boundaries. Paged: a cold prompt is prefilled (flash kernel) and
   its pages copied into the pool, a prompt that starts with resident
-  pages runs only its tail through the fused paged kernel (suffix
+  pages runs only its tail through the paged suffix step (suffix
   prefill). Dense: a batch-1 prefill at the prompt's exact length (SSD
   or flash kernel), written straight into the slot's rows.
-* **decode** — one step (fused paged, or the batched dense decode)
+* **decode** — one step (paged, or the batched dense decode)
   advances every occupied slot by one token. The step's next-token
   tensor is wrapped in a ``TensorOp`` whose continuation delivers the
   tokens and retires finished slots (releasing their pages) when the
@@ -33,9 +36,9 @@ sequence:
 * **speculation** (``speculate=K``, paged mode) — each iteration is a
   draft/verify pair: a host-side ``Drafter`` (n-gram prompt lookup by
   default) guesses up to K tokens per slot, and one verify step scores
-  all K+1 window rows through the fused paged kernel, accepting the
-  longest matching prefix. The accept bookkeeping runs in the verify
-  step's continuation, so the tokens equal non-speculative greedy decode.
+  all K+1 window rows, accepting the longest matching prefix. The accept
+  bookkeeping runs in the verify step's continuation, so the tokens equal
+  non-speculative greedy decode.
 
 Each decode or verify step is one ``StepGraph`` (``serve.graphs``), the
 counterpart of the reference's ``jax.jit``: on a CUDA device it is
@@ -58,9 +61,9 @@ What keeps the loop from blocking, in PyTorch terms:
   a CUDA tensor (``int()``/``.item()``/``.cpu()`` there would sync the
   stream behind the next step already queued).
 
-``fused=False`` is not ported yet. The engine refuses the audio
-enc-dec (whisper) and the VLM (internvl2) at construction, as the
-reference's refuses the first: both serve through ``serve.steps``.
+The engine refuses the audio enc-dec (whisper) and the VLM (internvl2)
+at construction, as the reference's refuses the first: both serve
+through ``serve.steps``.
 """
 from __future__ import annotations
 
@@ -87,10 +90,11 @@ from repro_torch.serve.steps import (make_batched_decode_step,
                                      make_fused_paged_decode_step,
                                      make_fused_paged_suffix_step,
                                      make_fused_paged_verify_step,
+                                     make_paged_decode_step,
+                                     make_paged_suffix_step,
+                                     make_paged_verify_step,
                                      make_prefill_scatter, make_prefill_step)
 from repro_torch.util import resolve_device
-
-_NOT_PORTED = "not yet ported; see ROADMAP"
 
 # every step/prefill registration: never take the immediate-completion
 # fast path, so bookkeeping always runs through the continuation machinery
@@ -161,8 +165,6 @@ class ServeEngine:
                 "VLM whose prefill needs image patches: serve it through "
                 "serve.steps (make_prefill_step with batch['patches'], then "
                 "make_decode_step at n_patches + S)")
-        if fused is False:
-            raise NotImplementedError(f"fused=False is {_NOT_PORTED}")
         lm.require_ported(cfg)
         if paged is None:
             paged = paged_supported(cfg)
@@ -188,7 +190,7 @@ class ServeEngine:
         self.max_cache_len = int(max_cache_len)
         self.max_inflight = max(1, int(max_inflight))
         self.paged = bool(paged)
-        self.fused = self.paged
+        self.fused = bool(fused) if fused is not None else self.paged
         self.speculate = max(0, int(speculate))
         self.drafter = drafter if drafter is not None else NgramDrafter()
         self._own_engine = engine is None
@@ -201,10 +203,14 @@ class ServeEngine:
         i32 = dict(dtype=torch.int32, device=self.device)
         # static step inputs, written in place and never rebound: the next
         # input token of each slot, and one buffer holding the positions
-        # (and, paged, the n_valid and drafts) of a step, uploaded in one
-        # copy
+        # (and, paged, the n_valid and drafts; unfused verify, the write
+        # tables) of a step, uploaded in one copy
         self._tokens = torch.zeros((S, 1, 1), **i32)
-        self._meta = torch.zeros(2 * S + S * K, **i32)
+        # pages an unfused verify window writes (the write tables' width)
+        self._verify_pages = 1 + pages_for(K, page_size) \
+            if K and self.paged and not self.fused else 0
+        self._meta = torch.zeros(2 * S + S * K + S * self._verify_pages,
+                                 **i32)
         self.pool: Optional[PagePool] = None
         self._cache: Optional[dict] = None
         # dense mode: the most tokens (prompt + new) a request may hold
@@ -233,16 +239,30 @@ class ServeEngine:
             # last dispatch
             self._tables_dev = torch.tensor(self._tables, device=self.device)
             self._tables_dirty = False
-            self._decode_fn = make_fused_paged_decode_step(
-                cfg, self.page_size, self._layers)
-            self._suffix_fn = make_fused_paged_suffix_step(
-                cfg, self.page_size, self._layers)
             self._scatter_fn = make_prefill_scatter(cfg, self.page_size)
             # every n_valid is 0 until a dispatch: the warm-up of a capture
-            # writes no page
+            # writes no page. The unfused steps write every slot, each
+            # through a table (and, verify, write tables) naming only the
+            # null page until then
+            if self.fused:
+                self._decode_fn = make_fused_paged_decode_step(
+                    cfg, self.page_size, self._layers)
+                self._suffix_fn = make_fused_paged_suffix_step(
+                    cfg, self.page_size, self._layers)
+                if K:
+                    self._verify_fn = make_fused_paged_verify_step(
+                        cfg, self.page_size, K, self._layers)
+            else:
+                self._decode_fn = make_paged_decode_step(
+                    cfg, self.page_size, return_tokens=True,
+                    layers=self._layers)
+                self._suffix_fn = make_paged_suffix_step(
+                    cfg, self.page_size, self._layers)
+                if K:
+                    self._verify_fn = make_paged_verify_step(
+                        cfg, self.page_size, K, self._layers)
+                    self._meta[2 * S + S * K:] = self.pool.null_page
             if K:
-                self._verify_fn = make_fused_paged_verify_step(
-                    cfg, self.page_size, K, self._layers)
                 self._verify_graph = StepGraph(self._verify_step,
                                                self.device)
             else:
@@ -347,12 +367,14 @@ class ServeEngine:
 
     # ------------------------------------------------------------ step graphs
     def _paged_step(self) -> torch.Tensor:
-        """The fused paged decode over the static buffers; the next tokens
-        become the next inputs in place."""
+        """The paged decode over the static buffers (the unfused step reads
+        no n_valid); the next tokens become the next inputs in place."""
         S = self.max_batch
-        nxt, _ = self._decode_fn(self.params, self.pool.arrays, self._tokens,
-                                 self._meta[:S], self._tables_dev,
-                                 self._meta[S:2 * S])
+        args = (self.params, self.pool.arrays, self._tokens, self._meta[:S],
+                self._tables_dev)
+        if self.fused:
+            args += (self._meta[S:2 * S],)
+        nxt, _ = self._decode_fn(*args)
         self._tokens.copy_(nxt[..., None])
         return nxt
 
@@ -367,15 +389,22 @@ class ServeEngine:
         return nxt
 
     def _verify_step(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The fused paged verify over the static buffers. The next input
-        tokens are set by the verify continuation, once the accepted runs
-        are known on the host."""
+        """The paged verify over the static buffers; the unfused step takes
+        the write tables and each slot's draft count (n_valid - 1, 0 when
+        idle) besides. The next input tokens are set by the verify
+        continuation, once the accepted runs are known on the host."""
         S, K = self.max_batch, self.speculate
-        tokens = torch.cat([self._tokens,
-                            self._meta[2 * S:].view(S, 1, K)], dim=2)
-        emitted, accepts, _ = self._verify_fn(
-            self.params, self.pool.arrays, tokens, self._meta[:S],
-            self._tables_dev, self._meta[S:2 * S])
+        drafts = self._meta[2 * S:2 * S + S * K]
+        tokens = torch.cat([self._tokens, drafts.view(S, 1, K)], dim=2)
+        args = (self.params, self.pool.arrays, tokens, self._meta[:S],
+                self._tables_dev)
+        n_valid = self._meta[S:2 * S]
+        if self.fused:
+            args += (n_valid,)
+        else:
+            args += (self._meta[2 * S + S * K:].view(S, self._verify_pages),
+                     torch.clamp(n_valid - 1, min=0))
+        emitted, accepts, _ = self._verify_fn(*args)
         return emitted, accepts
 
     # ---------------------------------------------------------- slot state
@@ -514,24 +543,43 @@ class ServeEngine:
             # prefix hit: shared pages already hold positions [0, m*ps);
             # one suffix-prefill call runs the remaining prompt tokens
             # against them. The tail is padded to a page multiple; the
-            # kernel writes rows [0, tail) only, all into owned pages.
+            # fused kernel writes rows [0, tail) only, all into owned
+            # pages; the unfused step copies back owned pages only (its
+            # scatter table names the null page for shared ones and the
+            # padding), and the pad rows' writes past the prompt are
+            # overwritten by the decode at those positions before any row
+            # attends to them.
             pool.stats["prefix_hits"] += 1
             pool.stats["prefix_tokens_reused"] += len(shared) * ps
             start = len(shared) * ps
             tail = plen - start
             padded = pages_for(tail, ps) * ps
-            # one upload for all operands: tokens | position | table | n
-            ops = np.zeros(padded + 2 + self._table_pages, np.int32)
-            ops[:tail] = prompt_np[0, start:]
-            ops[padded] = start
-            ops[padded + 1] = tail
-            ops[padded + 2:] = self.pool.null_page
-            ops[padded + 2:padded + 2 + len(table)] = table
-            dev = self._upload(ops)
-            logits, _ = self._suffix_fn(
-                self.params, pool.arrays, dev[:padded].view(1, padded),
-                dev[padded:padded + 1], dev[padded + 2:].view(1, -1),
-                dev[padded + 1:padded + 2])
+            T = self._table_pages
+            if self.fused:
+                # one upload for all operands: tokens | position | table | n
+                ops = np.zeros(padded + 2 + T, np.int32)
+                ops[:tail] = prompt_np[0, start:]
+                ops[padded] = start
+                ops[padded + 1] = tail
+                ops[padded + 2:] = self.pool.null_page
+                ops[padded + 2:padded + 2 + len(table)] = table
+                dev = self._upload(ops)
+                logits, _ = self._suffix_fn(
+                    self.params, pool.arrays, dev[:padded].view(1, padded),
+                    dev[padded:padded + 1], dev[padded + 2:].view(1, -1),
+                    dev[padded + 1:padded + 2])
+            else:
+                # one upload: tokens | gather table | scatter table
+                ops = np.full(padded + 2 * T, self.pool.null_page, np.int32)
+                ops[:padded] = 0
+                ops[:tail] = prompt_np[0, start:]
+                ops[padded:padded + len(table)] = table
+                ops[padded + T + len(shared):padded + T + len(table)] = \
+                    table[len(shared):]
+                dev = self._upload(ops)
+                logits, _ = self._suffix_fn(
+                    self.params, pool.arrays, dev[:padded].view(1, padded),
+                    start, dev[padded:padded + T], dev[padded + T:])
             self.stats["suffix_steps"] += 1
             self.stats["suffix_tokens"] += tail
             first = torch.argmax(logits[:, tail - 1], dim=-1)
@@ -709,17 +757,24 @@ class ServeEngine:
         self._sweep_dead(live)
         if not live:
             return False
-        S, K = self.max_batch, self.speculate
-        # positions | n_valid (1 + live drafts, 0 idle) | drafts (S, K):
+        S, K, W = self.max_batch, self.speculate, self._verify_pages
+        # positions | n_valid (1 + live drafts, 0 idle) | drafts (S, K),
+        # unfused also | write tables (S, W), null for slots not verified:
         # one upload into the static buffer
-        meta = np.zeros(2 * S + S * K, np.int32)
+        meta = np.zeros(2 * S + S * K + S * W, np.int32)
         meta[:S] = self._pos
         n_drafts = np.zeros(S, np.int32)
+        if W:
+            wtables = meta[2 * S + S * K:].reshape(S, W)
+            wtables[:] = self.pool.null_page
         for i, r in live:
             d = self._slot_drafts(i, r)
             n_drafts[i] = len(d)
             meta[S + i] = 1 + len(d)
             meta[2 * S + i * K:2 * S + i * K + len(d)] = d
+            if W:
+                wtables[i] = self.pool.write_table(r.page_ids,
+                                                   int(self._pos[i]), W)
         self._upload(meta, out=self._meta)
         self._refresh_tables()
         emitted, accepts = self._verify_graph()

@@ -18,7 +18,9 @@ total_pages + 1, page_size, kv_heads, head_dim)`` with index
 All mutation happens on the engine loop thread; the device arrays are
 updated in place by the serving steps on one stream, and by
 ``import_page`` (disaggregated serving: pages shipped from a prefill
-role's pool with ``export_page``).
+role's pool with ``export_page``). Those two are the counterparts of the
+reference's ``_page_slice`` and ``_page_install``; ``write_table`` builds
+the unfused verify step's scatter targets on the host.
 """
 from __future__ import annotations
 
@@ -167,6 +169,29 @@ class PagePool:
                     self._prefix.pop(key, None)
                 self._free.append(p)
                 self.stats["released"] += 1
+
+    # ------------------------------------------------- speculative writes
+    def write_table(self, page_ids: Sequence[int], pos: int,
+                    width: int) -> np.ndarray:
+        """Scatter targets of an unfused verify step whose write window
+        starts at ``pos`` and spans ``width`` pages (``1 + ceil(K /
+        page_size)`` for K drafts): entry ``j`` is the page holding
+        positions from ``(pos // page_size + j) * page_size``, or the
+        scratch page past the request's reserved footprint.
+
+        The window may reach up to K positions past the token budget (the
+        padded drafts of a nearly finished request); nulling those entries
+        sends that KV to the scratch page, so a rejected tail never lands
+        in a real page. Rejected writes inside the footprint are rolled
+        back by position: the engine advances ``pos`` only by the accepted
+        run, and the next window overwrites them before the causal mask
+        reaches them."""
+        out = np.full(width, self.null_page, np.int32)
+        first = int(pos) // self.page_size
+        for j in range(width):
+            if first + j < len(page_ids):
+                out[j] = page_ids[first + j]
+        return out
 
     # -------------------------------------------------------- prefix reuse
     def prefix_keys(self, tokens: Any,

@@ -81,6 +81,9 @@ def test_step_graph_runs_eagerly_on_the_cpu():
     ("paper_demo", dict(page_size=8, max_seq_len=64)),
     ("paper_demo", dict(page_size=8, max_seq_len=64, speculate=3)),
     ("mamba2_370m", dict(max_cache_len=64)),
+    ("paper_demo", dict(page_size=8, max_seq_len=64, fused=False)),
+    ("paper_demo", dict(page_size=8, max_seq_len=64, speculate=3,
+                        fused=False)),
 ])
 def test_engine_steps_through_static_buffers(name, kw):
     """Every decode or verify step is one ``StepGraph`` call on buffers
@@ -276,3 +279,93 @@ def test_serve_client_replays_from_its_loop_thread_on_card(card):
     for p, r, g in zip(prompts, reqs, got):
         n = _tie_free(cfg, params, p, np.asarray(r.tokens))
         assert g[:n] == r.tokens[:n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("speculate", [0, 3])
+def test_unfused_step_graph_equals_the_eager_step_on_card(card, speculate):
+    """``fused=False``: a replay of the captured unfused decode (or verify)
+    step gives the eager step's outputs and pool on the same inputs, with
+    no paged kernel in it and no host sync (sync debug mode "error"
+    around the replay and a whole serve); the served tokens are greedy's
+    up to the first near tie."""
+    cfg, params = _card_model(card)
+    eng = ServeEngine(cfg, params, device=card, max_batch=4, page_size=16,
+                      max_seq_len=128, speculate=speculate, fused=False)
+    graph = eng._verify_graph if speculate else eng._decode_graph
+    assert graph.graph is not None and not eng.fused
+    assert dict((m.__name__, n) for m, n in graph.launches) == {
+        rmsnorm.__name__: 2 * cfg.n_layers + 1}
+    # a live-looking step on the static buffers: four slots at mixed
+    # positions over disjoint pages, drafts and write tables for verify
+    S, T, null = eng.max_batch, eng._table_pages, eng.pool.null_page
+    gen = torch.Generator(device=card).manual_seed(0)
+    for t in eng.pool.arrays.values():
+        t.normal_(generator=gen)
+    pos = torch.tensor([3, 40, 77, 120], dtype=torch.int32)
+    pages = torch.randperm(eng.pool.total_pages)[:S * eng.max_pages]
+    tables = torch.full((S, T), null, dtype=torch.int32)
+    tables[:, :eng.max_pages] = pages.view(S, -1).to(torch.int32)
+    eng._tables_dev.copy_(tables)
+    eng._tokens.copy_(torch.randint(0, cfg.vocab_size, (S, 1, 1),
+                                    generator=gen, device=card))
+    meta = torch.zeros(eng._meta.shape[0], dtype=torch.int32)
+    meta[:S] = pos
+    meta[S:2 * S] = 1 + speculate
+    if speculate:
+        K, W = speculate, eng._verify_pages
+        meta[2 * S:2 * S + S * K] = torch.randint(0, cfg.vocab_size, (S * K,))
+        for s in range(S):
+            meta[2 * S + S * K + s * W:2 * S + S * K + (s + 1) * W] = \
+                torch.from_numpy(eng.pool.write_table(
+                    tables[s].tolist(), int(pos[s]), W))
+    eng._meta.copy_(meta.to(card))
+    start = [t.clone() for t in (eng._tokens, *eng.pool.arrays.values())]
+
+    def run(fn):
+        for t, t0 in zip((eng._tokens, *eng.pool.arrays.values()), start):
+            t.copy_(t0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+            out = [o.clone() for o in (out if speculate else (out,))]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, [t[:, :null].clone() for t in eng.pool.arrays.values()]
+
+    replayed, replay_pool = run(graph)
+    eager, eager_pool = run(graph.fn)
+    for a, b in zip(replayed, eager):
+        assert torch.equal(a, b)
+    for a, b, t0 in zip(replay_pool, eager_pool, start[1:]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        assert not torch.equal(a, t0[:, :null])
+    # then a serve from a clean pool, under sync debug mode "error"
+    eng.shutdown()
+    eng = ServeEngine(cfg, params, device=card, max_batch=4, page_size=16,
+                      max_seq_len=128, speculate=speculate, fused=False)
+    graph = eng._verify_graph if speculate else eng._decode_graph
+    prompts = [np.tile(np.array([101, 7, 3000, 7]), 10)] + _prompts(
+        9, cfg.vocab_size, (33, 70))
+    reqs = [Request(p, 24) for p in prompts]
+    paged_attention.LAUNCHES = 0
+    for r in reqs:
+        eng.submit(r)
+    eng.close_intake()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run(timeout=120)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert graph.replays == eng.stats["steps"] > 0
+    assert paged_attention.LAUNCHES == 0
+    assert eng.metrics()["pages_in_use"] == 0
+    for p, r in zip(prompts, reqs):
+        want = greedy_generate(cfg, params, p[None], 24, 128,
+                               device=card)[0].tolist()
+        n = _tie_free(cfg, params, p, np.asarray(want))
+        assert r.tokens[:n] == want[:n]
+    eng.shutdown()

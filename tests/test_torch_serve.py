@@ -202,15 +202,19 @@ def test_capacity_deferral_serves_everything(model):
 
 
 def test_unported_options_and_missing_cuda_raise(model):
-    """``fused=False`` still raises; dense mode for the dense family
+    """``fused=False`` constructs the unfused paged engine, and fused steps
+    without paging raise; dense mode for the dense family
     constructs, and refuses speculation as in the reference; paged
     ``speculate=2`` constructs, and on the SSM config (dense mode) it
     raises as in the reference; an SSM config constructs, in dense mode,
     and refuses the paged cache it has no use for; a sliding-window config
     takes dense mode by itself."""
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServeEngine(tcfg, tp, device="cpu", fused=False)
+    eng = ServeEngine(tcfg, tp, device="cpu", fused=False)
+    assert eng.paged and not eng.fused and not eng.metrics()["fused"]
+    eng.shutdown()
+    with pytest.raises(ValueError, match="require paged=True"):
+        ServeEngine(tcfg, tp, device="cpu", paged=False, fused=True)
     eng = ServeEngine(tcfg, tp, device="cpu", paged=False)
     assert not eng.paged and eng.pool is None
     eng.shutdown()
