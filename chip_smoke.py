@@ -210,19 +210,43 @@ every pool must end with no page in use.
    goodput, TTFT p50/p99, ITL p99, the cv of each), every request
    finished; 24c one more sample a tier with an ``obs.Recorder``: the
    cause split (queue delay, compute, KV shipping, notify latency) and a
-   Perfetto trace under ``build/``.
+   Perfetto trace under ``build/``;
+25. training ``paper_demo`` at full width in fp32 (TF32 off) through
+   the kernels forward and backward: 25a one train step on the card
+   against the same step on the CPU (plain versions) from one converted
+   state and batch (B 2 x 512; loss, grad_norm and the largest per-leaf
+   difference of params, m and v over the leaf's max, held to 1e-4);
+   25b ``launch.train`` for 30 steps of 8 x 1024 tokens, a checkpoint
+   every 10, its loop under sync debug mode "error": card and host ms a
+   step, tokens/s, model FLOP/s against fp32's peak, one step's card time
+   by kernel family, peak memory, the first and last loss (it must
+   fall), and exactly 25 rmsnorm and 12 flash launches each way a step;
+   25c the loop behind a sleep ahead of each step: at least 90% of the
+   loss readbacks and every checkpoint's copies pending at first poll;
+   25d a restart from the step-10 checkpoint, 2 steps in deterministic
+   mode, bit-equal to the uninterrupted run.
+
+Phase 3 also holds the two backward kernels (no TPU counterpart) at the
+training step's shape, in fp32 and bf16: rmsnorm's at 8192 rows of 768
+against ``rmsnorm_backward_plain`` (library: ``F.rms_norm``'s autograd
+backward), flash's at B 8, 1024 causal rows, 12/4 heads of 64 against
+``attention_backward_plain`` in fp32 (library: SDPA forward and backward
+by autograd), each output's error over max(1, its largest magnitude).
 
 Phases 23 and 24 run right after 14, on phase 4's and 13's weights.
 Each phase's weights are freed before the next. Each serve phase sets
 the kernels' launch counts to 0 just before it drives its path and reads
 them just after; a step graph adds its kernels' launches back on every
-replay. The kernels JSON has one entry per kernel and serving path that
-ran it (phase 5 ``paper_demo``, 23b ``paper_demo_unfused``, 8
-``mamba2_370m``, 15b-22b): that path's
+replay. The kernels JSON has one entry per kernel and path that ran it
+(phase 5 ``paper_demo``, 23b ``paper_demo_unfused``, 8
+``mamba2_370m``, 15b-22b, and 25b ``train``, the only path of the two
+backward kernels; every serving path must show none of their
+launches): that path's
 launches beside the phase 3 case at its shape (a decode step's rows for
 rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
 danube's 6144 rows for its windowed flash, whisper's encoder over 1500
-frames, internvl2's 1536 prefill rows); each kernel's row is its
+frames, internvl2's 1536 prefill rows; the training step's shapes in
+fp32 for ``train``, bf16 for the others); each kernel's row is its
 first path's entry, with every path's entry under ``paths``. The
 next-to-last line is the kernels JSON, the last line the device JSON.
 """
@@ -261,6 +285,15 @@ SOURCES = {
                         "src/repro/kernels/paged_attention/kernel.py:141"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:68"),
+    # the backward kernels have no TPU counterpart: each is the gradient of
+    # the TPU kernel named (the JAX package differentiates its reference)
+    "rmsnorm_backward": ("src/repro_torch/csrc/rmsnorm.cu",
+                         "src/repro/kernels/rmsnorm/kernel.py:41 (gradient;"
+                         " no TPU backward kernel)"),
+    "flash_attention_backward": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:105 (gradient; no TPU "
+        "backward kernel)"),
 }
 
 
@@ -455,6 +488,97 @@ def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0,
                 + ("causal" if causal else "non-causal")
                 + (f" window={window}" if window else ""),
                 head_dim=D)
+
+
+def grad_err(got, want) -> float:
+    """The largest error over a backward's outputs, each output's max abs
+    error over max(1, its plain version's largest magnitude): a dscale sums
+    thousands of rows, a dq or dk is near 1 (so the abs error there)."""
+    return max(max_err(g, w) / max(1.0, float(w.float().abs().max()))
+               for g, w in zip(got, want))
+
+
+def check_rmsnorm_bwd(dtype, rows, D, gen, dev):
+    """The rmsnorm backward kernel against ``rmsnorm_backward_plain`` (fp32
+    arithmetic on the same inputs); the library yardstick is
+    ``F.rms_norm``'s autograd backward alone (its forward graph kept)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as K
+    x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+    scale = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    dy = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+    got = K.rmsnorm_backward(x, scale, dy)
+    want = K.rmsnorm_backward_plain(x, scale, dy)
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    xl = x.clone().requires_grad_()
+    wl = scale.to(dtype).requires_grad_()
+    y = F.rms_norm(xl, (D,), wl, 1e-5)
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        y, (xl, wl), dy, retain_graph=True)
+    item = x.element_size()
+    return dict(err=grad_err(got, want), grads=dict(zip(("dx", "dscale"),
+                                                        errs)),
+                ms=median_ms(lambda: K.rmsnorm_backward(x, scale, dy)),
+                plain_ms=median_ms(lambda: K.rmsnorm_backward_plain(
+                    x, scale, dy)),
+                library_ms=median_ms(library),
+                bound=bound_ms(3 * rows * D * item + 2 * 4 * D,
+                               10 * rows * D, dtype),
+                shape=f"({rows}, {D}) backward")
+
+
+def check_flash_bwd(dtype, gen, dev, B=8, S=1024, H=12, KV=4, D=64,
+                    causal=True):
+    """The flash backward kernel against ``attention_backward_plain`` in
+    fp32 on the same (dtype-valued) inputs, from the forward kernel's
+    output and log-sum-exp; the library yardstick is SDPA's forward and
+    backward by autograd (its backward alone is logged beside it). The
+    bound counts the five products a backward needs (S again, dP, dV, dK,
+    dQ) and q, k, v, o, dO, lse read, dq, dk, dv written once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as K
+    kw = dict(causal=causal)
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+    do = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    o, lse = K._launch(q, k, v, causal, 0, 0, D ** -0.5,
+                       _build.DTYPE_CODES[dtype], with_lse=True)
+    got = K.attention_backward(q, k, v, o, lse, do, **kw)
+    plain_lse = K.attention_lse_plain(q, k, **kw)
+    o32 = K.attention_plain(q.float(), k.float(), v.float(), **kw)
+    want = K.attention_backward_plain(q.float(), k.float(), v.float(), o32,
+                                      plain_lse, do.float(), **kw)
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    err = grad_err(got, want)
+    lse_err = max_err(lse, plain_lse)
+    del o32, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True), (qt, kt, vt), dot)
+    y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True)
+    sdpa_bwd = median_ms(lambda: torch.autograd.grad(
+        y, (qt, kt, vt), dot, retain_graph=True), runs=10)
+    item = q.element_size()
+    pairs = B * (S * (S + 1) // 2 if causal else S * S)
+    return dict(err=max(err, lse_err), grads=dict(zip(("dq", "dk", "dv"),
+                                                      errs), lse=lse_err),
+                ms=median_ms(lambda: K.attention_backward(q, k, v, o, lse,
+                                                          do, **kw),
+                             runs=10),
+                plain_ms=median_ms(lambda: K.attention_backward_plain(
+                    q, k, v, o, lse, do, **kw), runs=10),
+                library_ms=median_ms(library, runs=10),
+                sdpa_bwd_ms=sdpa_bwd,
+                bound=bound_ms((4 * B * S * H * D + 4 * B * S * KV * D) * item
+                               + 4 * B * H * S, 10 * H * D * pairs, dtype),
+                shape=f"B={B} Sq=Sk={S} H={H} KV={KV} D={D} "
+                + ("causal" if causal else "non-causal") + " backward")
 
 
 def paged_case(kind, dtype, gen, dev, KV=4, G=3, hd=64):
@@ -662,6 +786,11 @@ VLM_SHAPES = dict(d=6144, H=48, KV=8, hd=128, rows=1536, batch=4)
 # the paths whose decode steps run paper_demo's shapes: paged + fused (5)
 # and paged, unfused (23b)
 PAPER_PATHS = ("paper_demo", "paper_demo_unfused")
+# the training path (phase 25b) runs in fp32: the kernels JSON reports its
+# fp32 cases, every serving path's bf16 ones
+FP32_PATHS = ("train",)
+# paper_demo's training step in phase 25b: global batch 8 of 1024 tokens
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 
 
 def phase_kernels(dev, label):
@@ -711,6 +840,16 @@ def phase_kernels(dev, label):
                                                      dev)),
             ("rmsnorm", None, check_rmsnorm(dtype, 512, 1024, gen, dev)),
             ("flash_attention", PAPER_PATHS, check_flash(dtype, gen, dev)),
+            # paper_demo's training step (phase 25b; fp32 there): both
+            # kernels forward and backward at its 8 x 1024 rows
+            ("rmsnorm", "train", check_rmsnorm(
+                dtype, TRAIN_BATCH * TRAIN_SEQ, 768, gen, dev)),
+            ("flash_attention", "train", check_flash(
+                dtype, gen, dev, B=TRAIN_BATCH, S=TRAIN_SEQ)),
+            ("rmsnorm_backward", "train", check_rmsnorm_bwd(
+                dtype, TRAIN_BATCH * TRAIN_SEQ, 768, gen, dev)),
+            ("flash_attention_backward", "train", check_flash_bwd(
+                dtype, gen, dev, B=TRAIN_BATCH, S=TRAIN_SEQ)),
             ("paged_attention", "paper_demo", check_paged("decode", dtype,
                                                           gen, dev)),
             ("paged_attention", None, check_paged("suffix", dtype, gen, dev)),
@@ -820,14 +959,21 @@ def phase_kernels(dev, label):
                    if "device" in r else "")
                 + (" | device time by grid: " + ", ".join(
                     f"{re.search(r'ssd_\w+', n).group(0)} {t:.4f} ms"
-                    for n, t in r["grids"].items()) if "grids" in r else ""))
+                    for n, t in r["grids"].items()) if "grids" in r else "")
+                + (" | each output's max abs error: " + ", ".join(
+                    f"{n} {e:.3g}" for n, e in r["grads"].items())
+                   + " (the error above is each over max(1, its largest "
+                   "|plain|))" if "grads" in r else "")
+                + (f" | SDPA backward alone {r['sdpa_bwd_ms']:.4f} ms"
+                   if "sdpa_bwd_ms" in r else ""))
             if not ok:
                 bad.append(f"{name} {dtype} {r['shape']}: {r}")
-            # the JSON line reports the bf16 run at each path's shape: a
-            # decode step's for rmsnorm and paged, a prompt's for flash
-            # (whisper's: a decode step's cross-attention) and the SSD scan
-            if dtype is torch.bfloat16 and path:
-                for one in (path if isinstance(path, tuple) else (path,)):
+            # the JSON line reports each path's run in its dtype (bf16 for
+            # serving, fp32 for training) at its shape: a decode step's for
+            # rmsnorm and paged, a prompt's for flash (whisper's: a decode
+            # step's cross-attention) and the SSD scan, the training step's
+            for one in (path if isinstance(path, tuple) else (path,)):
+                if one and (dtype is torch.float32) == (one in FP32_PATHS):
                     summary[name, one] = r
     if bad:
         raise AssertionError("kernels that disagree with their plain "
@@ -835,7 +981,9 @@ def phase_kernels(dev, label):
     log("kernels: " + json.dumps({
         "rmsnorm": rmsnorm.LAUNCHES, "flash_attention":
         flash_attention.LAUNCHES, "paged_attention":
-        paged_attention.LAUNCHES, "ssd_scan": ssd_scan.LAUNCHES}))
+        paged_attention.LAUNCHES, "ssd_scan": ssd_scan.LAUNCHES,
+        "rmsnorm_backward": rmsnorm.BACKWARD_LAUNCHES,
+        "flash_attention_backward": flash_attention.BACKWARD_LAUNCHES}))
     return summary
 
 
@@ -1240,7 +1388,9 @@ def phase_card_bound(cfg, params, dev, host_ms, label, make_engine=None,
             "still running at their first poll: the host waited on the card")
 
 
-FAMILIES = [("paged_attention", ("paged_attn",)),
+FAMILIES = [("flash_attention backward", ("flash_bwd",)),
+            ("rmsnorm backward", ("rmsnorm_bwd",)),
+            ("paged_attention", ("paged_attn",)),
             ("flash_attention", ("flash_fwd",)),
             ("ssd_scan", ("ssd_",)),
             ("depthwise conv", ("depthwise", "cudnn", "fprop", "conv1d",
@@ -2436,13 +2586,29 @@ def kernel_modules():
                                    paged_attention, ssd_scan)))
 
 
+#: the backward kernels, counted by their forward's module
+BACKWARD_NAMES = ("rmsnorm_backward", "flash_attention_backward")
+
+
+def backward_modules():
+    from repro_torch.kernels import flash_attention, rmsnorm
+    return dict(zip(BACKWARD_NAMES, (rmsnorm, flash_attention)))
+
+
 def zero_counts() -> None:
     for m in kernel_modules().values():
         m.LAUNCHES = 0
+    for m in backward_modules().values():
+        m.BACKWARD_LAUNCHES = 0
+
 
 
 def read_counts() -> dict:
-    return {name: m.LAUNCHES for name, m in kernel_modules().items()}
+    """Every kernel's launches since ``zero_counts``, the backward kernels'
+    too (a serving path must show 0 of those)."""
+    return {**{name: m.LAUNCHES for name, m in kernel_modules().items()},
+            **{name: m.BACKWARD_LAUNCHES
+               for name, m in backward_modules().items()}}
 
 
 def danube_engine(cfg, params, dev, max_batch=8):
@@ -2669,7 +2835,8 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
             "flash_attention": attn_layers * cold,
             "paged_attention": L * (steps + d["suffix_steps"])
             if eng.fused else 0,
-            "ssd_scan": L * prefills if ssm else 0}
+            "ssd_scan": L * prefills if ssm else 0,
+            **dict.fromkeys(BACKWARD_NAMES, 0)}   # serving: no gradient
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches}, the steps say "
                              f"{want}")
@@ -3209,7 +3376,7 @@ def whisper_serve(dev, label):
     want = {"rmsnorm": 2 * cfg.n_enc_layers + 1 + (3 * cfg.n_dec_layers + 1)
             * (2 + n), "flash_attention": cfg.n_enc_layers
             + cfg.n_dec_layers * (2 + n), "paged_attention": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, **dict.fromkeys(BACKWARD_NAMES, 0)}
     eager = greedy_eager(lambda t, p: decode(params, eager_state, t, p)[0],
                          first, 1, n)
     if not torch.equal(eager, replayed):
@@ -3390,7 +3557,8 @@ def vlm_serve(dev, label):
     launches = read_counts()
     L = cfg.n_layers
     want = {"rmsnorm": (2 * L + 1) * (2 + n), "flash_attention": L,
-            "paged_attention": 0, "ssd_scan": 0}
+            "paged_attention": 0, "ssd_scan": 0,
+            **dict.fromkeys(BACKWARD_NAMES, 0)}
     if launches != want:
         raise AssertionError(f"22b: launches {launches}, one prefill, the "
                              f"capture's eager step and {n} replays say "
@@ -3459,10 +3627,277 @@ def phase_vlm(dev, label):
     return launches
 
 
+# ------------------------------------------------------------ phase 25
+TRAIN_STEPS = 30       # 25b: launch.train's steps, a checkpoint every 10
+TRAIN_CKPT_EVERY = 10
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 512   # 25a's step (the CPU's too)
+NOWAIT_STEPS = 6       # 25c: steps behind a sleep, a checkpoint every 3
+RESTART_AT, RESTART_STEPS = 10, 12            # 25d
+
+
+def tree_rel_diff(a, b, where=None) -> float:
+    """The largest per-leaf difference of two like trees, each over its
+    leaf's largest magnitude (``b`` the reference); with ``where`` (a like
+    tree of masks) only at the masked elements."""
+    from repro_torch.optim.tree import tree_leaves
+    masks = tree_leaves(where) if where is not None else None
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+        x, y = x.detach().cpu().float(), y.detach().cpu().float()
+        d = (x - y).abs()
+        if masks is not None:
+            d = d[masks[i]]
+        if d.numel():
+            worst = max(worst, float(d.max())
+                        / max(float(y.abs().max()), 1e-30))
+    return worst
+
+
+#: AdamW's first update of an element is lr * g / (|g| + eps): where |g| is
+#: near eps (1e-8) it turns on the gradient's last bits, so two correct
+#: steps that sum in other orders differ there by up to 2 lr (so does the
+#: CPU against itself at another thread count). 25a holds
+#: the params where |g| is above 100 eps, and everywhere the gradient
+#: itself (through m = 0.1 g and v = 0.05 g^2)
+WELL_CONDITIONED_GRAD = 1e-6
+
+
+def train_step_check(dev):
+    """25a: one fp32 step at full width on the card (the kernels, forward
+    and backward) against the same step on the CPU (the plain versions),
+    from one converted state and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = get_config("paper_demo", dtype=torch.float32,
+                     param_dtype=torch.float32)
+    opt = OptConfig()
+    tree = tree_map(lambda t: t.numpy(), init_train_state(
+        cfg, opt, seed=0, device="cpu"))
+    card = train_state_from_numpy(tree, cfg, dev)
+    host = train_state_from_numpy(tree, cfg, "cpu")
+    del tree
+    tokens = torch.from_numpy(SyntheticTokenSource(
+        cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, seed=0).make_batch(0)[
+            "tokens"])
+    step = make_train_step(cfg, opt)
+    t0 = time.perf_counter()
+    card, mg = step(card, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, mc = step(host, {"tokens": tokens})
+    host_s = time.perf_counter() - t0
+    part = {"params": lambda st: st["params"],
+            "m": lambda st: st["opt"]["m"], "v": lambda st: st["opt"]["v"]}
+    diffs = {k: tree_rel_diff(f(card), f(host)) for k, f in part.items()}
+    # m = (1 - b1) g after one step
+    sure = tree_map(lambda m: m.abs() > (1 - opt.b1) * WELL_CONDITIONED_GRAD,
+                    host["opt"]["m"])
+    held = {"params where |g| > 1e-6": tree_rel_diff(
+        card["params"], host["params"], sure),
+        "m": diffs["m"], "v": diffs["v"]}
+    worst = max(held.values())
+    log(f"phase 25a: one fp32 train step of paper_demo at full width "
+        f"(B {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}), card (kernels) vs "
+        f"CPU (plain versions) from one converted state: loss "
+        f"{float(mg['loss']):.6f} vs {float(mc['loss']):.6f}, grad_norm "
+        f"{float(mg['grad_norm']):.6f} vs {float(mc['grad_norm']):.6f}; "
+        "largest per-leaf difference over the leaf's max: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in held.items())
+        + f" (tol 1e-4); params everywhere {diffs['params']:.3g} (not held: "
+        f"AdamW's first update where |g| is near eps); card {card_s:.2f} s "
+        f"(first call), CPU {host_s:.2f} s")
+    if worst > 1e-4 or abs(float(mg["loss"]) - float(mc["loss"])) > 1e-4 \
+            or abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1) \
+            > 1e-4:
+        raise AssertionError(f"25a: the card's step is off the CPU's: "
+                             f"{held}")
+
+
+def train_profile(dev):
+    """The card time of one 25b step by kernel family (torch.profiler)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch.train import upload
+    from repro_torch.optim import OptConfig, warmup_cosine
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = get_config("paper_demo", dtype=torch.float32,
+                     param_dtype=torch.float32)
+    opt = OptConfig()
+    state = [init_train_state(cfg, opt, seed=0, device=dev)]
+    step = make_train_step(cfg, opt, lr_schedule=warmup_cosine(3e-4, 1, 30))
+    batch = upload(SyntheticTokenSource(cfg, TRAIN_BATCH, TRAIN_SEQ).
+                   make_batch(0), dev)
+
+    def one():
+        state[0] = step(state[0], batch)[0]
+    return busy_ms(one, runs=2, by_name=True)
+
+
+def phase_train(dev, label):
+    """Phase 25: training paper_demo at full width in fp32 on the card.
+    Returns 25b's launches."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_step_check(dev)
+    free_card()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase25")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config("paper_demo")
+    n_params = cfg.param_count()
+    L, H, D = cfg.n_layers, cfg.padded_heads, cfg.resolved_head_dim
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    # the model's FLOPs a step: 6 N per token for the weights' products
+    # (forward and backward), and attention's 4 H D per (query, key) pair
+    # forward and 8 backward (the minimal products), each layer
+    flops = 6 * n_params * tokens + 12 * L * H * D * pairs
+
+    # 25b: the launcher, 30 steps, a checkpoint every 10, its loop under
+    # sync debug mode "error"
+    start = peak_start()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = train("paper_demo", steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, ckpt_dir=os.path.join(root, "b"),
+                ckpt_every=TRAIN_CKPT_EVERY, log_every=10, device=dev,
+                sync_debug_mode="error")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = peak_note(start)
+    want = {"rmsnorm": (2 * L + 1) * TRAIN_STEPS,
+            "flash_attention": L * TRAIN_STEPS,
+            "paged_attention": 0, "ssd_scan": 0,
+            "rmsnorm_backward": (2 * L + 1) * TRAIN_STEPS,
+            "flash_attention_backward": L * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"25b: launches {launches}, {TRAIN_STEPS} steps "
+                             f"say {want}")
+    rows = out["rows"]
+    if [r["step"] for r in rows] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"25b: loss readbacks for steps "
+                             f"{[r['step'] for r in rows]}")
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite(losses)) or not \
+            np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"25b: the loss did not fall: {losses}")
+    steps = sorted(os.listdir(os.path.join(root, "b")))
+    if steps != ["step-00000010", "step-00000020", "step-00000030"]:
+        raise AssertionError(f"25b: committed checkpoints {steps}")
+    card_ms = out["card_ms_median"]
+    # steps after the first (its first launches and allocations)
+    card_ms_warm = statistics.median(out["card_ms_per_step"][1:])
+    host_each = out["host_ms_each"]
+    saves = [i for i in range(TRAIN_STEPS) if (i + 1) % TRAIN_CKPT_EVERY == 0]
+    host_plain = statistics.median(h for i, h in enumerate(host_each)
+                                   if i and i not in saves)
+    busy, split, names = train_profile(dev)
+    log(f"phase 25b: launch.train paper_demo at full width in fp32 on "
+        f"{label}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, a checkpoint every {TRAIN_CKPT_EVERY}, loop under sync "
+        f"debug mode \"error\": card {card_ms_warm:.1f} ms a step by events "
+        f"(median over steps 1-{TRAIN_STEPS - 1}; {card_ms:.1f} over all), "
+        f"host {out['host_ms_per_step']:.1f} ms a step over the loop "
+        f"(median {host_plain:.1f} over steps without a save or first "
+        f"launches; the saves' iterations "
+        + ", ".join(f"{host_each[i]:.1f}" for i in saves) + " ms); "
+        f"{tokens / card_ms_warm * 1e3:,.0f} tokens/s by the card's step, "
+        f"{tokens * TRAIN_STEPS / wall:,.0f} over the whole call "
+        f"({wall:.1f} s with init, checkpoints and the last readback); "
+        f"model FLOP/s {flops / card_ms_warm / 1e9:.2f} TFLOP/s "
+        f"({flops / 1e12:.2f} TFLOP a step) against fp32's "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} "
+        f"({flops / card_ms_warm * 1e3 / PEAK_FLOPS[torch.float32]:.1%}); "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (means of the first and "
+        f"last 5: {np.mean(losses[:5]):.4f}, {np.mean(losses[-5:]):.4f}); "
+        f"{peak}; launches "
+        f"{json.dumps(launches)}")
+    log(f"  one step's card time by kernel family (torch.profiler, "
+        f"{busy:.1f} ms busy): " + ", ".join(
+            f"{f} {v:.1%}" for f, v in split.items()))
+    for name, (share, n) in list(names.items())[:8]:
+        log(f"    {share:6.1%} in {n:g} launches a step: {name[:100]}")
+    shutil.rmtree(os.path.join(root, "b"), ignore_errors=True)
+
+    # 25c: the same loop behind a sleep ahead of every step: the loss
+    # readbacks and each checkpoint's copies must still be running when
+    # first polled
+    sleep_ms = max(50.0, 4 * out["host_ms_per_step"])
+    cycles = int(sleep_ms * sleep_cycles_per_ms())
+    out = train("paper_demo", steps=NOWAIT_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, ckpt_dir=os.path.join(root, "c"),
+                ckpt_every=3, log_every=100, device=dev,
+                sync_debug_mode="error",
+                before_step=lambda i: torch.cuda._sleep(cycles))
+    pend, n = out["loss_pending_at_first_poll"], out["loss_ops"]
+    copies = out["ckpt_copy_pending_at_return"]
+    log(f"phase 25c: card-bound loop on {label}: "
+        f"{sleep_ms:.0f} ms of sleep ahead of each of "
+        f"{NOWAIT_STEPS} steps, sync debug mode \"error\": {pend} of {n} "
+        f"loss readbacks pending at first poll; checkpoint copies pending "
+        f"at save_async's return: {copies}")
+    if pend < 0.9 * n or len(copies) != NOWAIT_STEPS // 3 \
+            or not all(copies):
+        raise AssertionError(f"25c: the loop waited on the card: {pend}/{n} "
+                             f"pending, copies {copies}")
+    shutil.rmtree(os.path.join(root, "c"), ignore_errors=True)
+
+    # 25d: restart from the step-10 checkpoint, 2 steps, against the
+    # uninterrupted run, in deterministic mode
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = dict(steps=RESTART_STEPS, global_batch=TRAIN_BATCH,
+                  seq_len=TRAIN_SEQ, ckpt_every=RESTART_AT, log_every=100,
+                  device=dev)
+        a, b = os.path.join(root, "d_full"), os.path.join(root, "d_restart")
+        train("paper_demo", ckpt_dir=a, **kw)
+        at = f"step-{RESTART_AT:08d}"
+        shutil.copytree(os.path.join(a, at), os.path.join(b, at))
+        out = train("paper_demo", ckpt_dir=b, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if [r["step"] for r in out["rows"]] != list(range(RESTART_AT,
+                                                      RESTART_STEPS)):
+        raise AssertionError(f"25d: the restart ran {out['rows']}")
+    end = f"step-{RESTART_STEPS:08d}"
+    files = sorted(f for f in os.listdir(os.path.join(a, end))
+                   if f.endswith(".npy"))
+    equal, worst = 0, 0.0
+    for f in files:
+        x = np.load(os.path.join(a, end, f))
+        y = np.load(os.path.join(b, end, f))
+        equal += x.tobytes() == y.tobytes()
+        worst = max(worst, float(np.abs(x.astype(np.float64)
+                                        - y.astype(np.float64)).max()))
+    log(f"phase 25d: restart from step {RESTART_AT}'s checkpoint, "
+        f"{RESTART_STEPS - RESTART_AT} steps, deterministic mode: "
+        f"{equal} of {len(files)} leaves of the step-{RESTART_STEPS} state "
+        f"bit-equal to the uninterrupted run's (largest difference "
+        f"{worst:.3g})")
+    if equal != len(files):
+        raise AssertionError("25d: the restarted run is not bit-equal to "
+                             "the uninterrupted one")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    # cuBLAS reads this at its first handle: phase 25d's deterministic mode
+    # needs a fixed workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     label = card_label()
     from repro_torch.kernels import _build
     nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
@@ -3530,24 +3965,26 @@ def main() -> int:
                                                dev, label),
              "zamba2_1p2b": phase_zamba(dev, label),
              "whisper_large_v3": phase_whisper(dev, label),
-             "internvl2_26b": phase_vlm(dev, label)}
+             "internvl2_26b": phase_vlm(dev, label),
+             "train": phase_train(dev, label)}
     # one entry per (kernel, path that ran it): that path's launches beside
     # phase 3's case at its shape; a kernel's row is its first path's
     # entry, every path's entry under "paths"
     kernels = []
-    for name in KERNEL_NAMES:
+    for name in KERNEL_NAMES + BACKWARD_NAMES:
         src, replaces = SOURCES[name]
         rows = []
         for path, counts in paths.items():
             r = summary.get((name, path))
-            if (r is None) != (counts[name] == 0):
+            n = counts[name]
+            if (r is None) != (n == 0):
                 raise AssertionError(
-                    f"{name} on the {path} path: {counts[name]} launches, "
+                    f"{name} on the {path} path: {n} launches, "
                     f"phase 3 case at its shape: {r is not None}")
             if r is not None:
                 rows.append({
                     "path": path, "shape": r["shape"],
-                    "launches": counts[name], "max_abs_err": r["err"],
+                    "launches": n, "max_abs_err": r["err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]})

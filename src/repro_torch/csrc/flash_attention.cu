@@ -77,9 +77,9 @@ __host__ __device__ constexpr int fp32_keys() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Sq,
-                     int Sk, int H, int KV, int causal, int window,
-                     int q_offset, float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                     int causal, int window, int q_offset, float scale) {
   constexpr int kKeys = fp32_keys<HD>();
   __shared__ float Ks[kKeys * (HD + 1)];
   __shared__ float Vs[kKeys * (HD + 1)];
@@ -142,6 +142,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < HD / 4; ++i)
       op[sub + 4 * i] = from_float<T>(st.acc[i] / l);
+    // the row's log-sum-exp of its scaled scores, for the backward; a
+    // fully masked row (l = 0) gets +inf, so the backward's p is 0 there
+    if (lse != nullptr && sub == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qi] =
+          st.l > 0.f ? st.m + logf(st.l) : CUDART_INF_F;
   }
 }
 
@@ -192,8 +197,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                         int Sq, int Sk, int H, int KV, int causal,
-                         int window, int q_offset, float scale) {
+                         float* __restrict__ lse, int Sq, int Sk, int H,
+                         int KV, int causal, int window, int q_offset,
+                         float scale) {
   constexpr int HD = MmaDims<D>::HD;
   constexpr int kChunks = MmaDims<D>::kChunks;
   constexpr int kRealChunks = MmaDims<D>::kRealChunks;
@@ -486,13 +492,20 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int n = 0; n < kRealChunks; ++n)   // the pad columns are dropped
       *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t4) =
           pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    // log-sum-exp in the natural-log domain (m is kept in base 2); +inf
+    // for a fully masked row
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qi] =
+          l_row[i] > 0.f
+              ? (m_row[i] + log2f(l_row[i])) * 0.6931471805599453f
+              : CUDART_INF_F;
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, int causal, int window,
-               int q_offset, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+               int window, int q_offset, float scale, cudaStream_t stream) {
   constexpr int smem = MmaDims<D>::kSmemBytes;
   // once per process and head_dim: allow more than 48 KB of shared memory
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -504,61 +517,471 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, B, n_qt);
   flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV,
-      causal, window, q_offset, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
+      KV, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KV, int causal, int window,
-                int q_offset, float scale, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+                int window, int q_offset, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
   flash_fwd_kernel<float, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
-      causal, window, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      KV, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int Sq, int Sk, int H, int KV, int causal, int window,
-           int q_offset, float scale, cudaStream_t s) {
+           float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+           int window, int q_offset, float scale, cudaStream_t s) {
   if (dtype == kFloat32)
-    return launch_fp32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+    return launch_fp32<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window,
                           q_offset, scale, s);
   if (dtype == kBFloat16)
-    return launch_mma<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+    return launch_mma<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window,
                          q_offset, scale, s);
   return kBadArgument;
+}
+
+// ---------------------------------------------------------------- backward
+// The gradient of the forward above (no TPU counterpart: the JAX package
+// differentiates its XLA reference, and its Pallas kernel has no
+// custom_vjp), in the FlashAttention-2 scheme. With P = exp(scale * Q K^T
+// - lse) (lse the forward's row log-sum-exp, +inf on a fully masked row,
+// so P is 0 there) and masked entries 0:
+//   delta = rowsum(dO * O)                     (flash_bwd_delta_kernel)
+//   dV = P^T dO,  dK = scale * dS^T Q          (flash_bwd_dkdv_kernel)
+//   dQ = scale * dS K,  dS = P * (dO V^T - delta)   (flash_bwd_dq_kernel)
+//
+// What bounds it: at the training shape (B 8, S 1024, 12/4 heads of 64,
+// causal) the work is five products of (pairs x 64) each, ~32 GFLOP a
+// call against ~0.1 GB of q/k/v/o/dO/dq/dk/dv, so operations: ~0.5 ms at
+// fp32's 67 TFLOP/s. This first version runs every product on fp32 FMAs
+// (bf16 inputs are widened as they are staged), 64 x 64 tiles staged in
+// shared memory as fp32 rows of 65 floats (the pad spreads a column over
+// the banks), each of 256 threads owning a 4 x 4 interleaved sub-tile
+// (rows ty + 16i, columns tx + 16j); the shared-memory reads, two a
+// multiply-add pair, bound it well below the FMA peak. Tensor cores
+// (mma.sync for bf16, wgmma) are later work.
+//
+// dK/dV: one block per (key tile, KV head, batch) loops over the G query
+// heads of its group and over the query tiles that see its keys, so the
+// group's sum stays in the block's registers. dQ: one block per (query
+// tile, head, batch) loops over its visible key tiles. Nothing is summed
+// across blocks: no atomics, the same result on every run. The masks and
+// tile skips are the forward's (causal, window, q_offset, key tail).
+constexpr int kBT = 64;            // rows (queries or keys) of a tile
+constexpr int kBwdThreads = 256;   // 16 x 16 threads, 4 x 4 elements each
+
+template <int HD>
+struct BwdDims {
+  static constexpr int kLd = HD + 1;                 // floats a staged row
+  static constexpr int kTile = kBT * kLd;            // floats a tile
+  static constexpr int kDkdvSmem = (6 * kTile + 2 * kBT) * 4;
+  static constexpr int kDqSmem = (5 * kTile + 2 * kBT) * 4;
+  static_assert(HD == 64, "the backward is instantiated at head_dim 64");
+};
+
+// acc[i][j] += sum_d A[ty + 16i][d] * B[tx + 16j][d]   (A B^T)
+template <int HD>
+__device__ __forceinline__ void tile_abt(const float* A, const float* B,
+                                         float (&acc)[4][4], int ty, int tx) {
+  constexpr int L = HD + 1;
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * L + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * L + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_r A[r][ty + 16i] * B[r][tx + 16j]   (A^T B, r < kBT)
+template <int HD>
+__device__ __forceinline__ void tile_atb(const float* A, const float* B,
+                                         float (&acc)[4][4], int ty, int tx) {
+  constexpr int L = HD + 1;
+#pragma unroll 8
+  for (int r = 0; r < kBT; ++r) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[r * L + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[r * L + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_c A[ty + 16i][c] * B[c][tx + 16j]   (A B, c < kBT)
+template <int HD>
+__device__ __forceinline__ void tile_ab(const float* A, const float* B,
+                                        float (&acc)[4][4], int ty, int tx) {
+  constexpr int L = HD + 1;
+#pragma unroll 8
+  for (int c = 0; c < kBT; ++c) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * L + c];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[c * L + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero4x4(float (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+}
+
+// delta[b][h][q] = sum_d dO * O in fp32: one warp a (b, q, h) row
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                           float* __restrict__ delta, int rows, int Sq,
+                           int H) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* orow = o + static_cast<size_t>(row) * HD;
+  const T* grow = dout + static_cast<size_t>(row) * HD;
+  float s = 0.f;
+  for (int d = lane; d < HD; d += 32)
+    s = fmaf(to_float(orow[d]), to_float(grow[d]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int h = row % H;
+    const int bq = row / H;
+    delta[(static_cast<size_t>(bq / Sq) * H + h) * Sq + bq % Sq] = s;
+  }
+}
+
+// P and dS of one (query tile, key tile) pair into shared memory, from
+// S = Q K^T and dP = dO V^T in registers; masked entries and rows past Sq
+// are 0
+template <int HD>
+__device__ __forceinline__ void probs_and_ds(
+    const float (&sacc)[4][4], const float (&pacc)[4][4], float* Ps,
+    float* dSs, const float* lse_s, const float* delta_s, int q_row0,
+    int k0, int Sq, int Sk, int causal, int window, int q_offset,
+    float scale, int ty, int tx) {
+  constexpr int L = HD + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int qpos = q_row0 + r + q_offset;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const int kpos = k0 + c;
+      bool ok = q_row0 + r < Sq && kpos < Sk;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && kpos > qpos - window;
+      const float p = ok ? expf(sacc[i][j] * scale - lse_s[r]) : 0.f;
+      if (Ps != nullptr) Ps[r * L + c] = p;
+      dSs[r * L + c] = p * (pacc[i][j] - delta_s[r]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                          int causal, int window, int q_offset, float scale) {
+  using Dm = BwdDims<HD>;
+  constexpr int L = Dm::kLd;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + Dm::kTile;
+  float* Qs = Vs + Dm::kTile;
+  float* dOs = Qs + Dm::kTile;
+  float* Ps = dOs + Dm::kTile;
+  float* dSs = Ps + Dm::kTile;
+  float* lse_s = dSs + Dm::kTile;
+  float* delta_s = lse_s + kBT;
+  const int k0 = blockIdx.x * kBT;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const size_t q_stride = static_cast<size_t>(H) * HD;
+  const T* kb = k + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
+  const T* vb = v + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
+  stage_tile<T, HD, kBT, kBwdThreads>(
+      Ks, Vs, [&](int r, const T*& kr, const T*& vr) {
+        if (k0 + r >= Sk) return false;
+        kr = kb + (k0 + r) * kv_stride;
+        vr = vb + (k0 + r) * kv_stride;
+        return true;
+      });
+  const int k_last = min(k0 + kBT, Sk) - 1;
+  float dk_acc[4][4], dv_acc[4][4];
+  zero4x4(dk_acc);
+  zero4x4(dv_acc);
+  const int n_qt = (Sq + kBT - 1) / kBT;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* qb = q + static_cast<size_t>(b) * Sq * q_stride + h * HD;
+    const T* gb = dout + static_cast<size_t>(b) * Sq * q_stride + h * HD;
+    const float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq;
+    const float* db = delta + (static_cast<size_t>(b) * H + h) * Sq;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q_row0 = qt * kBT;
+      const int first = q_row0 + q_offset;
+      const int last = min(q_row0 + kBT, Sq) - 1 + q_offset;
+      // block-uniform skips: every row of the tile before the key tile
+      // (causal), or every key of the tile before every row's window
+      if (causal && last < k0) continue;
+      if (window > 0 && k_last <= first - window) continue;
+      __syncthreads();   // the previous query tile has been consumed
+      stage_tile<T, HD, kBT, kBwdThreads>(
+          Qs, dOs, [&](int r, const T*& qr, const T*& gr) {
+            if (q_row0 + r >= Sq) return false;
+            qr = qb + (q_row0 + r) * q_stride;
+            gr = gb + (q_row0 + r) * q_stride;
+            return true;
+          });
+      if (tid < kBT) {
+        const bool in = q_row0 + tid < Sq;
+        lse_s[tid] = in ? lb[q_row0 + tid] : CUDART_INF_F;
+        delta_s[tid] = in ? db[q_row0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float sacc[4][4], pacc[4][4];
+      zero4x4(sacc);
+      zero4x4(pacc);
+      tile_abt<HD>(Qs, Ks, sacc, ty, tx);
+      tile_abt<HD>(dOs, Vs, pacc, ty, tx);
+      probs_and_ds<HD>(sacc, pacc, Ps, dSs, lse_s, delta_s, q_row0, k0, Sq,
+                       Sk, causal, window, q_offset, scale, ty, tx);
+      __syncthreads();
+      tile_atb<HD>(Ps, dOs, dv_acc, ty, tx);
+      tile_atb<HD>(dSs, Qs, dk_acc, ty, tx);
+    }
+  }
+  T* dkb = dk + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
+  T* dvb = dv + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = k0 + ty + 16 * i;
+    if (kp >= Sk) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = tx + 16 * j;
+      dkb[kp * kv_stride + d] = from_float<T>(dk_acc[i][j] * scale);
+      dvb[kp * kv_stride + d] = from_float<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int Sq, int Sk, int H, int KV, int causal, int window,
+                        int q_offset, float scale) {
+  using Dm = BwdDims<HD>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + Dm::kTile;
+  float* Ks = dOs + Dm::kTile;
+  float* Vs = Ks + Dm::kTile;
+  float* dSs = Vs + Dm::kTile;
+  float* lse_s = dSs + Dm::kTile;
+  float* delta_s = lse_s + kBT;
+  // heaviest first, as the forward: the last causal query tiles walk the
+  // most key tiles
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const size_t q_stride = static_cast<size_t>(H) * HD;
+  const int q_row0 = qt * kBT;
+  const T* qb = q + static_cast<size_t>(b) * Sq * q_stride + h * HD;
+  const T* gb = dout + static_cast<size_t>(b) * Sq * q_stride + h * HD;
+  stage_tile<T, HD, kBT, kBwdThreads>(
+      Qs, dOs, [&](int r, const T*& qr, const T*& gr) {
+        if (q_row0 + r >= Sq) return false;
+        qr = qb + (q_row0 + r) * q_stride;
+        gr = gb + (q_row0 + r) * q_stride;
+        return true;
+      });
+  if (tid < kBT) {
+    const bool in = q_row0 + tid < Sq;
+    const size_t at = (static_cast<size_t>(b) * H + h) * Sq + q_row0 + tid;
+    lse_s[tid] = in ? lse[at] : CUDART_INF_F;
+    delta_s[tid] = in ? delta[at] : 0.f;
+  }
+  const T* kb = k + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
+  const T* vb = v + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
+  // the key tiles this query tile sees, with the forward's skips
+  const int q_start = q_row0 + q_offset;
+  const int q_last = min(q_row0 + kBT, Sq) - 1 + q_offset;
+  const int n_kt = (Sk + kBT - 1) / kBT;
+  int t_end = n_kt;
+  if (causal) t_end = q_last < 0 ? 0 : min(n_kt, q_last / kBT + 1);
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q_start - window - kBT + 1;   // last skipped k0
+    t_begin = x < 0 ? 0 : x / kBT + 1;
+  }
+  float dq_acc[4][4];
+  zero4x4(dq_acc);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kBT;
+    __syncthreads();   // the previous key tile has been consumed
+    stage_tile<T, HD, kBT, kBwdThreads>(
+        Ks, Vs, [&](int r, const T*& kr, const T*& vr) {
+          if (k0 + r >= Sk) return false;
+          kr = kb + (k0 + r) * kv_stride;
+          vr = vb + (k0 + r) * kv_stride;
+          return true;
+        });
+    __syncthreads();
+    float sacc[4][4], pacc[4][4];
+    zero4x4(sacc);
+    zero4x4(pacc);
+    tile_abt<HD>(Qs, Ks, sacc, ty, tx);
+    tile_abt<HD>(dOs, Vs, pacc, ty, tx);
+    probs_and_ds<HD>(sacc, pacc, nullptr, dSs, lse_s, delta_s, q_row0, k0,
+                     Sq, Sk, causal, window, q_offset, scale, ty, tx);
+    __syncthreads();
+    tile_ab<HD>(dSs, Ks, dq_acc, ty, tx);
+  }
+  T* dqb = dq + static_cast<size_t>(b) * Sq * q_stride + h * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q_row0 + ty + 16 * i;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      dqb[qi * q_stride + tx + 16 * j] = from_float<T>(dq_acc[i][j] * scale);
+  }
+}
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+               int causal, int window, int q_offset, float scale,
+               cudaStream_t stream) {
+  using Dm = BwdDims<HD>;
+  // once per instantiation: allow more than 48 KB of shared memory
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      flash_bwd_dkdv_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Dm::kDkdvSmem);
+  static const cudaError_t a2 = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Dm::kDqSmem);
+  if (a1 != cudaSuccess) return static_cast<int>(a1);
+  if (a2 != cudaSuccess) return static_cast<int>(a2);
+  const int n_qt = (Sq + kBT - 1) / kBT;
+  const int n_kt = (Sk + kBT - 1) / kBT;
+  if (B > 65535 || H > 65535) return kBadArgument;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const int rows = B * Sq * H;
+  flash_bwd_delta_kernel<T, HD><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(o), gt, delta, rows, Sq, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<T, HD>
+      <<<dim3(n_kt, KV, B), kBwdThreads, Dm::kDkdvSmem, stream>>>(
+          qt, kt, vt, gt, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), Sq, Sk, H, KV, causal, window, q_offset,
+          scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<T, HD>
+      <<<dim3(n_qt, H, B), kBwdThreads, Dm::kDqSmem, stream>>>(
+          qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), Sq, Sk, H, KV,
+          causal, window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro
 
 // q, o: (B, Sq, H, D); k, v: (B, Sk, KV, D); all contiguous; H % KV == 0;
-// D in {64, 120, 128} (the head dims of the ported configs).
+// D in {64, 120, 128} (the head dims of the ported configs). lse: null, or
+// (B, H, Sq) fp32 for each row's log-sum-exp (the backward's input).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* o, int B, int Sq,
-                                     int Sk, int H, int KV, int D, int causal,
-                                     int window, int q_offset, float scale,
-                                     void* stream) {
+                                     const void* v, void* o, void* lse, int B,
+                                     int Sq, int Sk, int H, int KV, int D,
+                                     int causal, int window, int q_offset,
+                                     float scale, void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return kBadArgument;
   auto s = static_cast<cudaStream_t>(stream);
+  auto* l = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch<64>(dtype, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                        q_offset, scale, s);
+      return launch<64>(dtype, q, k, v, o, l, B, Sq, Sk, H, KV, causal,
+                        window, q_offset, scale, s);
     case 120:
-      return launch<120>(dtype, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                         q_offset, scale, s);
+      return launch<120>(dtype, q, k, v, o, l, B, Sq, Sk, H, KV, causal,
+                         window, q_offset, scale, s);
     case 128:
-      return launch<128>(dtype, q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                         q_offset, scale, s);
+      return launch<128>(dtype, q, k, v, o, l, B, Sq, Sk, H, KV, causal,
+                         window, q_offset, scale, s);
     default:
       return kBadArgument;
   }
+}
+
+// The gradient of repro_flash_attention: q, o, dout, dq: (B, Sq, H, D);
+// k, v, dk, dv: (B, Sk, KV, D); lse: the forward's (B, H, Sq) fp32; delta:
+// (B, H, Sq) fp32 scratch; all contiguous. D = 64 only.
+extern "C" int repro_flash_attention_backward(
+    int dtype, const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int Sq, int Sk, int H, int KV, int D, int causal,
+    int window, int q_offset, float scale, void* stream) {
+  using namespace repro;
+  if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (KV <= 0 || H % KV != 0 || D != 64) return kBadArgument;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(lse);
+  auto* dl = static_cast<float*>(delta);
+  if (dtype == kFloat32)
+    return launch_bwd<float, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq,
+                                 Sk, H, KV, causal, window, q_offset, scale,
+                                 s);
+  if (dtype == kBFloat16)
+    return launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, l, dl, dq, dk, dv,
+                                         B, Sq, Sk, H, KV, causal, window,
+                                         q_offset, scale, s);
+  return kBadArgument;
 }

@@ -34,8 +34,13 @@ DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_rmsnorm": [_I, _P, _P, _P, _I, _I, _F, _P],
-    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _P],
+    "repro_rmsnorm_backward": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                               _P],
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _F, _P],
+    "repro_flash_attention_backward": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _F, _P],
     "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

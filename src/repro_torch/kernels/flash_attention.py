@@ -1,12 +1,22 @@
-"""Forward attention (causal / sliding-window / non-causal, GQA): plain
-PyTorch version + CUDA kernel wrapper.
+"""Attention (causal / sliding-window / non-causal, GQA): plain PyTorch
+version + CUDA kernel wrapper, and its gradient.
 
 Counterpart of ``repro/kernels/flash_attention/{kernel,ref,ops}.py``; the
-kernel is ``csrc/flash_attention.cu``.
+kernels are ``csrc/flash_attention.cu``: the forward, which also writes
+each row's log-sum-exp when the backward will need it, and a backward
+kernel (no TPU counterpart) at head_dim 64.
+
+The wrapper's rule: CPU tensors take the plain version, which autograd
+differentiates natively. A CUDA call with grad enabled and an input that
+requires grad goes through ``_FlashFunction`` (the forward kernel writing
+the log-sum-exp, then the backward kernel); at a head_dim with no
+backward kernel it raises ``NotImplementedError`` at the forward. Any
+other CUDA call is the forward launch alone, writing no log-sum-exp, as
+serving makes it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -14,7 +24,23 @@ from repro_torch.kernels import _build
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
+#: backward kernel calls (three grids each: delta, dK/dV, dQ)
+BACKWARD_LAUNCHES = 0
 HEAD_DIMS = (64, 120, 128)   # the kernels' instantiations (ported configs)
+BACKWARD_HEAD_DIMS = (64,)   # the backward kernel's
+
+
+def _mask(Sq: int, Sk: int, causal: bool, window: int, q_offset: int,
+          device) -> torch.Tensor:
+    """(Sq, Sk) bool: key ``j`` visible to query ``i``."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -34,28 +60,67 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if groups > 1:
         k = k.repeat_interleave(groups, dim=2)
         v = v.repeat_interleave(groups, dim=2)
-    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
+    mask = _mask(Sq, Sk, causal, window, q_offset, q.device)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0, q_offset: int = 0,
-              scale: Optional[float] = None) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel.
-    Returns (B, Sq, H, D) in q's dtype."""
-    global LAUNCHES
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, scale=scale)
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0, scale: Optional[float] = None
+                        ) -> torch.Tensor:
+    """Each query row's log-sum-exp of its visible scaled scores, fp32
+    ``(B, H, Sq)``, as the forward kernel writes it: ``+inf`` for a row
+    that sees no key."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    k = k.repeat_interleave(H // KV, dim=2)
+    mask = _mask(Sq, Sk, causal, window, q_offset, q.device)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(scores.masked_fill(~mask, -float("inf")), dim=-1)
+    return lse.masked_fill(~mask.any(dim=-1), float("inf"))
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             q_offset: int = 0,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(dq, dk, dv)`` of attention at ``q, k, v`` with output ``o``,
+    row log-sum-exp ``lse (B, H, Sq)`` and output gradient ``do``, in fp32,
+    cast to ``q.dtype`` (the backward kernel's plain version):
+    ``P = exp(scale q k^T - lse)`` (0 where masked), ``dv = P^T do``,
+    ``dS = P (do v^T - rowsum(do o))``, ``dq = scale dS k``, ``dk = scale
+    dS^T q``; a KV head's dk and dv sum its group's query heads."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5 if scale is None else scale
+    qf, of, gf = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    mask = _mask(Sq, Sk, causal, window, q_offset, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+    delta = (gf * of).sum(dim=-1).transpose(1, 2)              # (B, H, Sq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dk = dk.reshape(B, Sk, KV, G, D).sum(dim=3)
+    dv = dv.reshape(B, Sk, KV, G, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Validate a CUDA call; returns the dtype code."""
     _build.require_cuda("flash_attention", q, k, v)
     code = _build.dtype_code("flash_attention", q.dtype)
     B, Sq, H, D = q.shape
@@ -70,12 +135,107 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{HEAD_DIMS}, got H={H} KV={KV} D={D}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q/k/v must be 16-byte aligned")
-    scale = D ** -0.5 if scale is None else scale
+    return code
+
+
+def _launch(q, k, v, causal, window, q_offset, scale, code,
+            with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel; with ``with_lse`` it also writes the row
+    log-sum-exp ``(B, H, Sq)`` fp32, else it writes none."""
+    global LAUNCHES
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     rc = _build.lib().repro_flash_attention(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         B, Sq, Sk, H, KV, D, int(causal), int(window), int(q_offset),
         float(scale), _build.stream_handle(q))
     _build.check(rc, "flash_attention")
     LAUNCHES += 1
-    return out
+    return out, lse
+
+
+def _require_backward(D: int) -> None:
+    if D not in BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: no backward kernel at head_dim {D} "
+            f"(instantiated: {BACKWARD_HEAD_DIMS}); see ROADMAP A.7")
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                       *, causal: bool = True, window: int = 0,
+                       q_offset: int = 0, scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel: ``(dq, dk, dv)`` for CUDA tensors, from the
+    forward's output ``o`` and log-sum-exp ``lse``."""
+    global BACKWARD_LAUNCHES
+    code = _check(q, k, v)
+    _build.require_cuda("flash_attention_backward", q, o, lse, do)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    _require_backward(D)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError("flash_attention_backward: o and do must have q's "
+                         "shape and dtype")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"flash_attention_backward: lse must be fp32 "
+                         f"{(B, H, Sq)}, got {lse.dtype} {tuple(lse.shape)}")
+    scale = D ** -0.5 if scale is None else scale
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    rc = _build.lib().repro_flash_attention_backward(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, D, int(causal),
+        int(window), int(q_offset), float(scale), _build.stream_handle(q))
+    _build.check(rc, "flash_attention_backward")
+    BACKWARD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The forward kernel (writing the log-sum-exp), differentiated by the
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale, code):
+        out, lse = _launch(q, k, v, causal, window, q_offset, scale, code,
+                           with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset, scale = ctx.args
+        dq, dk, dv = attention_backward(
+            q, k, v, out, lse, do.contiguous(), causal=causal, window=window,
+            q_offset=q_offset, scale=scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, q_offset: int = 0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel,
+    through the autograd function when a gradient is wanted (see the
+    module's docstring). Returns (B, Sq, H, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale)
+    code = _check(q, k, v)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _require_backward(q.shape[-1])
+        return _FlashFunction.apply(q, k, v, causal, window, q_offset, scale,
+                                    code)
+    return _launch(q, k, v, causal, window, q_offset, scale, code,
+                   with_lse=False)[0]

@@ -154,6 +154,10 @@ def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
                                      tables, positions, n_valid,
                                      page_size=page_size, scale=scale)
     name = "paged_attention"
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_new, v_new, k_pages, v_pages)):
+        raise NotImplementedError(
+            "paged_attention: serving only, no backward kernel")
     _build.require_cuda(name, q, k_new, v_new, k_pages, v_pages, tables,
                         positions, n_valid)
     code = _build.dtype_code(name, q.dtype)

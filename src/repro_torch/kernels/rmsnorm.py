@@ -1,9 +1,18 @@
-"""RMSNorm: plain PyTorch version + CUDA kernel wrapper.
+"""RMSNorm: plain PyTorch version + CUDA kernel wrapper, and its gradient.
 
-Counterpart of ``repro/kernels/rmsnorm/{kernel,ref,ops}.py``; the kernel is
-``csrc/rmsnorm.cu``.
+Counterpart of ``repro/kernels/rmsnorm/{kernel,ref,ops}.py``; the kernels
+are ``csrc/rmsnorm.cu``: the forward, and a backward kernel (no TPU
+counterpart) that training on the card differentiates through.
+
+The wrapper's rule: CPU tensors take the plain version, which autograd
+differentiates natively. A CUDA call with grad enabled and an input that
+requires grad goes through ``_RMSNormFunction`` (the forward kernel, then
+the backward kernel); any other CUDA call is the forward launch alone, as
+serving makes it.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -11,6 +20,13 @@ from repro_torch.kernels import _build
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
+#: backward kernel calls (two grids each: the rows, then the dscale sum)
+BACKWARD_LAUNCHES = 0
+#: the widest row the backward kernel takes (its per-warp dscale sums
+#: live in shared memory)
+MAX_BACKWARD_D = 12288
+#: blocks of the backward's first grid at most (two an SM of an H100)
+BACKWARD_BLOCKS = 264
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -23,13 +39,22 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale.float()).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    """``x`` (..., D), ``scale`` (D,) fp32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, scale, eps)
+def rmsnorm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                           dy: torch.Tensor, eps: float = 1e-5
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dscale)`` of ``rmsnorm_plain`` at ``x`` for the output
+    gradient ``dy``, written out in fp32: ``dx`` in ``x.dtype``, ``dscale``
+    fp32 (the backward kernel's plain version)."""
+    xf, gf, sf = x.float(), dy.float(), scale.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    dot = (gf * sf * xf).sum(dim=-1, keepdim=True)
+    dx = r * sf * gf - xf * (r * r * r) * dot / x.shape[-1]
+    dscale = (gf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale
+
+
+def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
+    """Validate a CUDA call; returns the dtype code."""
     _build.require_cuda("rmsnorm", x, scale)
     code = _build.dtype_code("rmsnorm", x.dtype)
     d = x.shape[-1]
@@ -40,11 +65,83 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if d % vec or x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError(f"rmsnorm: rows and scale must be 16-byte aligned "
                          f"vectors (D={d} a multiple of {vec})")
+    return code
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            code: int) -> torch.Tensor:
+    global LAUNCHES
+    d = x.shape[-1]
     out = torch.empty_like(x)
-    rows = x.numel() // d
     rc = _build.lib().repro_rmsnorm(
-        code, x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
-        float(eps), _build.stream_handle(x))
+        code, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        x.numel() // d, d, float(eps), _build.stream_handle(x))
     _build.check(rc, "rmsnorm")
     LAUNCHES += 1
     return out
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel: ``(dx, dscale)`` for CUDA tensors (``dy`` of
+    ``x``'s shape and dtype). Each row's rstd is recomputed; ``dscale`` is
+    summed over rows by the kernel itself, in a fixed order."""
+    global BACKWARD_LAUNCHES
+    code = _check(x, scale)
+    _build.require_cuda("rmsnorm_backward", x, dy)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.data_ptr() % 16:
+        raise ValueError(f"rmsnorm_backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} does not match x {tuple(x.shape)} "
+                         f"{x.dtype} (or is not 16-byte aligned)")
+    d = x.shape[-1]
+    if d > MAX_BACKWARD_D:
+        raise NotImplementedError(
+            f"rmsnorm: no backward kernel for rows of {d} (at most "
+            f"{MAX_BACKWARD_D}); see ROADMAP A.7")
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dscale.zero_()
+    blocks = min(-(-rows // 4), BACKWARD_BLOCKS)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    rc = _build.lib().repro_rmsnorm_backward(
+        code, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), partial.data_ptr(), blocks, rows, d, float(eps),
+        _build.stream_handle(x))
+    _build.check(rc, "rmsnorm_backward")
+    BACKWARD_LAUNCHES += 1
+    return dx, dscale
+
+
+class _RMSNormFunction(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, code):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, scale, eps, code)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """``x`` (..., D), ``scale`` (D,) fp32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, through the autograd function
+    when a gradient is wanted (see the module's docstring)."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps)
+    code = _check(x, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        if x.shape[-1] > MAX_BACKWARD_D:
+            raise NotImplementedError(
+                f"rmsnorm: no backward kernel for rows of {x.shape[-1]} "
+                f"(at most {MAX_BACKWARD_D}); see ROADMAP A.7")
+        return _RMSNormFunction.apply(x, scale, eps, code)
+    return _launch(x, scale, eps, code)

@@ -179,11 +179,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = CHUNK, return_state: bool = False) -> Out:
     """CPU tensors take the plain version; CUDA tensors launch the kernel:
     three grids per call (chunk states, state passing, chunk scan; see
-    ``_ssd_chunk_parallel_plain``), counted as one launch."""
+    ``_ssd_chunk_parallel_plain``), counted as one launch. The kernel has
+    no backward: a CUDA call that wants a gradient raises."""
     global LAUNCHES
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk,
                               return_state=return_state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, D)):
+        raise NotImplementedError(
+            "ssd_scan: no backward kernel, so SSM and hybrid training on "
+            "the card waits for one; see ROADMAP A.7")
     _build.require_cuda("ssd_scan", x, dt, A, Bm, Cm, D)
     code = _build.dtype_code("ssd_scan", x.dtype)
     B_, T, H, P = x.shape

@@ -8,7 +8,9 @@ shared-block projectors: the reference makes ``n_layers // every`` of them
 and its last site reuses the last one (JAX clamps the index; ROADMAP
 C.7), the port one per site, so the last is repeated to the site count.
 An audio enc-dec's tree has ``encoder`` and ``decoder`` stacks where a
-decoder-only tree has ``layers``.
+decoder-only tree has ``layers``. ``train_state_from_numpy`` carries a
+whole train state over (the reference's ``init_train_state`` tree: params,
+the AdamW ``m``/``v``/``count`` and ``step``).
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ def tensor_from_numpy(a: Any, device: Any = "cuda") -> torch.Tensor:
     """numpy → torch, including ``ml_dtypes.bfloat16`` arrays (which
     ``torch.from_numpy`` refuses): their bits are reinterpreted."""
     a = np.asarray(a)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape
+    c = np.ascontiguousarray(a).reshape(a.shape)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(c.view(np.uint16).copy()).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(c.copy())
     return t.to(resolve_device(device))
 
 
@@ -107,3 +110,20 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
         out["shared"]["proj"] = torch.cat(
             [proj, proj[-1:].expand((extra,) + tuple(proj.shape[1:]))])
     return out
+
+
+def train_state_from_numpy(tree: Any, cfg: ModelConfig,
+                           device: Any = "cuda") -> Any:
+    """The reference's train state ``{"params", "opt": {"m", "v",
+    "count"}, "step"}`` (numpy leaves) as the port's: the params and both
+    moments through ``params_from_numpy`` (a hybrid's moments get the
+    projector repeat too), the counters as 0-d int32 tensors."""
+    dev = resolve_device(device)
+    opt = tree["opt"]
+    return {"params": params_from_numpy(tree["params"], cfg, dev),
+            "opt": {"m": params_from_numpy(opt["m"], cfg, dev),
+                    "v": params_from_numpy(opt["v"], cfg, dev),
+                    "count": tensor_from_numpy(
+                        np.asarray(opt["count"], np.int32), dev)},
+            "step": tensor_from_numpy(np.asarray(tree["step"], np.int32),
+                                      dev)}

@@ -29,10 +29,11 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import AUDIO, ModelConfig
-from repro_torch.models.layers import (embed_tokens, init_embedding,
-                                       init_mlp, init_normal, init_rmsnorm,
-                                       layer_views, lm_logits, mlp, rmsnorm,
-                                       sinusoidal_pe, sinusoidal_positions)
+from repro_torch.models.layers import (cross_entropy, embed_tokens,
+                                       init_embedding, init_mlp, init_normal,
+                                       init_rmsnorm, layer_views, lm_logits,
+                                       mlp, rmsnorm, sinusoidal_pe,
+                                       sinusoidal_positions)
 from repro_torch.util import resolve_device
 
 Params = Dict[str, Any]
@@ -138,6 +139,20 @@ def encdec_logits(params: Params, audio_embed: torch.Tensor,
         x = _dec_block_train(lp, x, enc_out, cfg)
     x = rmsnorm(params["dec_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg)
+
+
+def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],
+                cfg: ModelConfig) -> torch.Tensor:
+    """The training objective (the reference's ``encdec_loss``): ``batch``
+    holds ``audio_embed (B, T_enc, F)`` and ``dec_tokens (B, T_dec)``;
+    next-token cross-entropy of the teacher-forced decoder, the last
+    position carrying no loss."""
+    tokens = batch["dec_tokens"]
+    logits = encdec_logits(params, batch["audio_embed"], tokens, cfg)
+    valid = torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device)
+    valid[:, -1] = 0.0
+    return cross_entropy(logits, torch.roll(tokens, -1, dims=1), valid)
 
 
 # ================================================================= serving

@@ -21,21 +21,32 @@ frontend.proj`` to the token embeddings (``_embed_inputs``); its decode
 steps sit at ``n_patches + S`` onward. The audio enc-dec (whisper) has its
 own model functions, ``models.encdec``: here it raises
 ``NotImplementedError``.
+
+``lm_loss`` is the training objective (next-token cross-entropy over the
+token positions; a VLM's patch rows carry no loss). Its layer body is
+rematerialised as ``cfg.remat`` says (``_maybe_remat``): ``"full"``
+recomputes the whole body in the backward (``torch.utils.checkpoint``),
+``"dots"`` keeps the matmul outputs and recomputes the rest (selective
+checkpointing), ``"none"`` saves everything; a hybrid's stack is never
+rematerialised, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                        ModelConfig)
-from repro_torch.models.layers import (embed_tokens, init_embedding,
-                                       init_mlp, init_normal, init_rmsnorm,
-                                       layer_views, lm_logits, mlp, rmsnorm)
+from repro_torch.models.layers import (cross_entropy, embed_tokens,
+                                       init_embedding, init_mlp, init_normal,
+                                       init_rmsnorm, layer_views, lm_logits,
+                                       mlp, rmsnorm)
 from repro_torch.util import resolve_device
 
 Params = Dict[str, Any]
@@ -236,7 +247,78 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     return torch.cat([px, x], dim=1)
 
 
+# ================================================================== remat
+
+#: the ops whose outputs ``"dots"`` keeps: products without batch
+#: dimensions (a layer's ``x @ W``), as the reference's
+#: ``dots_with_no_batch_dims_saveable``
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _SAVED_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` as ``cfg.remat`` rematerialises it in the backward: ``"none"``
+    as it is, ``"full"`` recomputed whole, ``"dots"`` recomputed but for
+    its matmul outputs (the reference's ``_maybe_remat``)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+        return lambda *args: torch_checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=context)
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return lambda *args: torch_checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+
+
+def _apply_layers(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                  rope, remat: bool = False) -> torch.Tensor:
+    """The whole-sequence layer stack (no cache); ``remat`` wraps each
+    non-hybrid layer body in ``_maybe_remat``."""
+    if cfg.family == HYBRID:
+        return _apply_hybrid(
+            params, x, cfg, layer_views(params),
+            lambda ap, h, site: attn_mod.attention_block(ap, h, cfg,
+                                                         rope=rope),
+            lambda lp, x, i: _block_train(lp, x, cfg, rope))
+    body = lambda h, lp: _block_train(lp, h, cfg, rope)   # noqa: E731
+    if remat:
+        body = _maybe_remat(body, cfg)
+    for lp in layer_views(params):
+        x = body(x, lp)
+    return x
+
+
 # ============================================================ public forward
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy over the token positions (the reference's
+    ``lm_loss``): labels are the tokens rolled left, the last position
+    carries no loss, and a VLM's ``n_patches`` patch rows none either."""
+    require_ported(cfg)
+    x = _embed_inputs(params, batch, cfg)
+    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
+    x = _apply_layers(params, x, cfg, rope, remat=True)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = lm_logits(params["embed"], x, cfg)
+    if cfg.family == VLM:
+        logits = logits[:, cfg.n_patches:, :]
+    tokens = batch["tokens"]
+    valid = torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device)
+    valid[:, -1] = 0.0
+    return cross_entropy(logits, torch.roll(tokens, -1, dims=1), valid)
+
 
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> torch.Tensor:
@@ -245,15 +327,7 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor],
     require_ported(cfg)
     x = _embed_inputs(params, batch, cfg)
     rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
-    if cfg.family == HYBRID:
-        x = _apply_hybrid(
-            params, x, cfg, layer_views(params),
-            lambda ap, h, site: attn_mod.attention_block(ap, h, cfg,
-                                                         rope=rope),
-            lambda lp, x, i: _block_train(lp, x, cfg, rope))
-    else:
-        for lp in layer_views(params):
-            x = _block_train(lp, x, cfg, rope)
+    x = _apply_layers(params, x, cfg, rope)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg)
 

@@ -548,3 +548,183 @@ def test_whisper_decode_step_graph_bit_equal_to_eager(cuda, dtype):
     L = cfg.n_dec_layers
     assert fa.LAUNCHES - n_fa == 2 * 4 * L
     assert rn.LAUNCHES - n_rn == 2 * 4 * (3 * L + 1)
+
+
+# ------------------------------------------------------- backward kernels
+def _grad_tol(dtype, plain):
+    """The kernels' tolerance, scaled by the plain output's largest
+    magnitude where that is above 1 (a dscale sums thousands of rows)."""
+    return TOL[dtype] * max(1.0, float(plain.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(8192, 768),     # paper_demo's step
+                                    (7, 768), (33, 1280), (100, 4096)])
+def test_rmsnorm_backward_kernel(cuda, dtype, rows, d):
+    x = _randn(cuda, (rows, d), dtype)
+    scale = 1 + 0.1 * torch.randn((d,), generator=cuda, device="cuda")
+    dy = _randn(cuda, (rows, d), dtype)
+    n0 = rn.BACKWARD_LAUNCHES
+    dx, ds = rn.rmsnorm_backward(x, scale, dy)
+    assert rn.BACKWARD_LAUNCHES == n0 + 1
+    px, ps = rn.rmsnorm_backward_plain(x, scale, dy)
+    assert dx.dtype == dtype and ds.dtype == torch.float32
+    assert float((dx.float() - px.float()).abs().max()) <= _grad_tol(dtype,
+                                                                     px)
+    assert float((ds - ps).abs().max()) <= _grad_tol(torch.float32, ps)
+    # no atomics: a second call gives the same bits
+    dx2, ds2 = rn.rmsnorm_backward(x, scale, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window,q_offset", [
+    (8, 1024, 1024, 12, 4, True, 0, 0),      # paper_demo's training step
+    (1, 300, 300, 4, 2, True, 70, 0),        # a window
+    (2, 77, 131, 4, 4, False, 0, 0),         # non-causal, odd lengths
+    (2, 100, 100, 6, 2, True, 0, 0),         # odd length, G = 3
+    (1, 33, 200, 4, 2, True, 0, 167),        # a q_offset
+])
+def test_flash_attention_backward_kernel(cuda, dtype, B, Sq, Sk, H, KV,
+                                         causal, window, q_offset):
+    """The backward kernel against the plain backward in fp32 on the same
+    inputs and the forward kernel's log-sum-exp (held to the plain one)."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q = _randn(cuda, (B, Sq, H, 64), dtype)
+    k = _randn(cuda, (B, Sk, KV, 64), dtype)
+    v = _randn(cuda, (B, Sk, KV, 64), dtype)
+    do = _randn(cuda, (B, Sq, H, 64), dtype)
+    code = 0 if dtype is torch.float32 else 1
+    o, lse = fa._launch(q, k, v, causal, window, q_offset, 0.125, code,
+                        with_lse=True)
+    plain_lse = fa.attention_lse_plain(q, k, **kw)
+    assert float((lse - plain_lse).abs().max()) <= 1e-4
+    n0 = fa.BACKWARD_LAUNCHES
+    got = fa.attention_backward(q, k, v, o, lse, do, **kw)
+    assert fa.BACKWARD_LAUNCHES == n0 + 1
+    o32 = fa.attention_plain(q.float(), k.float(), v.float(), **kw)
+    want = fa.attention_backward_plain(q.float(), k.float(), v.float(), o32,
+                                       plain_lse, do.float(), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert float((g.float() - w).abs().max()) <= _grad_tol(dtype, w)
+    again = fa.attention_backward(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_autograd_takes_the_kernels_only_when_a_gradient_is_wanted(cuda):
+    """With grad enabled and an input that requires it, the wrappers run
+    the forward kernel (flash writing its log-sum-exp) and, in the
+    backward, the backward kernel; the gradients equal autograd of the
+    plain versions. Without, the forward alone, writing no log-sum-exp:
+    serving's launches are unchanged."""
+    from repro_torch.kernels import _build
+    lib = _build.lib()
+    real = lib.repro_flash_attention
+    lse_args = []
+
+    def spy(*args):
+        lse_args.append(args[5])
+        return real(*args)
+
+    x = _randn(cuda, (2, 100, 768), torch.float32)
+    scale = 1 + 0.1 * torch.randn((768,), generator=cuda, device="cuda")
+    q = _randn(cuda, (2, 100, 12, 64), torch.float32)
+    k = _randn(cuda, (2, 100, 4, 64), torch.float32)
+    v = _randn(cuda, (2, 100, 4, 64), torch.float32)
+    lib.repro_flash_attention = spy
+    try:
+        counts = (rn.LAUNCHES, rn.BACKWARD_LAUNCHES, fa.LAUNCHES,
+                  fa.BACKWARD_LAUNCHES)
+        with torch.no_grad():
+            rn.rmsnorm(x.requires_grad_(), scale)
+            fa.attention(q.requires_grad_(), k, v)
+        x.requires_grad_(False)
+        q.requires_grad_(False)
+        rn.rmsnorm(x, scale)
+        fa.attention(q, k, v)
+        assert (rn.LAUNCHES, rn.BACKWARD_LAUNCHES, fa.LAUNCHES,
+                fa.BACKWARD_LAUNCHES) == (counts[0] + 2, counts[1],
+                                          counts[2] + 2, counts[3])
+        assert lse_args == [None, None]
+        xs, ss, qs, ks, vs = (t.clone().requires_grad_()
+                              for t in (x, scale, q, k, v))
+        y = rn.rmsnorm(xs, ss)
+        o = fa.attention(qs, ks, vs)
+        assert lse_args[-1] is not None
+        loss = (y * y).sum() + (o * o).sum()
+        got = torch.autograd.grad(loss, (xs, ss, qs, ks, vs))
+    finally:
+        lib.repro_flash_attention = real
+    assert (rn.BACKWARD_LAUNCHES, fa.BACKWARD_LAUNCHES) == (counts[1] + 1,
+                                                            counts[3] + 1)
+    xp, sp, qp, kp, vp = (t.clone().requires_grad_()
+                          for t in (x, scale, q, k, v))
+    loss = (rn.rmsnorm_plain(xp, sp) ** 2).sum() \
+        + (fa.attention_plain(qp, kp, vp) ** 2).sum()
+    want = torch.autograd.grad(loss, (xp, sp, qp, kp, vp))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= _grad_tol(torch.float32, w)
+
+
+def test_autograd_refuses_a_gradient_no_kernel_gives(cuda):
+    """No fallback: flash at head_dim 128 and the SSD scan raise at the
+    forward when a gradient is wanted, and launch nothing."""
+    f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
+    q = _randn(cuda, (1, 64, 8, 128), torch.bfloat16).requires_grad_()
+    k = _randn(cuda, (1, 64, 2, 128), torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.attention(q, k, k)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, 1, 64, 4, 64, 1, 128,
+                                      torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, D)
+    assert (fa.LAUNCHES, ssd.LAUNCHES) == (f0, s0)
+    with torch.no_grad():                    # serving: the forward runs
+        fa.attention(q, k, k)
+        ssd.ssd_scan(x, dt, A, Bm, Cm, D)
+    assert (fa.LAUNCHES, ssd.LAUNCHES) == (f0 + 1, s0 + 1)
+
+
+def test_train_step_on_card_matches_the_cpu(cuda):
+    """One fp32 train step of a small paper_demo (head_dim 64, so the
+    backward kernel takes it) on the card, through the kernels, against the
+    same step on the CPU through the plain versions, from one state: the
+    loss, AdamW's moments (the gradient) per leaf within 1e-4 of the leaf's
+    max, and the params there too wherever the gradient is above 100 eps
+    (AdamW's first update of a gradient near eps turns on its last bits,
+    so two correct sums may differ there by up to 2 lr)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = dataclasses.replace(
+        get_config("paper_demo", reduced=True, dtype=torch.float32,
+                   param_dtype=torch.float32), head_dim=64, n_heads=6,
+        n_kv_heads=2)
+    opt = OptConfig(lr=1e-3)
+    cpu = init_train_state(cfg, opt, seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    step = make_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(0))
+    b0, f0 = rn.BACKWARD_LAUNCHES, fa.BACKWARD_LAUNCHES
+    cpu, mc = step(cpu, {"tokens": tokens})
+    card, mg = step(card, {"tokens": tokens.cuda()})
+    assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-5
+    assert rn.BACKWARD_LAUNCHES - b0 == 2 * cfg.n_layers + 1
+    assert fa.BACKWARD_LAUNCHES - f0 == cfg.n_layers
+
+    def rel(a, b, mask=None):
+        d = (a.cpu() - b).abs()
+        d = d[mask] if mask is not None else d
+        return float(d.max()) / float(b.abs().max()) if d.numel() else 0.0
+    for name in ("m", "v"):
+        for a, b in zip(tree_leaves(card["opt"][name]),
+                        tree_leaves(cpu["opt"][name])):
+            assert rel(a, b) <= 1e-4
+    for a, b, m in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"]),
+                       tree_leaves(cpu["opt"]["m"])):
+        assert rel(a, b, m.abs() > (1 - opt.b1) * 1e-6) <= 1e-4
