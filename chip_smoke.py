@@ -224,7 +224,27 @@ every pool must end with no page in use.
    25c the loop behind a sleep ahead of each step: at least 90% of the
    loss readbacks and every checkpoint's copies pending at first poll;
    25d a restart from the step-10 checkpoint, 2 steps in deterministic
-   mode, bit-equal to the uninterrupted run.
+   mode, bit-equal to the uninterrupted run;
+26. sharding over a ``(data, model)`` mesh of every card the machine
+   shows (``repro_torch.sharding``), one process a card on NCCL; it
+   prints the mesh (1x1 on one card). 26a the dry run's counts
+   (``repro_torch.launch.dryrun``, a CPU subprocess on a fake process
+   group of the mesh's size) of the bf16 decode step of phase 5's 8 slots
+   at its cache of 1024 and of phase 25's fp32 train step at 8 x 1024,
+   each beside its card ms by events (the decode step re-timed here, the
+   train step 26b's unsharded steps): the model FLOPs' share of the
+   dtype's peak, the counted bound (the larger of the FLOPs and bytes
+   terms, named) over the ms, and the counted FLOPs over the model's;
+   26b ``paper_demo`` at full width in fp32, 3 train steps of 8 x 1024
+   with the state placed by ``train_state_specs`` and the ``train`` rules
+   and ``grad_spec_tree`` on, against the unsharded step on card 0: the
+   loss and each leaf of m, v and the params (where |g| > 100 eps) within
+   1e-5 of the leaf's max, and each rank's flash and rmsnorm launches,
+   forward and backward, equal to the unsharded steps' (the kernels ran
+   on the shards); 26c ``compressed_psum_mean`` over the data axis
+   against the exact mean, within the reference test's bounds; 26d
+   ``reshard_state`` of 25d's last committed checkpoint onto the mesh,
+   bit-equal to the saved state.
 
 Phase 3 also holds the two backward kernels (no TPU counterpart) at the
 training step's shape, in fp32 and bf16: rmsnorm's at 8192 rows of 768
@@ -239,14 +259,15 @@ the kernels' launch counts to 0 just before it drives its path and reads
 them just after; a step graph adds its kernels' launches back on every
 replay. The kernels JSON has one entry per kernel and path that ran it
 (phase 5 ``paper_demo``, 23b ``paper_demo_unfused``, 8
-``mamba2_370m``, 15b-22b, and 25b ``train``, the only path of the two
-backward kernels; every serving path must show none of their
-launches): that path's
+``mamba2_370m``, 15b-22b, 25b ``train`` and 26b ``train_sharded``, the
+only paths of the two backward kernels; every serving path must show
+none of their launches): that path's
 launches beside the phase 3 case at its shape (a decode step's rows for
 rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
 danube's 6144 rows for its windowed flash, whisper's encoder over 1500
 frames, internvl2's 1536 prefill rows; the training step's shapes in
-fp32 for ``train``, bf16 for the others); each kernel's row is its
+fp32 for ``train``, and for ``train_sharded`` at one card's rows of it,
+bf16 for the others); each kernel's row is its
 first path's entry, with every path's entry under ``paths``. The
 next-to-last line is the kernels JSON, the last line the device JSON.
 """
@@ -788,9 +809,29 @@ VLM_SHAPES = dict(d=6144, H=48, KV=8, hd=128, rows=1536, batch=4)
 PAPER_PATHS = ("paper_demo", "paper_demo_unfused")
 # the training path (phase 25b) runs in fp32: the kernels JSON reports its
 # fp32 cases, every serving path's bf16 ones
-FP32_PATHS = ("train",)
+FP32_PATHS = ("train", "train_sharded")
 # paper_demo's training step in phase 25b: global batch 8 of 1024 tokens
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+
+
+def train_cases(dtype, gen, dev):
+    """Phase 3's cases of the training paths: 25b's step at its 8 x 1024
+    rows, and 26b's sharded step at one card's share of them (the same
+    cases when the machine shows one card)."""
+    shard = TRAIN_BATCH // torch.cuda.device_count()
+    tags = {TRAIN_BATCH: ("train",)}
+    tags[shard] = tags.get(shard, ()) + ("train_sharded",)
+    out = []
+    for B, tag in tags.items():
+        out += [("rmsnorm", tag, check_rmsnorm(dtype, B * TRAIN_SEQ, 768,
+                                               gen, dev)),
+                ("flash_attention", tag, check_flash(dtype, gen, dev, B=B,
+                                                     S=TRAIN_SEQ)),
+                ("rmsnorm_backward", tag, check_rmsnorm_bwd(
+                    dtype, B * TRAIN_SEQ, 768, gen, dev)),
+                ("flash_attention_backward", tag, check_flash_bwd(
+                    dtype, gen, dev, B=B, S=TRAIN_SEQ))]
+    return out
 
 
 def phase_kernels(dev, label):
@@ -841,15 +882,9 @@ def phase_kernels(dev, label):
             ("rmsnorm", None, check_rmsnorm(dtype, 512, 1024, gen, dev)),
             ("flash_attention", PAPER_PATHS, check_flash(dtype, gen, dev)),
             # paper_demo's training step (phase 25b; fp32 there): both
-            # kernels forward and backward at its 8 x 1024 rows
-            ("rmsnorm", "train", check_rmsnorm(
-                dtype, TRAIN_BATCH * TRAIN_SEQ, 768, gen, dev)),
-            ("flash_attention", "train", check_flash(
-                dtype, gen, dev, B=TRAIN_BATCH, S=TRAIN_SEQ)),
-            ("rmsnorm_backward", "train", check_rmsnorm_bwd(
-                dtype, TRAIN_BATCH * TRAIN_SEQ, 768, gen, dev)),
-            ("flash_attention_backward", "train", check_flash_bwd(
-                dtype, gen, dev, B=TRAIN_BATCH, S=TRAIN_SEQ)),
+            # kernels forward and backward at its 8 x 1024 rows; 26b's
+            # sharded step runs them at each card's rows of the batch
+            *train_cases(dtype, gen, dev),
             ("paged_attention", "paper_demo", check_paged("decode", dtype,
                                                           gen, dev)),
             ("paged_attention", None, check_paged("suffix", dtype, gen, dev)),
@@ -3886,9 +3921,323 @@ def phase_train(dev, label):
     if equal != len(files):
         raise AssertionError("25d: the restarted run is not bit-equal to "
                              "the uninterrupted one")
+    # 26d restores this committed checkpoint onto its mesh
+    shutil.rmtree(KEPT_CKPT, ignore_errors=True)
+    shutil.copytree(os.path.join(a, end), os.path.join(KEPT_CKPT, end))
     shutil.rmtree(root, ignore_errors=True)
     log(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ------------------------------------------------------------ phase 26
+SHARD_STEPS = 3        # 26b: sharded train steps against unsharded ones
+DECODE_SLOTS, DECODE_CACHE = 8, 1024   # 26a: phase 5's decode step
+PHASE26_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "phase26")
+#: 25d's last committed checkpoint, kept for 26d's restore
+KEPT_CKPT = os.path.join(PHASE26_ROOT, "ckpt")
+
+
+def dryrun_counts(shape, mesh, *flags):
+    """``repro_torch.launch.dryrun`` of paper_demo at ``shape`` on a fake
+    process group of ``mesh``'s size, started in a subprocess (CPU only)."""
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.path.join(here, "src")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "paper_demo", "--shape", shape, "--mesh",
+           "x".join(str(n) for n in mesh), *flags]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def read_counts_json(proc, what):
+    out, err = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"26a: the dry run of {what} failed:\n"
+                             f"{err[-3000:]}")
+    r = json.loads(out[out.index("{"):])
+    if r["status"] != "ok":
+        raise AssertionError(f"26a: the dry run of {what}: {r['status']}")
+    return r
+
+
+def shard_shares(what, r, ms, dtype, label):
+    """Print 26a's line for one program: its counts beside its card ms."""
+    cost, terms = r["cost"], r["roofline"]
+    flops, mf = cost["flops_per_device"], terms["model_flops"]
+    chips = r["chips"]
+    bound_s = max(terms["compute_s"], terms["memory_s"])
+    by = "operations" if terms["compute_s"] >= terms["memory_s"] \
+        else "bytes"
+    colls = {k: v for k, v in r["collectives"].items() if v["count"]}
+    log(f"phase 26a: {what} on a {r['mesh']} mesh, one card's share "
+        f"counted from shapes ({r['compile_s']} s): "
+        f"{flops / 1e12:.4f} TFLOP ("
+        + ", ".join(f"{k} {v / 1e12:.4f}" for k, v in
+                    cost["flops_per_device_by_dtype"].items())
+        + f"), {cost['bytes_per_device'] / 1e9:.3f} GB accessed, "
+        f"collectives {json.dumps(colls)}, live peak "
+        f"{r['memory']['temp_bytes_per_device'] / 2**20:.1f} MiB; "
+        f"card {ms:.4f} ms by events on {label}; model FLOPs "
+        f"{mf / chips / 1e12:.4f} TFLOP a card, "
+        f"{mf / chips / (ms * 1e-3) / PEAK_FLOPS[dtype]:.2%} of "
+        f"{str(dtype)[6:]}'s {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s; "
+        f"the counted bound {bound_s * 1e3:.4f} ms (by {by}: compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms), "
+        f"{bound_s * 1e3 / ms:.2%} of the card's ms; counted FLOPs over "
+        f"model FLOPs {flops * chips / mf:.3f}")
+
+
+def phase26_rank(rank, world, port):
+    """One card's process of 26b-26d (``torch.multiprocessing.spawn``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint.async_ckpt import AsyncCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import Engine
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.optim import (OptConfig, compressed_psum_mean,
+                                   init_compression_state)
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.sharding import place, specs_to_shardings, use_sharding
+    from repro_torch.train.sharding import batch_logical_axes, rules_for
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              train_state_specs)
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (world, 1),
+                                mesh_dim_names=("data", "model"))
+        out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        cfg = get_config("paper_demo", dtype=torch.float32,
+                         param_dtype=torch.float32)
+        opt = OptConfig()
+        rules = rules_for("train")
+        specs = train_state_specs(cfg)
+        tree = tree_map(lambda t: t.numpy(), init_train_state(
+            cfg, opt, seed=0, device="cpu"))
+        src = SyntheticTokenSource(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        batches = [torch.from_numpy(src.make_batch(i)["tokens"])
+                   for i in range(SHARD_STEPS)]
+
+        # 26b: the unsharded step on card 0, then the sharded one on each
+        # card, each with its launches counted
+        want = None
+        if rank == 0:
+            state = train_state_from_numpy(tree, cfg, dev)
+            step = make_train_step(cfg, opt)
+            zero_counts()
+            losses, ms = [], []
+            for tokens in batches:
+                (state, m), t = events_ms(
+                    lambda: step(state, {"tokens": tokens.to(dev)}))
+                losses.append(float(m["loss"]))
+                ms.append(t)
+            want = {"counts": read_counts(), "losses": losses, "ms": ms}
+            ref = {k: tree_map(lambda x: x.detach().cpu(), v) for k, v in
+                   (("params", state["params"]),
+                    ("m", state["opt"]["m"]), ("v", state["opt"]["v"]))}
+            del state
+            free_card()
+        box = [want]
+        dist.broadcast_object_list(box, src=0)
+        want = box[0]
+        state = place(train_state_from_numpy(tree, cfg, dev),
+                      specs_to_shardings(specs, mesh, rules))
+        step = make_train_step(cfg, opt, grad_spec_tree=specs["params"])
+        zero_counts()
+        losses, ms = [], []
+        for tokens in batches:
+            batch = place({"tokens": tokens.to(dev)}, specs_to_shardings(
+                batch_logical_axes({"tokens": tokens}), mesh, rules))
+            with use_sharding(mesh, rules):
+                (state, m), t = events_ms(lambda: step(state, batch))
+            losses.append(float(m["loss"].full_tensor()))
+            ms.append(t)
+        counts = read_counts()
+        local = tuple(state["params"]["layers"]["attn"]["wq"]
+                      .to_local().shape)
+        whole = {k: tree_map(lambda x: x.full_tensor().cpu(), v) for k, v in
+                 (("params", state["params"]),
+                  ("m", state["opt"]["m"]), ("v", state["opt"]["v"]))}
+        del state
+        free_card()
+        if counts != want["counts"]:
+            raise AssertionError(f"26b: rank {rank}'s sharded launches "
+                                 f"{counts}, the unsharded step's "
+                                 f"{want['counts']}")
+        if rank == 0:
+            sure = tree_map(
+                lambda m: m.abs() > (1 - opt.b1) * WELL_CONDITIONED_GRAD,
+                ref["m"])
+            diffs = {"params where |g| > 1e-6": tree_rel_diff(
+                whole["params"], ref["params"], sure),
+                "m": tree_rel_diff(whole["m"], ref["m"]),
+                "v": tree_rel_diff(whole["v"], ref["v"])}
+            loss_diff = max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, want["losses"]))
+            out["26b"] = {"diffs": diffs, "loss_rel": loss_diff,
+                          "losses": losses, "want_losses": want["losses"],
+                          "ms": ms, "want_ms": want["ms"],
+                          "counts": counts, "wq_local": local}
+
+        # 26c: int8 error-feedback mean over the data axis, each rank's
+        # gradients (of paper_demo's shapes) its own draw
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(100 + rank)
+        grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device=dev), whole["params"])
+        del whole
+        mean, err = compressed_psum_mean(grads, init_compression_state(
+            grads), mesh["data"])
+        group = mesh["data"].get_group()
+        n = dist.get_world_size(group)
+        worst, worst_bound, worst_recon = 0.0, 0.0, 0.0
+        for g, mu, e in zip(tree_leaves(grads), tree_leaves(mean),
+                            tree_leaves(err)):
+            exact = g.clone()
+            dist.all_reduce(exact, group=group)
+            exact /= n
+            esum = e.clone()
+            dist.all_reduce(esum, group=group)
+            # each rank's scale, gathered: the reference's bound (2.1
+            # quantization steps of the largest scale) plus the ranks'
+            # scale mismatch, which the error state carries
+            scale = (g.abs().max() / 127.0 + 1e-12).reshape(1)
+            scales = [torch.empty_like(scale) for _ in range(n)]
+            dist.all_gather(scales, scale, group=group)
+            scales = torch.cat(scales)
+            bound = 2.1 * float(scales.max()) + float(
+                (scales - scales.mean()).abs().sum()) * 127 / n
+            worst = max(worst, float((mu - exact).abs().max()) / bound)
+            worst_bound = max(worst_bound, bound)
+            worst_recon = max(worst_recon, float(
+                (mu + esum / n - exact).abs().max()))
+        out["26c"] = {"ranks": n, "err_over_bound": worst,
+                      "bound": worst_bound, "recon": worst_recon,
+                      "elements": sum(g.numel() for g in tree_leaves(grads))}
+        if worst > 1.0 or worst_recon > 1e-5:
+            raise AssertionError(f"26c: rank {rank}: {out['26c']}")
+        del grads, mean, err
+
+        # 26d: phase 25's committed checkpoint restored onto the mesh
+        ck = AsyncCheckpointer(KEPT_CKPT, Engine())
+        step_no = ck.latest_step()
+        like = init_train_state(cfg, opt, seed=0, device="cpu")
+        t0 = time.perf_counter()
+        host = ck.restore(step_no, like)
+        placed = reshard_state(host, specs, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        equal = total = 0
+        for a, b in zip(tree_leaves(placed), tree_leaves(host)):
+            a = a.full_tensor().cpu() if hasattr(a, "full_tensor") else a
+            total += 1
+            equal += a.numpy().tobytes() == b.numpy().tobytes()
+        ck.close()
+        out["26d"] = {"step": step_no, "equal": equal, "leaves": total,
+                      "s": restore_s}
+        if equal != total:
+            raise AssertionError(f"26d: rank {rank}: {equal} of {total} "
+                                 "leaves bit-equal after the re-shard")
+        if rank == 0:
+            with open(os.path.join(PHASE26_ROOT, "out.json"), "w") as f:
+                json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_shards(dev, label):
+    """Phase 26: sharding over a (data, model) mesh of every card the
+    machine shows, one process a card on NCCL. Returns 26b's launches
+    (rank 0's sharded steps)."""
+    import socket
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.steps import make_decode_step
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    mesh = (n, 1)
+    log(f"phase 26: a (data, model) = {mesh[0]}x{mesh[1]} mesh of the "
+        f"{n} card(s) this machine shows, one process a card (NCCL)")
+    # 26a: the dry run's counts (CPU subprocesses, while the card works)
+    decode_p = dryrun_counts("decode_32k", mesh, "--batch",
+                             str(DECODE_SLOTS), "--seq-len",
+                             str(DECODE_CACHE))
+    train_p = dryrun_counts("train_4k", mesh, "--exact", "--microbatches",
+                            "1", "--batch", str(TRAIN_BATCH), "--seq-len",
+                            str(TRAIN_SEQ), "--dtype", "float32")
+    # ... and the decode step re-timed on this card, whole (the train
+    # step's card ms are 26b's unsharded steps after the first)
+    cfg = get_config("paper_demo")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    cache = lm.init_cache(cfg, DECODE_SLOTS, DECODE_CACHE, device=dev)
+    token = torch.zeros((DECODE_SLOTS, 1), dtype=torch.int32, device=dev)
+    decode = make_decode_step(cfg)
+    decode_ms = median_ms(lambda: decode(params, cache, token,
+                                         DECODE_CACHE - 1), runs=20)
+    del params, cache
+    free_card()
+
+    # 26b-26d: one process a card
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_path = os.path.join(PHASE26_ROOT, "out.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    torch.multiprocessing.start_processes(
+        phase26_rank, args=(n, port), nprocs=n, start_method="spawn")
+    with open(out_path) as f:
+        out = json.load(f)
+    b, c, d = out["26b"], out["26c"], out["26d"]
+    shard_shares(f"bf16 decode step, {DECODE_SLOTS} slots at cache "
+                 f"{DECODE_CACHE} (lm_decode_step)",
+                 read_counts_json(decode_p, "the decode step"), decode_ms,
+                 torch.bfloat16, label)
+    shard_shares(f"fp32 train step, {TRAIN_BATCH} x {TRAIN_SEQ} (card ms: "
+                 "26b's unsharded steps after the first)",
+                 read_counts_json(train_p, "the train step"),
+                 statistics.median(b["want_ms"][1:]), torch.float32, label)
+    log(f"phase 26b: paper_demo at full width in fp32, {SHARD_STEPS} train "
+        f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} on the {out['mesh']} mesh "
+        f"(state by train_state_specs, rules_for(\"train\"), grad_spec_tree "
+        f"on; wq's shard {tuple(b['wq_local'])}) against the unsharded "
+        f"step on card 0: losses {', '.join(f'{x:.6f}' for x in b['losses'])}"
+        f" vs {', '.join(f'{x:.6f}' for x in b['want_losses'])} (largest "
+        f"relative difference {b['loss_rel']:.3g}); largest per-leaf "
+        "difference over the leaf's max: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in b["diffs"].items())
+        + " (tol 1e-5); card ms a step by events, sharded "
+        + ", ".join(f"{x:.1f}" for x in b["ms"]) + ", unsharded "
+        + ", ".join(f"{x:.1f}" for x in b["want_ms"])
+        + f"; launches each rank {json.dumps(b['counts'])}, equal to the "
+        "unsharded step's")
+    if max(b["diffs"].values()) > 1e-5 or b["loss_rel"] > 1e-5:
+        raise AssertionError(f"26b: the sharded steps are off the "
+                             f"unsharded ones: {b}")
+    log(f"phase 26c: compressed_psum_mean over the data axis ({c['ranks']} "
+        f"rank(s), {c['elements']:,} elements of paper_demo's shapes a "
+        f"rank): the largest error over the reference's bound "
+        f"{c['err_over_bound']:.3f} (must be <= 1; bound up to "
+        f"{c['bound']:.4g}), mean + sum(err)/n against the exact mean "
+        f"{c['recon']:.3g} (tol 1e-5)")
+    log(f"phase 26d: reshard_state of phase 25's step-{d['step']} "
+        f"checkpoint onto the mesh: {d['equal']} of {d['leaves']} leaves "
+        f"bit-equal to the saved state ({d['s']:.2f} s restore and "
+        "re-shard)")
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+    return b["counts"]
 
 
 def main() -> int:
@@ -3966,7 +4315,8 @@ def main() -> int:
              "zamba2_1p2b": phase_zamba(dev, label),
              "whisper_large_v3": phase_whisper(dev, label),
              "internvl2_26b": phase_vlm(dev, label),
-             "train": phase_train(dev, label)}
+             "train": phase_train(dev, label),
+             "train_sharded": phase_shards(dev, label)}
     # one entry per (kernel, path that ran it): that path's launches beside
     # phase 3's case at its shape; a kernel's row is its first path's
     # entry, every path's entry under "paths"

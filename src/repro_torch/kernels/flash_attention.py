@@ -12,7 +12,10 @@ requires grad goes through ``_FlashFunction`` (the forward kernel writing
 the log-sum-exp, then the backward kernel); at a head_dim with no
 backward kernel it raises ``NotImplementedError`` at the forward. Any
 other CUDA call is the forward launch alone, writing no log-sum-exp, as
-serving makes it.
+serving makes it. DTensors run each rank's shard through this same rule
+(``kernels._shards``): batch and heads may be sharded, with each rank's q
+heads beside their own KV heads; the sequence and head_dim may not. Meta
+shards (the dry run's) take the plain version.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shards
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
@@ -228,6 +231,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """CPU tensors take the plain version; CUDA tensors launch the kernel,
     through the autograd function when a gradient is wanted (see the
     module's docstring). Returns (B, Sq, H, D) in q's dtype."""
+    if _shards.any_dtensor(q, k, v):
+        return _attention_shards(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, scale=scale)
@@ -239,3 +245,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     code)
     return _launch(q, k, v, causal, window, q_offset, scale, code,
                    with_lse=False)[0]
+
+
+def _attention_shards(q, k, v, **kw):
+    """``attention`` of DTensors on each rank's shard: q, k and v sharded
+    alike on batch (dim 0) and heads (dim 2), q's heads and k's split
+    evenly, so that rank ``r`` holds q heads ``[r·H/m, (r+1)·H/m)`` and
+    exactly their KV heads."""
+    name = "flash_attention"
+    if not _shards.any_dtensor(q):
+        raise ValueError(f"{name}: DTensor K/V need a DTensor q")
+    _shards.check(name, "q", q, (0, 2))
+    for what, t in (("k", k), ("v", v)):
+        _shards.same(name, what, q, t, {0: 0, 2: 2})
+    _shards.divides(name, q, 2, (q.shape[2], k.shape[2]))
+    split = _shards.split_dims(q, k, v)
+    fn = attention_plain if _shards.on_meta(q) else attention
+    out = fn(*(_shards.local(t, split) for t in (q, k, v)), **kw)
+    return _shards.wrap(out, q, q.shape)

@@ -18,6 +18,11 @@ Both versions update the pool in place and store only the window rows
 ``j < n_valid``: rows past ``n_valid`` are written nowhere, not even on the
 null page (the JAX reference parks them there; compare pools on real pages
 only).
+
+DTensors run each rank's shard through this same rule
+(``kernels._shards``): the heads may be sharded (q, the new rows and the
+pools alike, whole KV groups a rank), nothing else; the page index is
+replicated. Meta shards take the plain version.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shards
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
@@ -149,6 +154,11 @@ def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
     """CPU tensors take the plain version; CUDA tensors launch the kernel.
     Returns ``(out, k_pages, v_pages)``, the pools updated in place."""
     global LAUNCHES
+    if _shards.any_dtensor(q, k_new, v_new, k_pages, v_pages, tables,
+                           positions, n_valid):
+        return _paged_shards(q, k_new, v_new, k_pages, v_pages, tables,
+                             positions, n_valid, page_size=page_size,
+                             scale=scale)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_new, v_new, k_pages, v_pages,
                                      tables, positions, n_valid,
@@ -202,3 +212,27 @@ def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
     _build.check(rc, name)
     LAUNCHES += 1
     return out, k_pages, v_pages
+
+
+def _paged_shards(q, k_new, v_new, k_pages, v_pages, tables, positions,
+                  n_valid, **kw):
+    """``paged_attention`` of DTensors on each rank's heads: q, the new
+    rows and both pools sharded alike on their head dim (2), the page
+    index replicated; the pools are updated in place on every rank."""
+    name = "paged_attention"
+    if not _shards.any_dtensor(q):
+        raise ValueError(f"{name}: DTensor K/V need a DTensor q")
+    _shards.check(name, "q", q, (2,))
+    for what, t in (("k_new", k_new), ("v_new", v_new),
+                    ("k_pages", k_pages), ("v_pages", v_pages)):
+        _shards.same(name, what, q, t, {2: 2})
+    for what, t in (("tables", tables), ("positions", positions),
+                    ("n_valid", n_valid)):
+        _shards.same(name, what, q, t, {})
+    _shards.divides(name, q, 2, (q.shape[2], k_new.shape[2]))
+    split = _shards.split_dims(q)
+    args = [_shards.local(t, split) for t in (
+        q, k_new, v_new, k_pages, v_pages, tables, positions, n_valid)]
+    fn = paged_attention_plain if _shards.on_meta(q) else paged_attention
+    out, _, _ = fn(*args, **kw)
+    return _shards.wrap(out, q, q.shape), k_pages, v_pages

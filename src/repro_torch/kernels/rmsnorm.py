@@ -8,7 +8,9 @@ The wrapper's rule: CPU tensors take the plain version, which autograd
 differentiates natively. A CUDA call with grad enabled and an input that
 requires grad goes through ``_RMSNormFunction`` (the forward kernel, then
 the backward kernel); any other CUDA call is the forward launch alone, as
-serving makes it.
+serving makes it. DTensors run each rank's rows through this same rule
+(``kernels._shards``): the rows may be sharded, the width and the scale
+may not; meta shards (the dry run's) take the plain version.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shards
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
@@ -135,6 +137,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     """``x`` (..., D), ``scale`` (D,) fp32. CPU tensors take the plain
     version; CUDA tensors launch the kernel, through the autograd function
     when a gradient is wanted (see the module's docstring)."""
+    if _shards.any_dtensor(x, scale):
+        return _rmsnorm_shards(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
     code = _check(x, scale)
@@ -145,3 +149,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                 f"(at most {MAX_BACKWARD_D}); see ROADMAP A.7")
         return _RMSNormFunction.apply(x, scale, eps, code)
     return _launch(x, scale, eps, code)
+
+
+def _rmsnorm_shards(x, scale, eps: float):
+    """``rmsnorm`` of a DTensor on each rank's rows (any leading dims
+    sharded; the width and the scale whole)."""
+    name = "rmsnorm"
+    if not _shards.any_dtensor(x):
+        raise ValueError(f"{name}: a DTensor scale needs DTensor rows")
+    _shards.check(name, "x", x, range(x.ndim - 1))
+    _shards.same(name, "scale", x, scale, {})
+    split = _shards.split_dims(x)
+    fn = rmsnorm_plain if _shards.on_meta(x) else rmsnorm
+    out = fn(_shards.local(x, split), _shards.local(scale, split), eps)
+    return _shards.wrap(out, x, x.shape)

@@ -16,6 +16,12 @@ fp32 final state ``(B, H, P, N)``, as the reference's ``ssd_chunked`` does
 (its Pallas kernel drops the state). ``T`` need not be a multiple of
 ``chunk``: the last chunk is padded with ``dt = 0`` rows, which neither
 decay nor add to the state, and their ``y`` is dropped.
+
+DTensors run each rank's shard through this same rule
+(``kernels._shards``): batch and heads may be sharded (x, dt, A and D
+alike; B and C on their groups alike, or replicated when there is one
+group), not the sequence, head_dim or state. Meta shards (the dry run's)
+take the plain version.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shards
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
@@ -182,6 +188,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``_ssd_chunk_parallel_plain``), counted as one launch. The kernel has
     no backward: a CUDA call that wants a gradient raises."""
     global LAUNCHES
+    if _shards.any_dtensor(x, dt, A, Bm, Cm, D):
+        return _ssd_shards(x, dt, A, Bm, Cm, D, chunk=chunk,
+                           return_state=return_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk,
                               return_state=return_state)
@@ -227,3 +236,34 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check(rc, "ssd_scan")
     LAUNCHES += 1
     return (y, final) if return_state else y
+
+
+def _ssd_shards(x, dt, A, Bm, Cm, D, *, chunk: int,
+                return_state: bool) -> Out:
+    """``ssd_scan`` of DTensors on each rank's batch rows and heads; the
+    final state ``(B, H, P, N)`` is placed as x's batch and heads."""
+    name = "ssd_scan"
+    if not _shards.any_dtensor(x):
+        raise ValueError(f"{name}: DTensor operands need a DTensor x")
+    _shards.check(name, "x", x, (0, 2))
+    _shards.same(name, "dt", x, dt, {0: 0, 2: 2})
+    for what, t in (("A", A), ("D", D)):
+        _shards.same(name, what, x, t, {2: 0})
+    G = Bm.shape[2]
+    # one group: B and C replicated over the heads' mesh dims; else their
+    # groups split as the heads do
+    groups = {0: 0} if G == 1 else {0: 0, 2: 2}
+    for what, t in (("B", Bm), ("C", Cm)):
+        _shards.same(name, what, x, t, groups)
+    _shards.divides(name, x, 2, (x.shape[2],) + ((G,) if G > 1 else ()))
+    split = _shards.split_dims(x, dt, Bm, Cm)
+    fn = ssd_scan_plain if _shards.on_meta(x) else ssd_scan
+    out = fn(*(_shards.local(t, split) for t in (x, dt, A, Bm, Cm, D)),
+             chunk=chunk, return_state=return_state)
+    y, final = out if return_state else (out, None)
+    y = _shards.wrap(y, x, x.shape)
+    if not return_state:
+        return y
+    B_, _, H, P = x.shape
+    return y, _shards.wrap(final, x, (B_, H, P, Bm.shape[3]),
+                           _shards.remap(x, {0: 0, 2: 1}))

@@ -12,6 +12,11 @@ reference computes it with einsums outside any Pallas kernel.
 Cross-attention runs the flash kernel non-causally against the encoder's
 keys, at every query length (``Sq = 1`` at each decode step).
 
+Under a mesh (``repro_torch.sharding``) the reference's ``constrain`` and
+``gathered`` sites place the activations; the flash kernel then runs on
+each rank's shard, which must hold whole head_dims and whole KV groups:
+q heads ``[r·H/m, (r+1)·H/m)`` with their own KV heads (``_kv_for_heads``).
+
 The sliding-window cache is a ring of ``L`` slots: absolute position ``p``
 lives in slot ``p % L``, after prefill as after decode. The reference's
 prefill keeps the last ``L`` prompt keys at slots ``0..L-1``, which its
@@ -28,8 +33,9 @@ import torch
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import paged_attention as paged_kernel
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import (apply_rope_tables, init_normal,
-                                       rope_tables)
+from repro_torch.models.layers import (apply_rope_tables, gathered,
+                                       init_normal, rope_tables)
+from repro_torch.sharding import axis_size, constrain, is_dtensor
 from repro_torch.util import resolve_device
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -68,6 +74,30 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dev,
     return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
 
 
+def _hd_ax(cfg: Optional[ModelConfig]) -> Optional[str]:
+    # kv heads < TP degree → shard head_dim instead, IF it divides 16
+    # (danube's head_dim=120 does not: its small kv weights replicate on tp)
+    return "tp" if cfg is None or cfg.resolved_head_dim % 16 == 0 else None
+
+
+def attention_specs(cfg: ModelConfig = None) -> Dict[str, Any]:
+    hd_ax = _hd_ax(cfg)
+    return {
+        "wq": ("fsdp", "heads", None),
+        "wk": ("fsdp", None, hd_ax),
+        "wv": ("fsdp", None, hd_ax),
+        "wo": ("heads", None, "fsdp"),
+    }
+
+
+def kv_cache_specs(layer_stacked: bool,
+                   cfg: ModelConfig = None) -> Dict[str, Any]:
+    hd_ax = _hd_ax(cfg)
+    lead = (None,) if layer_stacked else ()
+    return {"k": lead + ("batch", "kv_seq", None, hd_ax),
+            "v": lead + ("batch", "kv_seq", None, hd_ax)}
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   n_layers: Optional[int] = None,
                   device: Any = "cuda") -> Dict[str, torch.Tensor]:
@@ -97,21 +127,59 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, S, H, hd), k/v (B, S, KV, hd); ``rope`` = ``rope_tables`` of
     the rows' absolute positions."""
-    B, S, d = x.shape
-    hd = cfg.resolved_head_dim
-    q = (x @ params["wq"].to(cfg.dtype).reshape(d, -1)).view(B, S, -1, hd)
-    k = (x @ params["wk"].to(cfg.dtype).reshape(d, -1)).view(B, S, -1, hd)
-    v = (x @ params["wv"].to(cfg.dtype).reshape(d, -1)).view(B, S, -1, hd)
+    g = cfg.gather_weights
+    hd_ax = _hd_ax(cfg)
+    wq = gathered(params["wq"], None, "heads", None, gather=g)
+    wk = gathered(params["wk"], None, None, hd_ax, gather=g)
+    wv = gathered(params["wv"], None, None, hd_ax, gather=g)
+    q = _project(x, wq, cfg)
+    k = _project(x, wk, cfg)
+    v = _project(x, wv, cfg)
     if cfg.rope_theta > 0:
         cos, sin = rope
         q = apply_rope_tables(q, cos, sin, lean=cfg.lean_attention)
         k = apply_rope_tables(k, cos, sin, lean=cfg.lean_attention)
+    q = constrain(q, "batch", None, "act_heads", None)
     return q, k, v
 
 
+def _project(x: torch.Tensor, w: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """``x (B, S, d) · w (d, n, hd)`` → ``(B, S, n, hd)``: one matmul on
+    the flattened heads. A head_dim split over ranks (the ``tp`` rule of
+    ``wk``/``wv``) does not flatten into the heads: one product a head."""
+    w = w.to(cfg.dtype)
+    if is_dtensor(w) and any(p.is_shard(2) for p in w.placements):
+        return torch.stack([x @ w[:, i] for i in range(w.shape[1])], dim=2)
+    B, S, d = x.shape
+    return (x @ w.reshape(d, -1)).view(B, S, -1, w.shape[-1])
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                  heads: str = "act_heads"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V placed for the flash kernel beside q's heads (named ``heads``,
+    as q's constraint names them): whole head_dims, and each rank's KV
+    heads those of its q heads. Where the KV heads do not split as the q
+    heads do, they are repeated to the q heads first, as the reference
+    repeats them for its XLA attention. Without a mesh k and v stay as
+    they are."""
+    if not is_dtensor(k):
+        return k, v
+    m = axis_size(heads)
+    groups = cfg.padded_kv_groups
+    if groups > 1 and cfg.padded_kv_heads % m:
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+    return (constrain(k, "batch", None, heads, None),
+            constrain(v, "batch", None, heads, None))
+
+
 def _out_proj(params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    o = constrain(o, "batch", None, "act_heads", None)
+    wo = gathered(params["wo"], "heads", None, None,
+                  gather=cfg.gather_weights).to(cfg.dtype)
     B, S = o.shape[:2]
-    wo = params["wo"].to(cfg.dtype)
     return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
@@ -122,6 +190,7 @@ def attention_block(params, x: torch.Tensor, cfg: ModelConfig, *,
     if rope is None:
         rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
     q, k, v = _project_qkv(params, x, cfg, rope)
+    k, v = _kv_for_heads(k, v, cfg)
     o = flash_kernel.attention(q, k, v, causal=causal, window=cfg.window)
     return _out_proj(params, o, cfg)
 
@@ -137,7 +206,8 @@ def prefill_attention(params, x: torch.Tensor, cfg: ModelConfig,
     if rope is None:
         rope = _rope(cfg, torch.arange(S, device=x.device)[None])
     q, k, v = _project_qkv(params, x, cfg, rope)
-    o = flash_kernel.attention(q, k, v, causal=True, window=cfg.window)
+    kr, vr = _kv_for_heads(k, v, cfg)
+    o = flash_kernel.attention(q, kr, vr, causal=True, window=cfg.window)
     out = _out_proj(params, o, cfg)
     L = cache["k"].shape[1]
     if S >= L:
@@ -174,6 +244,47 @@ def check_decode_span(cfg: ModelConfig, L: int, pos: Any, S1: int) -> None:
                          + (f" (window {cfg.window})" if cfg.window else ""))
 
 
+def _write_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, slots: torch.Tensor) -> None:
+    """Write the new rows ``k``/``v (B, S1, KV, hd)`` into ``cache`` at
+    ``slots (B, S1)``, in place."""
+    _write(cache["k"], k, slots)
+    _write(cache["v"], v, slots)
+
+
+def _write(c: torch.Tensor, new: torch.Tensor, slots: torch.Tensor) -> None:
+    """An indexed write of ``new`` into ``c``. Under a mesh (a DTensor
+    cache) the new rows move to the cache's placements, never the cache,
+    and each rank writes its own shard; a cache sharded along its
+    positions (the decode rules' ``kv_seq``) takes a select against its
+    slot index instead, one new row at a time (the counterpart of the
+    reference's ``dynamic_update_slice``)."""
+    B, S1 = slots.shape
+    if not is_dtensor(c):
+        rows = torch.arange(B, device=slots.device)[:, None].expand(B, S1)
+        c[rows, slots] = new
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = c.device_mesh
+    new = new.redistribute(mesh, tuple(
+        Replicate() if p.is_shard(1) else p for p in c.placements))
+    if any(p.is_shard(1) and mesh.size(i) > 1
+           for i, p in enumerate(c.placements)):
+        idx = torch.arange(c.shape[1], device=slots.device)
+        out = c
+        for j in range(S1):
+            hit = (idx[None, :] == slots[:, j:j + 1])[:, :, None, None]
+            out = torch.where(hit, new[:, j:j + 1], out)
+        c.copy_(out)
+        return
+    # each rank's slots are its own rows'
+    slots = DTensor.from_local(
+        slots, mesh, [Replicate()] * mesh.ndim, run_check=False
+    ).redistribute(mesh, tuple(Shard(0) if p.is_shard(0) else Replicate()
+                               for p in c.placements))
+    _write(c.to_local(), new.to_local(), slots.to_local())
+
+
 def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
                      cache: Dict[str, torch.Tensor], pos: Any,
                      rope: Optional[Rope] = None
@@ -200,12 +311,12 @@ def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
     if rope is None:
         rope = _rope(cfg, qpos)
     q, k, v = _project_qkv(params, x, cfg, rope)
-    rows = torch.arange(B, device=dev)[:, None].expand(B, S1)
     # the remainder wraps the ring and keeps any other write in bounds
     slots = qpos % L
-    cache["k"][rows, slots] = k
-    cache["v"][rows, slots] = v
-    ck, cv = cache["k"], cache["v"]
+    _write_rows(cache, k, v, slots)
+    q = constrain(q, "batch", None, "act_heads", None)
+    ck = constrain(cache["k"], "batch", "kv_seq", None, None)
+    cv = constrain(cache["v"], "batch", "kv_seq", None, None)
     KVp = cfg.padded_kv_heads
     G = cfg.padded_heads // KVp
     qg = q.reshape(B, S1, KVp, G, -1)
@@ -246,6 +357,7 @@ def paged_decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
         offs = torch.arange(W, device=x.device, dtype=positions.dtype)
         rope = _rope(cfg, positions[:, None] + offs[None, :])
     q, k, v = _project_qkv(params, x, cfg, rope)
+    q = constrain(q, "batch", None, "act_heads", None)
     o, k_pages, v_pages = paged_kernel.paged_attention(
         q, k, v, k_pages, v_pages, tables, positions, n_valid,
         page_size=page_size, scale=cfg.resolved_head_dim ** -0.5)
@@ -257,13 +369,8 @@ def precompute_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig
                         ) -> Dict[str, torch.Tensor]:
     """The encoder output's keys and values for one decoder layer:
     contiguous ``(B, T_enc, KVp, hd)`` each, no RoPE."""
-    B, T, d = enc_out.shape
-    hd = cfg.resolved_head_dim
-    k = (enc_out @ params["wk"].to(cfg.dtype).reshape(d, -1)).view(
-        B, T, -1, hd)
-    v = (enc_out @ params["wv"].to(cfg.dtype).reshape(d, -1)).view(
-        B, T, -1, hd)
-    return {"k": k, "v": v}
+    return {"k": _project(enc_out, params["wk"], cfg),
+            "v": _project(enc_out, params["wv"], cfg)}
 
 
 def cross_attention(params, x: torch.Tensor,
@@ -271,9 +378,8 @@ def cross_attention(params, x: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """``x (B, S, d)`` attends to all of ``cross_kv``'s encoder positions
     (flash kernel, non-causal, no window), at any ``S``."""
-    B, S, d = x.shape
-    q = (x @ params["wq"].to(cfg.dtype).reshape(d, -1)).view(
-        B, S, -1, cfg.resolved_head_dim)
-    o = flash_kernel.attention(q, cross_kv["k"], cross_kv["v"],
-                               causal=False, window=0)
+    q = constrain(_project(x, params["wq"], cfg), "batch", None, "heads",
+                  None)
+    k, v = _kv_for_heads(cross_kv["k"], cross_kv["v"], cfg, "heads")
+    o = flash_kernel.attention(q, k, v, causal=False, window=0)
     return _out_proj(params, o, cfg)

@@ -19,7 +19,8 @@ in a decode step is ``attention.decode_attention`` (grouped einsums, as the
 reference computes it outside any Pallas kernel). The decode state is the
 reference's layer-stacked layout, ``{"cross": {"k", "v": (L, B, T_enc,
 KVp, hd)}, "self": {"k", "v": (L, B, max_len, KVp, hd)}}``; a decode step
-writes the self-attention cache in place.
+writes the self-attention cache in place. ``param_specs`` is the
+parameters' logical-axis tree (``repro_torch.sharding``).
 """
 from __future__ import annotations
 
@@ -30,11 +31,14 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import AUDIO, ModelConfig
 from repro_torch.models.layers import (cross_entropy, embed_tokens,
-                                       init_embedding, init_mlp, init_normal,
-                                       init_rmsnorm, layer_views, lm_logits,
-                                       mlp, rmsnorm, sinusoidal_pe,
-                                       sinusoidal_positions)
-from repro_torch.util import resolve_device
+                                       embedding_specs, init_embedding,
+                                       init_mlp, init_normal, init_rmsnorm,
+                                       layer_views, lm_logits, mlp, mlp_specs,
+                                       next_tokens, rmsnorm, rmsnorm_specs,
+                                       sinusoidal_pe, sinusoidal_positions,
+                                       stack_specs)
+from repro_torch.sharding import constrain, is_dtensor, place_by_specs
+from repro_torch.util import generator, resolve_device
 
 Params = Dict[str, Any]
 State = Dict[str, Dict[str, torch.Tensor]]
@@ -52,8 +56,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         raise ValueError(f"{cfg.name} is family {cfg.family!r}, not an "
                          "audio encoder-decoder")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = generator(dev, seed)
     d, F = cfg.d_model, cfg.frontend_dim
     Le, Ld = (cfg.n_enc_layers,), (cfg.n_dec_layers,)
     return {
@@ -79,11 +82,27 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 # ================================================================= encoder
 
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    enc = {"norm1": rmsnorm_specs(), "attn": attn_mod.attention_specs(cfg),
+           "norm2": rmsnorm_specs(), "mlp": mlp_specs()}
+    dec = {"norm1": rmsnorm_specs(),
+           "self_attn": attn_mod.attention_specs(cfg),
+           "norm_x": rmsnorm_specs(),
+           "cross_attn": attn_mod.attention_specs(cfg),
+           "norm2": rmsnorm_specs(), "mlp": mlp_specs()}
+    return {
+        "embed": embedding_specs(cfg),
+        "frontend": {"proj": ("fsdp", "tp")},
+        "encoder": stack_specs(enc), "enc_norm": rmsnorm_specs(),
+        "decoder": stack_specs(dec), "dec_norm": rmsnorm_specs(),
+    }
+
+
 def _enc_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     x = x + attn_mod.attention_block(lp["attn"], h, cfg, causal=False)
     h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h)
+    return x + mlp(lp["mlp"], h, cfg.gather_weights)
 
 
 def encode(params: Params, audio_embed: torch.Tensor,
@@ -93,6 +112,7 @@ def encode(params: Params, audio_embed: torch.Tensor,
     x = audio_embed.to(cfg.dtype) @ params["frontend"]["proj"].to(cfg.dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(cfg.dtype)
+    x = constrain(x, "batch", None, None)
     for lp in layer_views(params, "encoder"):
         x = _enc_block(lp, x, cfg)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
@@ -112,7 +132,8 @@ def _embed_dec(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         positions = attn_mod.row_positions(pos0, B, x.device)[:, None] + offs
     else:
         positions = offs + int(pos0)
-    return x + sinusoidal_pe(positions, cfg.d_model).to(cfg.dtype)
+    return constrain(x + sinusoidal_pe(positions, cfg.d_model).to(cfg.dtype),
+                     "batch", None, None)
 
 
 def _dec_block_train(lp, x: torch.Tensor, enc_out: torch.Tensor,
@@ -125,7 +146,7 @@ def _dec_block_train(lp, x: torch.Tensor, enc_out: torch.Tensor,
     ckv = attn_mod.precompute_cross_kv(lp["cross_attn"], enc_out, cfg)
     x = x + attn_mod.cross_attention(lp["cross_attn"], h, ckv, cfg)
     h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h)
+    return x + mlp(lp["mlp"], h, cfg.gather_weights)
 
 
 def encdec_logits(params: Params, audio_embed: torch.Tensor,
@@ -152,7 +173,7 @@ def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],
     valid = torch.ones(tokens.shape, dtype=torch.float32,
                        device=tokens.device)
     valid[:, -1] = 0.0
-    return cross_entropy(logits, torch.roll(tokens, -1, dims=1), valid)
+    return cross_entropy(logits, next_tokens(tokens), valid)
 
 
 # ================================================================= serving
@@ -164,6 +185,16 @@ def init_decode_state(params: Params, audio_embed: torch.Tensor,
     enc_out = encode(params, audio_embed, cfg)
     views = layer_views(params, "decoder")
     B, T = enc_out.shape[:2]
+    self_kv = attn_mod.init_kv_cache(cfg, B, max_len, n_layers=len(views),
+                                     device=enc_out.device)
+    if is_dtensor(enc_out):
+        # under a mesh: the layers' cross-KV stacked as they come, the
+        # self-KV placed by its logical axes
+        kvs = [attn_mod.precompute_cross_kv(lp["cross_attn"], enc_out, cfg)
+               for lp in views]
+        cross = {n: torch.stack([kv[n] for kv in kvs]) for n in ("k", "v")}
+        return {"cross": cross, "self": place_by_specs(
+            self_kv, attn_mod.kv_cache_specs(True, cfg))}
     shape = (len(views), B, T, cfg.padded_kv_heads, cfg.resolved_head_dim)
     cross = {"k": torch.empty(shape, dtype=cfg.dtype, device=enc_out.device),
              "v": torch.empty(shape, dtype=cfg.dtype, device=enc_out.device)}
@@ -171,8 +202,6 @@ def init_decode_state(params: Params, audio_embed: torch.Tensor,
         kv = attn_mod.precompute_cross_kv(lp["cross_attn"], enc_out, cfg)
         cross["k"][i].copy_(kv["k"])
         cross["v"][i].copy_(kv["v"])
-    self_kv = attn_mod.init_kv_cache(cfg, B, max_len, n_layers=len(views),
-                                     device=enc_out.device)
     return {"cross": cross, "self": self_kv}
 
 
@@ -201,6 +230,6 @@ def encdec_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
         x = x + attn_mod.cross_attention(lp["cross_attn"], h,
                                          _layer(state["cross"], i), cfg)
         h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h)
+        x = x + mlp(lp["mlp"], h, cfg.gather_weights)
     x = rmsnorm(params["dec_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg), state

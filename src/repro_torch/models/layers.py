@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/models/layers.py``: plain functions on tensors with
 the reference's parameter layouts (``wi``/``wg`` ``(d, ff)``, ``wo``
-``(ff, d)``, embedding ``(V, d)``). The reference's ``gathered`` /
-``constrain`` are sharding annotations; on one device they are no-ops and
-are dropped.
+``(ff, d)``, embedding ``(V, d)``); ``*_specs`` builds the matching
+logical-axis trees. ``gathered`` and ``constrain`` are the reference's
+sharding annotations at its sites: without a mesh (one card, the serving
+engine) they change nothing.
 """
 from __future__ import annotations
 
@@ -15,6 +16,18 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import rmsnorm as rms_kernel
 from repro_torch.models.common import ModelConfig
+from repro_torch.sharding import constrain, is_dtensor
+
+
+def gathered(w: torch.Tensor, *tp_axes, gather: bool = False
+             ) -> torch.Tensor:
+    """ZeRO-3 just-in-time weight gather (§Perf ``gather_weights``):
+    constrain the weight to its tensor-parallel-only sharding, forcing the
+    partitioner to all-gather the fsdp shards at the use site instead of
+    reducing activation-sized partials after the matmul."""
+    if not gather:
+        return w
+    return constrain(w, *tp_axes)
 
 
 # ---------------------------------------------------------------------- init
@@ -53,6 +66,14 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, dev, width: int,
             "wo": draw((d_ff, width), d_ff ** -0.5)}
 
 
+def stack_specs(tree: Any) -> Any:
+    """A logical-axis tree with a leading (replicated) layer axis on every
+    leaf, as the parameters are stacked."""
+    if isinstance(tree, dict):
+        return {k: stack_specs(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
 def layer_views(params: Dict[str, Any], key: str = "layers"
                 ) -> List[Dict[str, Any]]:
     """Per-layer parameter dicts, views into the stacked leaves of
@@ -67,8 +88,15 @@ def layer_views(params: Dict[str, Any], key: str = "layers"
 
 
 # --------------------------------------------------------------------- norm
+def rmsnorm_specs() -> Dict[str, Any]:
+    return {"scale": (None,)}
+
+
 def rmsnorm(params: Dict[str, Any], x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
+    # the kernel reads whole rows: under a mesh a partial sum or a split
+    # width is settled here (XLA's partitioner does so where it sees fit)
+    x = constrain(x, "batch", *([None] * (x.ndim - 1)))
     return rms_kernel.rmsnorm(x, params["scale"], eps=eps)
 
 
@@ -136,11 +164,20 @@ def sinusoidal_positions(seq_len: int, width: int,
 
 
 # ---------------------------------------------------------------------- mlp
-def mlp(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP."""
-    h = x @ params["wi"].to(x.dtype)
-    g = x @ params["wg"].to(x.dtype)
-    return (F.silu(g) * h) @ params["wo"].to(x.dtype)
+def mlp_specs() -> Dict[str, Any]:
+    return {"wi": ("fsdp", "tp"), "wg": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
+
+
+def mlp(params: Dict[str, Any], x: torch.Tensor,
+        gather: bool = False) -> torch.Tensor:
+    """SwiGLU MLP with TP-sharded hidden dim."""
+    wi = gathered(params["wi"], None, "tp", gather=gather)
+    wg = gathered(params["wg"], None, "tp", gather=gather)
+    wo = gathered(params["wo"], "tp", None, gather=gather)
+    h = x @ wi.to(x.dtype)
+    g = x @ wg.to(x.dtype)
+    h = constrain(F.silu(g) * h, "batch", None, "tp")
+    return h @ wo.to(x.dtype)
 
 
 # ---------------------------------------------------------------- embedding
@@ -156,25 +193,47 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator,
     return embed
 
 
+def embedding_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    p = {"tokens": ("fsdp", "tp")}
+    if not cfg.tied_embeddings:
+        # untied head: contract replicated d, produce vocab-sharded logits
+        p["head"] = ("fsdp", "vocab")
+    return p
+
+
 def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return F.embedding(tokens, params["tokens"]).to(cfg.dtype)
+    emb = gathered(params["tokens"], None, "tp", gather=cfg.gather_weights)
+    x = F.embedding(tokens, emb).to(cfg.dtype)
+    return constrain(x, "batch", None, None)
 
 
 def lm_logits(params: Dict[str, Any], x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """Logits over the (padded) vocabulary; the padded tail is masked to
-    ``-1e30``."""
+    """Vocab-sharded logits over the (padded) vocabulary; the padded tail
+    is masked to ``-1e30``."""
     if cfg.tied_embeddings:
-        logits = x @ params["tokens"].to(cfg.dtype).t()
+        emb = gathered(params["tokens"], "vocab", None,
+                       gather=cfg.gather_weights)
+        logits = x @ emb.to(cfg.dtype).t()
     else:
-        logits = x @ params["head"].to(cfg.dtype)
+        head = gathered(params["head"], None, "vocab",
+                        gather=cfg.gather_weights)
+        logits = x @ head.to(cfg.dtype)
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+        vpos = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(vpos >= cfg.vocab_size, -1e30)
+    return constrain(logits, "batch", None, "vocab")
 
 
 # ------------------------------------------------------------------- loss
+def next_tokens(tokens: torch.Tensor) -> torch.Tensor:
+    """The labels of next-token prediction: ``tokens`` rolled left by one
+    along the sequence (the reference's ``jnp.roll(tokens, -1, axis=1)``),
+    as a slice and a concatenation, which a sharded batch takes too."""
+    return torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over valid tokens, in fp32: the row log-sum-exp minus the
@@ -182,7 +241,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``cross_entropy``)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # vocab-sharded logits: each rank picks the labels in its own
+        # columns, a sum over the vocab settles them (no gather of logits)
+        vpos = torch.arange(logits.shape[-1], device=logits.device)
+        hit = labels[..., None].long() == vpos
+        label_logit = torch.where(hit, logits, 0.0).sum(dim=-1)
+    else:
+        label_logit = torch.gather(logits, -1,
+                                   labels[..., None].long())[..., 0]
     nll = lse - label_logit
     if mask is not None:
         mask = mask.float()

@@ -29,6 +29,14 @@ recomputes the whole body in the backward (``torch.utils.checkpoint``),
 ``"dots"`` keeps the matmul outputs and recomputes the rest (selective
 checkpointing), ``"none"`` saves everything; a hybrid's stack is never
 rematerialised, as in the reference.
+
+``param_specs`` and ``cache_specs`` are the logical-axis trees of the
+parameters and of the dense cache (``repro_torch.sharding``), with the
+reference's leaves on the port's always-stacked layout (its
+``scan_layers=True``). Two places differ from the reference's trees as the
+port's layout does: a hybrid's cache is one flat dict (the reference keeps
+per-layer and per-site lists), and its ``proj`` stacks one projector per
+site (C.7); each leaf keeps the reference's logical axes.
 """
 from __future__ import annotations
 
@@ -44,10 +52,13 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                        ModelConfig)
 from repro_torch.models.layers import (cross_entropy, embed_tokens,
-                                       init_embedding, init_mlp, init_normal,
-                                       init_rmsnorm, layer_views, lm_logits,
-                                       mlp, rmsnorm)
-from repro_torch.util import resolve_device
+                                       embedding_specs, init_embedding,
+                                       init_mlp, init_normal, init_rmsnorm,
+                                       layer_views, lm_logits, mlp, mlp_specs,
+                                       next_tokens, rmsnorm, rmsnorm_specs,
+                                       stack_specs)
+from repro_torch.sharding import constrain
+from repro_torch.util import generator, resolve_device
 
 Params = Dict[str, Any]
 
@@ -86,8 +97,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     ``convert.params_from_numpy``."""
     require_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = generator(dev, seed)
     L, d = cfg.n_layers, cfg.d_model
     params = {"embed": init_embedding(cfg, gen, dev),
               "final_norm": init_rmsnorm(dev, d)}
@@ -123,6 +133,46 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
+def _layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.family in (SSM, HYBRID):
+        return {"norm": rmsnorm_specs(), "ssm": ssm_mod.ssm_specs()}
+    p = {"norm1": rmsnorm_specs(), "attn": attn_mod.attention_specs(cfg)}
+    if not cfg.parallel_block:
+        p["norm2"] = rmsnorm_specs()
+    if cfg.family == MOE:
+        p["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        p["mlp"] = mlp_specs()
+    return p
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    specs: Dict[str, Any] = {
+        "embed": embedding_specs(cfg),
+        "layers": stack_specs(_layer_specs(cfg)),
+        "final_norm": rmsnorm_specs(),
+    }
+    if cfg.family == HYBRID:
+        specs["shared"] = {
+            "norm1": rmsnorm_specs(), "attn": attn_mod.attention_specs(cfg),
+            "norm2": rmsnorm_specs(), "mlp": mlp_specs(),
+            "proj": (None, "fsdp", "tp"),
+        }
+    if cfg.family == VLM or cfg.frontend_dim:
+        specs["frontend"] = {"proj": ("fsdp", "tp")}
+    return specs
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The dense cache's logical axes, leaf by leaf of ``init_cache``."""
+    if cfg.family == SSM:
+        return ssm_mod.ssm_state_specs(layer_stacked=True)
+    kv = attn_mod.kv_cache_specs(layer_stacked=True, cfg=cfg)
+    if cfg.family == HYBRID:
+        return {**ssm_mod.ssm_state_specs(layer_stacked=True), **kv}
+    return kv
+
+
 # ================================================================== blocks
 
 def _mlp_residual(lp, x, h, a, cfg: ModelConfig):
@@ -131,12 +181,12 @@ def _mlp_residual(lp, x, h, a, cfg: ModelConfig):
     otherwise the MLP, or the MoE block, reads ``norm2`` of the attention
     residual."""
     if cfg.parallel_block:
-        return x + a + mlp(lp["mlp"], h)
+        return x + a + mlp(lp["mlp"], h, cfg.gather_weights)
     x = x + a
     h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
     if cfg.family == MOE:
         return x + moe_mod.moe_block(lp["moe"], h2, cfg)
-    return x + mlp(lp["mlp"], h2)
+    return x + mlp(lp["mlp"], h2, cfg.gather_weights)
 
 
 def _block_train(lp, x, cfg: ModelConfig, rope):
@@ -240,11 +290,11 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     (the reference's ``_embed_inputs``), so the sequence is ``n_patches +
     S`` long."""
     x = embed_tokens(params["embed"], batch["tokens"], cfg)
-    if cfg.family != VLM:
-        return x
-    px = batch["patches"].to(cfg.dtype) \
-        @ params["frontend"]["proj"].to(cfg.dtype)
-    return torch.cat([px, x], dim=1)
+    if cfg.family == VLM:
+        px = batch["patches"].to(cfg.dtype) \
+            @ params["frontend"]["proj"].to(cfg.dtype)
+        x = torch.cat([px, x], dim=1)
+    return constrain(x, "batch", None, None)
 
 
 # ================================================================== remat
@@ -317,7 +367,7 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
     valid = torch.ones(tokens.shape, dtype=torch.float32,
                        device=tokens.device)
     valid[:, -1] = 0.0
-    return cross_entropy(logits, torch.roll(tokens, -1, dims=1), valid)
+    return cross_entropy(logits, next_tokens(tokens), valid)
 
 
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor],

@@ -18,6 +18,9 @@ The reference computes the block with einsums outside any Pallas kernel;
 here they are batched matmuls. Nothing reads back to the host or allocates
 by data: the one-hots are comparisons with an ``arange`` and the positions
 an exclusive cumsum, so the block runs inside a captured decode graph.
+``moe_specs`` is the weights' logical-axis tree (experts over the model
+axis); the reference's ``constrain`` sites are kept, each on the
+reference's layout of its tensor (``_constrain_as``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import init_normal, mlp
+from repro_torch.models.layers import gathered, init_normal, mlp, mlp_specs
+from repro_torch.sharding import constrain, is_dtensor
 
 Params = Dict[str, Any]
 
@@ -54,6 +58,28 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
         p["shared"] = {"wi": dense((d, f)), "wg": dense((d, f)),
                        "wo": dense((f, d))}
     return p
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    p = {
+        "router": ("fsdp", None),
+        "wi": ("expert", "fsdp", None),
+        "wg": ("expert", "fsdp", None),
+        "wo": ("expert", None, "fsdp"),
+    }
+    if cfg.moe.shared_d_ff:
+        p["shared"] = mlp_specs()
+    return p
+
+
+def _constrain_as(t: torch.Tensor, shape: Tuple[int, ...],
+                  *axes) -> torch.Tensor:
+    """``constrain`` of ``t`` viewed as ``shape`` (the reference's layout
+    of the tensor), returned in ``t``'s own shape; a no-op without a
+    mesh."""
+    if not is_dtensor(t):
+        return t
+    return constrain(t.reshape(shape), *axes).reshape(t.shape)
 
 
 def expert_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
@@ -98,10 +124,16 @@ def _experts_apply(params: Params, expert_in: torch.Tensor,
     """``expert_in (E, B, C, d)`` → ``(E, B, C, d)`` through each expert's
     SwiGLU: one batched matmul over the experts per weight."""
     E, B, C, d = expert_in.shape
+    gw = cfg.gather_weights
+    wi = gathered(params["wi"], "expert", None, None, gather=gw)
+    wg = gathered(params["wg"], "expert", None, None, gather=gw)
+    wo = gathered(params["wo"], "expert", None, None, gather=gw)
     xe = expert_in.reshape(E, B * C, d)
-    h = torch.bmm(xe, params["wi"].to(cfg.dtype))
-    g = torch.bmm(xe, params["wg"].to(cfg.dtype))
-    out = torch.bmm(F.silu(g) * h, params["wo"].to(cfg.dtype))
+    h = torch.bmm(xe, wi.to(cfg.dtype))
+    g = torch.bmm(xe, wg.to(cfg.dtype))
+    h = _constrain_as(F.silu(g) * h, (E, B, C, -1),
+                      "expert", "batch", None, None)
+    out = torch.bmm(h, wo.to(cfg.dtype))
     return out.view(E, B, C, d)
 
 
@@ -126,11 +158,14 @@ def _dispatch(params: Params, x: torch.Tensor, cfg: ModelConfig
         oe = _one_hot(idx, E, cfg.dtype).reshape(B * S, k, E) \
             .transpose(1, 2)
         oc = _one_hot(pos, C, cfg.dtype).reshape(B * S, k, C)
-        dispatch = torch.bmm(oe, oc).view(B, S, E * C)
-        combine = torch.bmm(oe * gate.reshape(B * S, 1, k), oc) \
-            .view(B, S, E * C)
+        dispatch = _constrain_as(torch.bmm(oe, oc).view(B, S, E * C),
+                                 (B, S, E, C), "batch", None, "expert", None)
+        combine = _constrain_as(
+            torch.bmm(oe * gate.reshape(B * S, 1, k), oc).view(B, S, E * C),
+            (B, S, E, C), "batch", None, "expert", None)
         expert_in = torch.bmm(dispatch.transpose(1, 2), x)   # (B, E·C, d)
-        return expert_in.view(B, E, C, d).transpose(0, 1), combine
+        return constrain(expert_in.view(B, E, C, d).transpose(0, 1),
+                         "expert", "batch", None, None), combine
     if m.dispatch == "scatter":
         # the same buffer by indexing; dropped assignments go to a trash
         # row past the buffer
@@ -139,8 +174,8 @@ def _dispatch(params: Params, x: torch.Tensor, cfg: ModelConfig
         flat_slot = slot.reshape(B, S * k, 1).expand(B, S * k, d)
         buf = x.new_zeros((B, E * C + 1, d))
         buf.scatter_(1, flat_slot, x.repeat_interleave(k, dim=1))
-        return buf[:, :-1].reshape(B, E, C, d).transpose(0, 1), \
-            (flat_slot, gate)
+        return constrain(buf[:, :-1].reshape(B, E, C, d).transpose(0, 1),
+                         "expert", "batch", None, None), (flat_slot, gate)
     raise ValueError(f"unknown MoE dispatch {m.dispatch!r}")
 
 
@@ -165,6 +200,7 @@ def moe_block(params: Params, x: torch.Tensor,
     expert where there is one."""
     expert_in, how = _dispatch(params, x, cfg)
     y = _combine(_experts_apply(params, expert_in, cfg), how, cfg)
+    y = constrain(y, "batch", None, None)
     if cfg.moe.shared_d_ff:
-        y = y + mlp(params["shared"], x)
+        y = y + mlp(params["shared"], x, cfg.gather_weights)
     return y

@@ -13,6 +13,10 @@ length and pads the last chunk (the reference searches for a chunk that
 divides T, down to 1 for a prime T); the two differ by rounding only. A
 prompt shorter than ``conv_width - 1`` leaves a zero-padded conv state,
 the padding the causal conv itself sees.
+
+``ssm_specs`` and ``ssm_state_specs`` are the logical-axis trees of the
+weights and the decode state; the x-stream channels shard over the model
+axis, the small B/C streams stay replicated (``repro_torch.sharding``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import gathered
+from repro_torch.sharding import constrain, is_dtensor
 from repro_torch.util import resolve_device
 
 Params = Dict[str, Any]
@@ -68,10 +74,41 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
     }
 
 
+def ssm_specs() -> Dict[str, Any]:
+    return {
+        "wz": ("fsdp", "tp"), "wx": ("fsdp", "tp"),
+        "wB": ("fsdp", None), "wC": ("fsdp", None), "wdt": ("fsdp", "tp"),
+        "conv_x": (None, "tp"), "conv_B": (None, None), "conv_C": (None, None),
+        "A_log": ("tp",), "D": ("tp",), "dt_bias": ("tp",),
+        "norm_scale": ("tp",), "wo": ("tp", "fsdp"),
+    }
+
+
+def ssm_state_specs(layer_stacked: bool) -> Dict[str, Any]:
+    lead = (None,) if layer_stacked else ()
+    return {
+        "ssm": lead + ("batch", "tp", None, None),
+        "conv_x": lead + ("batch", None, "tp"),
+        "conv_B": lead + ("batch", None, None),
+        "conv_C": lead + ("batch", None, None),
+    }
+
+
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor
                            ) -> torch.Tensor:
-    """x: (B, T, C); w: (W, C) — causal depthwise conv along T."""
+    """x: (B, T, C); w: (W, C) — causal depthwise conv along T. A sharded
+    x (a DTensor, channels split over ranks) takes the same sum as W
+    shifted products, accumulated in fp32, which keeps each rank on its
+    own channels."""
     W, C = w.shape
+    if is_dtensor(x):
+        T = x.shape[1]
+        xp = F.pad(x, (0, 0, W - 1, 0)).float()
+        wf = w.float()
+        out = xp[:, 0:T] * wf[0]
+        for i in range(1, W):
+            out = out + xp[:, i:i + T] * wf[i]
+        return out.to(x.dtype)
     xp = F.pad(x.transpose(1, 2), (W - 1, 0))          # (B, C, W-1+T)
     out = F.conv1d(xp, w.t()[:, None, :], groups=C)    # (B, C, T)
     return out.transpose(1, 2)
@@ -101,16 +138,23 @@ def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     B, T, _ = x.shape
     H, P, N, G = cfg.ssm_heads, s.head_dim, s.state_dim, s.n_groups
     dtype = cfg.dtype
-    z = x @ params["wz"].to(dtype)
-    xs_raw = x @ params["wx"].to(dtype)
-    Bs_raw = x @ params["wB"].to(dtype)
-    Cs_raw = x @ params["wC"].to(dtype)
-    dt = x @ params["wdt"].to(dtype)
+    gw = cfg.gather_weights
+    z = x @ gathered(params["wz"], None, "tp", gather=gw).to(dtype)
+    xs_raw = x @ gathered(params["wx"], None, "tp", gather=gw).to(dtype)
+    Bs_raw = x @ gathered(params["wB"], None, None, gather=gw).to(dtype)
+    Cs_raw = x @ gathered(params["wC"], None, None, gather=gw).to(dtype)
+    dt = x @ gathered(params["wdt"], None, "tp", gather=gw).to(dtype)
     xs = F.silu(_causal_depthwise_conv(xs_raw, params["conv_x"].to(dtype)))
     Bs = F.silu(_causal_depthwise_conv(Bs_raw, params["conv_B"].to(dtype)))
     Cs = F.silu(_causal_depthwise_conv(Cs_raw, params["conv_C"].to(dtype)))
+    xs = constrain(xs, "batch", None, "tp")
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
+    # under a mesh the scan's other operands are placed as x is: rows by
+    # batch, heads by tp, the shared B/C groups whole
+    dt = constrain(dt, "batch", None, "tp")
+    Bs = constrain(Bs, "batch", None, None)
+    Cs = constrain(Cs, "batch", None, None)
     out = ssd_kernel.ssd_scan(
         xs.reshape(B, T, H, P).contiguous(), dt.contiguous(), A,
         Bs.reshape(B, T, G, N).contiguous(),
@@ -119,7 +163,8 @@ def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     y, final = out if return_state else (out, None)
     y = _gated_rmsnorm(y.reshape(B, T, -1), z, params["norm_scale"],
                        cfg.norm_eps)
-    out = y @ params["wo"].to(dtype)
+    y = constrain(y, "batch", None, "tp")
+    out = y @ gathered(params["wo"], "tp", None, gather=gw).to(dtype)
     if not return_state:
         return out
     W = s.conv_width

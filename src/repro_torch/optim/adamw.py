@@ -39,6 +39,11 @@ def adamw_init(params: Any, opt_cfg: OptConfig) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_specs(param_spec_tree: Any) -> Dict[str, Any]:
+    """m and v shard exactly like the weights; count is replicated."""
+    return {"m": param_spec_tree, "v": param_spec_tree, "count": ()}
+
+
 def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any,
                  lr: torch.Tensor, opt_cfg: OptConfig):
     """One AdamW step: ``(new_params, new_opt_state)``. ``lr`` is a 0-d

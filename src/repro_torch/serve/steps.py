@@ -32,6 +32,7 @@ import torch
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import AUDIO, ModelConfig
 from repro_torch.serve.kv_cache import pages_for
+from repro_torch.sharding import place_by_specs
 from repro_torch.util import resolve_device
 
 
@@ -57,6 +58,8 @@ def make_prefill_step(cfg: ModelConfig, max_cache_len: int) -> Callable:
         tokens = batch["tokens"]
         cache = lm.init_cache(cfg, tokens.shape[0], max_cache_len,
                               device=tokens.device)
+        # under a mesh the fresh cache is placed by its logical axes
+        cache = place_by_specs(cache, lm.cache_specs(cfg))
         return lm.lm_prefill(params, batch, cfg, cache)
     return prefill
 

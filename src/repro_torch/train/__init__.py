@@ -1,2 +1,1 @@
-"""The train step (counterpart of ``repro/train``; its sharding specs wait
-for the sharded trainer, see ROADMAP)."""
+"""The train step and its sharding rules (counterpart of ``repro/train``)."""

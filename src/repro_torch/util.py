@@ -16,3 +16,12 @@ def resolve_device(device: Any = "cuda") -> torch.device:
             "CUDA is not available: repro_torch runs on the GPU by default; "
             "pass device='cpu' to run its plain PyTorch versions on the CPU")
     return dev
+
+
+def generator(dev: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` for draws on ``dev``; meta tensors
+    (the dry run's, shapes without values) take a CPU one, which they
+    never draw from."""
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(int(seed))
+    return gen
