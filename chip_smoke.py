@@ -244,14 +244,37 @@ every pool must end with no page in use.
    on the shards); 26c ``compressed_psum_mean`` over the data axis
    against the exact mean, within the reference test's bounds; 26d
    ``reshard_state`` of 25d's last committed checkpoint onto the mesh,
-   bit-equal to the saved state.
+   bit-equal to the saved state;
+27. training past paper_demo, fp32 with TF32 off, through the three
+   backward kernels: ``mamba2_370m`` whole (remat "full"), ``zamba2_1p2b``
+   whole, ``whisper_large_v3`` whole (``encdec_loss``, clips of 1500
+   frames and 448 decoder tokens) and ``h2o_danube3_4b`` at 6 of 24
+   layers, all at published widths (``TRAIN_FAMILIES``): 27a one step of
+   each on the card against the same step on the CPU from one converted
+   state (mamba2 and danube at 2 layers, zamba2 at 7, whisper at 2 + 2;
+   B 2 x 256, whisper B 2 x 1500 frames), held as 25a; 27b ``launch.train``
+   for 20 steps of each whole path (8 x 1024 for mamba2 and danube, 2 x
+   1024 for zamba2, 2 clips for whisper): the card's ms a step, tokens/s,
+   model FLOP/s (6 N a token) against fp32's peak, the loss readbacks
+   pending at first poll (>= 90%), the loss falling, peak memory beside
+   the dry run's count of the cell on the CPU, one step's card time by
+   kernel family; 27c each kernel's launches forward and backward equal
+   to the layers x steps (forwards twice under remat "full").
 
-Phase 3 also holds the two backward kernels (no TPU counterpart) at the
-training step's shape, in fp32 and bf16: rmsnorm's at 8192 rows of 768
-against ``rmsnorm_backward_plain`` (library: ``F.rms_norm``'s autograd
-backward), flash's at B 8, 1024 causal rows, 12/4 heads of 64 against
+Phase 3 also holds the three backward kernels (no TPU counterpart) in
+fp32 and bf16, each output's error over max(1, its largest magnitude):
+rmsnorm's against ``rmsnorm_backward_plain`` (library: ``F.rms_norm``'s
+autograd backward) at 8192 rows of every config's width (768 to
+16,384) and at phase 27's rows; flash's against
 ``attention_backward_plain`` in fp32 (library: SDPA forward and backward
-by autograd), each output's error over max(1, its largest magnitude).
+by autograd, a window as a boolean mask) at paper_demo's training step
+(B 8, 1024 causal rows, 12/4 heads of 64), at phase 27's shapes
+(zamba2's 32/32 heads of 128, whisper's encoder over 1500 frames, its
+decoder's self- and cross-attention, danube's 32/8 of 120 under its
+window, also at 6144 rows) and at 1024 rows of every other config's heads
+(deepseek, llama3, command-r, qwen3, llama4, internvl2); the SSD scan's
+against ``ssd_scan_backward_plain`` (no library call) at mamba2's and
+zamba2's training batches, T 1024, and at T 509 and 64.
 
 Phases 23 and 24 run right after 14, on phase 4's and 13's weights.
 Each phase's weights are freed before the next. Each serve phase sets
@@ -259,15 +282,15 @@ the kernels' launch counts to 0 just before it drives its path and reads
 them just after; a step graph adds its kernels' launches back on every
 replay. The kernels JSON has one entry per kernel and path that ran it
 (phase 5 ``paper_demo``, 23b ``paper_demo_unfused``, 8
-``mamba2_370m``, 15b-22b, 25b ``train`` and 26b ``train_sharded``, the
-only paths of the two backward kernels; every serving path must show
-none of their launches): that path's
+``mamba2_370m``, 15b-22b, 25b ``train``, 26b ``train_sharded`` and 27b's
+four ``train_*`` paths, the only paths of the backward kernels; every
+serving path must show none of their launches): that path's
 launches beside the phase 3 case at its shape (a decode step's rows for
 rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
 danube's 6144 rows for its windowed flash, whisper's encoder over 1500
-frames, internvl2's 1536 prefill rows; the training step's shapes in
-fp32 for ``train``, and for ``train_sharded`` at one card's rows of it,
-bf16 for the others); each kernel's row is its
+frames, internvl2's 1536 prefill rows; the training steps' shapes in
+fp32 for ``train`` and 27b's paths, and for ``train_sharded`` at one
+card's rows of it, bf16 for the others); each kernel's row is its
 first path's entry, with every path's entry under ``paths``. The
 next-to-last line is the kernels JSON, the last line the device JSON.
 """
@@ -315,6 +338,9 @@ SOURCES = {
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:105 (gradient; no TPU "
         "backward kernel)"),
+    "ssd_scan_backward": ("src/repro_torch/csrc/ssd_scan.cu",
+                          "src/repro/kernels/ssd_scan/kernel.py:68 "
+                          "(gradient; no TPU backward kernel)"),
 }
 
 
@@ -549,22 +575,27 @@ def check_rmsnorm_bwd(dtype, rows, D, gen, dev):
 
 
 def check_flash_bwd(dtype, gen, dev, B=8, S=1024, H=12, KV=4, D=64,
-                    causal=True):
+                    causal=True, window=0, Sq=None):
     """The flash backward kernel against ``attention_backward_plain`` in
     fp32 on the same (dtype-valued) inputs, from the forward kernel's
-    output and log-sum-exp; the library yardstick is SDPA's forward and
-    backward by autograd (its backward alone is logged beside it). The
-    bound counts the five products a backward needs (S again, dP, dV, dK,
-    dQ) and q, k, v, o, dO, lse read, dq, dk, dv written once."""
+    output and log-sum-exp, at ``Sq`` query rows (``S`` by default)
+    against ``S`` keys; the library yardstick is SDPA's forward and
+    backward by autograd, the window as a boolean mask (its backward alone
+    is logged beside it). The bound counts the five products a backward
+    needs (S again, dP, dV, dK, dQ) over the visible pairs and q, k, v, o,
+    dO, lse read, dq, dk, dv written once."""
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as K
-    kw = dict(causal=causal)
-    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    Sq = S if Sq is None else Sq
+    if causal and Sq != S:
+        raise ValueError("check_flash_bwd: causal cases have Sq == Sk")
+    kw = dict(causal=causal, window=window)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-    do = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-    o, lse = K._launch(q, k, v, causal, 0, 0, D ** -0.5,
+    do = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
+    o, lse = K._launch(q, k, v, causal, window, 0, D ** -0.5,
                        _build.DTYPE_CODES[dtype], with_lse=True)
     got = K.attention_backward(q, k, v, o, lse, do, **kw)
     plain_lse = K.attention_lse_plain(q, k, **kw)
@@ -578,28 +609,40 @@ def check_flash_bwd(dtype, gen, dev, B=8, S=1024, H=12, KV=4, D=64,
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
+    sdpa_kw = dict(is_causal=causal)
+    if window:
+        i = torch.arange(S, device=dev)
+        sdpa_kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                       & (i[None, :] > i[:, None] - window))
     library = lambda: torch.autograd.grad(  # noqa: E731
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                       enable_gqa=True), (qt, kt, vt), dot)
-    y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                       enable_gqa=True)
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                       **sdpa_kw), (qt, kt, vt), dot)
+    y = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                       **sdpa_kw)
     sdpa_bwd = median_ms(lambda: torch.autograd.grad(
         y, (qt, kt, vt), dot, retain_graph=True), runs=10)
+    del y
     item = q.element_size()
-    pairs = B * (S * (S + 1) // 2 if causal else S * S)
+    # (query, key) pairs each row sees: its causal past, cut to the
+    # window, or every key
+    pairs = B * (sum(min(r + 1, window) if window else r + 1
+                     for r in range(S)) if causal else Sq * S)
     return dict(err=max(err, lse_err), grads=dict(zip(("dq", "dk", "dv"),
                                                       errs), lse=lse_err),
                 ms=median_ms(lambda: K.attention_backward(q, k, v, o, lse,
-                                                          do, **kw),
-                             runs=10),
+                                                          do, **kw)),
                 plain_ms=median_ms(lambda: K.attention_backward_plain(
                     q, k, v, o, lse, do, **kw), runs=10),
                 library_ms=median_ms(library, runs=10),
                 sdpa_bwd_ms=sdpa_bwd,
-                bound=bound_ms((4 * B * S * H * D + 4 * B * S * KV * D) * item
-                               + 4 * B * H * S, 10 * H * D * pairs, dtype),
-                shape=f"B={B} Sq=Sk={S} H={H} KV={KV} D={D} "
-                + ("causal" if causal else "non-causal") + " backward")
+                bound=bound_ms((4 * B * Sq * H * D + 4 * B * S * KV * D)
+                               * item + 4 * B * H * Sq, 10 * H * D * pairs,
+                               dtype),
+                shape=(f"B={B} Sq=Sk={S}" if Sq == S else
+                       f"B={B} Sq={Sq} Sk={S}")
+                + f" H={H} KV={KV} D={D} "
+                + ("causal" if causal else "non-causal")
+                + (f" window={window}" if window else "") + " backward")
 
 
 def paged_case(kind, dtype, gen, dev, KV=4, G=3, hd=64):
@@ -785,6 +828,42 @@ def check_ssd(dtype, B, T, gen, dev, H=32, N=128):
                 shape=f"B={B} T={T} H={H} P={P} G=1 N={N} (y, final state)")
 
 
+def check_ssd_bwd(dtype, B, T, gen, dev, H=32, N=128):
+    """The SSD backward kernel against ``ssd_scan_backward_plain`` in fp32
+    on the same (dtype-valued) inputs (no library call computes it). The
+    bound counts x, dy, B, C, dt read and dx, dB, dC, ddt written once,
+    and per (batch, head, chunk of q real rows) the products the
+    gradient needs without recomputing the states: dE, dS B, x^T dS and
+    dy E (q P N each), and C B^T, dy x^T, scores^T dy, dM^T C and dM B
+    over the q (q + 1) / 2 pairs at or below the diagonal."""
+    from repro_torch.kernels import ssd_scan as K
+    args = ssd_inputs(gen, dev, B, T, dtype, H=H, N=N)
+    x, dt, A, Bm, Cm, D = args
+    P, Q = x.shape[3], K.CHUNK
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+    got = K.ssd_scan_backward(*args, dy)
+    want = K.ssd_scan_backward_plain(x.float(), dt, A, Bm.float(),
+                                     Cm.float(), D, dy.float())
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    err = grad_err(got, want)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del got, want
+    item = x.element_size()
+    n_bytes = (3 * x.numel() + 4 * Bm.numel()) * item + 8 * dt.numel() \
+        + 16 * H
+    rows = [min(Q, T - t0) for t0 in range(0, T, Q)]
+    flops = B * H * sum(8 * q * P * N + q * (q + 1) * (3 * N + 2 * P)
+                        for q in rows)
+    return dict(err=err if finite else float("inf"),
+                grads=dict(zip(names, errs)),
+                ms=median_ms(lambda: K.ssd_scan_backward(*args, dy)),
+                plain_ms=median_ms(lambda: K.ssd_scan_backward_plain(
+                    *args, dy), runs=10),
+                library_ms=None, bound=bound_ms(n_bytes, flops, dtype),
+                shape=f"B={B} T={T} H={H} P={P} G=1 N={N} backward")
+
+
 # each attention config of phases 15-19: (d_model, padded q-heads, KV
 # heads, head_dim); zamba2 (20) has cases of its own
 FAMILY_SHAPES = {"h2o_danube3_4b": (3840, 32, 8, 120),
@@ -807,9 +886,25 @@ VLM_SHAPES = dict(d=6144, H=48, KV=8, hd=128, rows=1536, batch=4)
 # the paths whose decode steps run paper_demo's shapes: paged + fused (5)
 # and paged, unfused (23b)
 PAPER_PATHS = ("paper_demo", "paper_demo_unfused")
-# the training path (phase 25b) runs in fp32: the kernels JSON reports its
-# fp32 cases, every serving path's bf16 ones
-FP32_PATHS = ("train", "train_sharded")
+# phase 27b's training paths beyond paper_demo, in fp32: each config at
+# its published widths, its depth (whole unless cut), remat policy, global
+# batch and sequence (whisper: the encoder's frames, and a decoder of
+# min(max_target_len, 448) tokens); the layers of 27a's card-vs-CPU step
+TRAIN_FAMILIES = {
+    "train_mamba2": dict(arch="mamba2_370m", n_layers=None, remat="full",
+                         batch=8, seq=1024, check={"n_layers": 2}),
+    "train_zamba2": dict(arch="zamba2_1p2b", n_layers=None, remat="none",
+                         batch=2, seq=1024, check={"n_layers": 7}),
+    "train_whisper": dict(arch="whisper_large_v3", n_layers=None,
+                          remat="none", batch=2, seq=1500,
+                          check={"n_enc_layers": 2, "n_dec_layers": 2}),
+    "train_danube": dict(arch="h2o_danube3_4b", n_layers=6, remat="none",
+                         batch=8, seq=1024, check={"n_layers": 2}),
+}
+WHISPER_DEC = 448      # whisper's decoder tokens a clip in training
+# the training paths (phases 25b, 26b, 27b) run in fp32: the kernels JSON
+# reports their fp32 cases, every serving path's bf16 ones
+FP32_PATHS = ("train", "train_sharded") + tuple(TRAIN_FAMILIES)
 # paper_demo's training step in phase 25b: global batch 8 of 1024 tokens
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 
@@ -832,6 +927,104 @@ def train_cases(dtype, gen, dev):
                 ("flash_attention_backward", tag, check_flash_bwd(
                     dtype, gen, dev, B=B, S=TRAIN_SEQ))]
     return out
+
+
+def train_family_cases(dtype, gen, dev):
+    """Phase 3's cases of phase 27's paths, each tagged at the shape its
+    27b step runs most (batch included), and the three backward kernels at
+    the other shapes the public configs give them with grad (untagged):
+    the SSD backward's tails, whisper's decoder self- and cross-attention,
+    danube's window at 6144 rows, every other config's heads at 1024 rows,
+    and rmsnorm at 8192 rows of every config's width."""
+    from repro_torch.configs import ARCHITECTURES, get_config
+    m, z, w, d = (TRAIN_FAMILIES[p] for p in (
+        "train_mamba2", "train_zamba2", "train_whisper", "train_danube"))
+    H, _, N = ZAMBA_SHAPES["ssd"]
+    zh = dict(H=ZAMBA_SHAPES["H"], KV=ZAMBA_SHAPES["KV"],
+              D=ZAMBA_SHAPES["hd"])
+    wh = dict(H=WHISPER_SHAPES["H"], KV=WHISPER_SHAPES["KV"],
+              D=WHISPER_SHAPES["hd"])
+    _, dH, dKV, dD = FAMILY_SHAPES["h2o_danube3_4b"]
+    window = get_config("h2o_danube3_4b").window
+    dec_rows = w["batch"] * WHISPER_DEC
+    cases = [
+        # mamba2: rmsnorm at its width, the SSD scan at (64, 128)
+        ("rmsnorm", "train_mamba2", check_rmsnorm(
+            dtype, m["batch"] * m["seq"], 1024, gen, dev)),
+        ("rmsnorm_backward", "train_mamba2", check_rmsnorm_bwd(
+            dtype, m["batch"] * m["seq"], 1024, gen, dev)),
+        ("ssd_scan", "train_mamba2", check_ssd(dtype, m["batch"], m["seq"],
+                                               gen, dev)),
+        ("ssd_scan_backward", "train_mamba2", check_ssd_bwd(
+            dtype, m["batch"], m["seq"], gen, dev)),
+        ("ssd_scan_backward", None, check_ssd_bwd(dtype, m["batch"], 509,
+                                                  gen, dev)),
+        # zamba2: its SSM layers' width (38 of 53 norms a step) and the
+        # shared block's, flash at 32/32 heads of 128, the SSD at (64, 64)
+        ("rmsnorm", "train_zamba2", check_rmsnorm(
+            dtype, z["batch"] * z["seq"], ZAMBA_SHAPES["d"], gen, dev)),
+        ("rmsnorm_backward", "train_zamba2", check_rmsnorm_bwd(
+            dtype, z["batch"] * z["seq"], ZAMBA_SHAPES["d"], gen, dev)),
+        ("rmsnorm_backward", None, check_rmsnorm_bwd(
+            dtype, z["batch"] * z["seq"], ZAMBA_SHAPES["w"], gen, dev)),
+        ("flash_attention", "train_zamba2", check_flash(
+            dtype, gen, dev, B=z["batch"], S=z["seq"], **zh)),
+        ("flash_attention_backward", "train_zamba2", check_flash_bwd(
+            dtype, gen, dev, B=z["batch"], S=z["seq"], **zh)),
+        ("ssd_scan", "train_zamba2", check_ssd(dtype, z["batch"], z["seq"],
+                                               gen, dev, H=H, N=N)),
+        ("ssd_scan_backward", "train_zamba2", check_ssd_bwd(
+            dtype, z["batch"], z["seq"], gen, dev, H=H, N=N)),
+        ("ssd_scan_backward", None, check_ssd_bwd(dtype, z["batch"], 64,
+                                                  gen, dev, H=H, N=N)),
+        # whisper: the decoder's rows (97 of 162 norms a step) and the
+        # encoder's; flash over the encoder's frames (non-causal), the
+        # decoder's causal self-attention and its cross-attention
+        ("rmsnorm", "train_whisper", check_rmsnorm(
+            dtype, dec_rows, WHISPER_SHAPES["d"], gen, dev)),
+        ("rmsnorm_backward", "train_whisper", check_rmsnorm_bwd(
+            dtype, dec_rows, WHISPER_SHAPES["d"], gen, dev)),
+        ("rmsnorm_backward", None, check_rmsnorm_bwd(
+            dtype, w["batch"] * w["seq"], WHISPER_SHAPES["d"], gen, dev)),
+        ("flash_attention", "train_whisper", check_flash(
+            dtype, gen, dev, B=w["batch"], S=w["seq"], causal=False, **wh)),
+        ("flash_attention_backward", "train_whisper", check_flash_bwd(
+            dtype, gen, dev, B=w["batch"], S=w["seq"], causal=False, **wh)),
+        ("flash_attention_backward", None, check_flash_bwd(
+            dtype, gen, dev, B=w["batch"], S=w["seq"], Sq=WHISPER_DEC,
+            causal=False, **wh)),
+        ("flash_attention_backward", None, check_flash_bwd(
+            dtype, gen, dev, B=w["batch"], S=WHISPER_DEC, **wh)),
+        # danube: its width, flash at hd 120 under its window (wider than
+        # the step's 1024 rows), and at 6144 rows where the window bites
+        ("rmsnorm", "train_danube", check_rmsnorm(
+            dtype, d["batch"] * d["seq"], 3840, gen, dev)),
+        ("rmsnorm_backward", "train_danube", check_rmsnorm_bwd(
+            dtype, d["batch"] * d["seq"], 3840, gen, dev)),
+        ("flash_attention", "train_danube", check_flash(
+            dtype, gen, dev, B=d["batch"], S=d["seq"], H=dH, KV=dKV, D=dD,
+            window=window)),
+        ("flash_attention_backward", "train_danube", check_flash_bwd(
+            dtype, gen, dev, B=d["batch"], S=d["seq"], H=dH, KV=dKV, D=dD,
+            window=window)),
+        ("flash_attention_backward", None, check_flash_bwd(
+            dtype, gen, dev, B=1, S=6144, H=dH, KV=dKV, D=dD,
+            window=window))]
+    # every other config's (q-heads, KV heads, head_dim) at 1024 rows
+    heads = [v[1:] for k, v in FAMILY_SHAPES.items()
+             if k != "h2o_danube3_4b"]
+    heads.append((VLM_SHAPES["H"], VLM_SHAPES["KV"], VLM_SHAPES["hd"]))
+    cases += [("flash_attention_backward", None, check_flash_bwd(
+        dtype, gen, dev, B=1, S=1024, H=h, KV=kv, D=hd))
+        for h, kv, hd in heads]
+    # rmsnorm at 8192 rows of every config's width not held above
+    # (paper_demo's 768 is train_cases')
+    widths = sorted({get_config(a).d_model for a in ARCHITECTURES}
+                    | {ZAMBA_SHAPES["w"]})
+    cases += [("rmsnorm_backward", None, check_rmsnorm_bwd(
+        dtype, 8192, width, gen, dev)) for width in widths
+        if width not in (768, 1024, 3840)]
+    return cases
 
 
 def phase_kernels(dev, label):
@@ -885,6 +1078,9 @@ def phase_kernels(dev, label):
             # kernels forward and backward at its 8 x 1024 rows; 26b's
             # sharded step runs them at each card's rows of the batch
             *train_cases(dtype, gen, dev),
+            # phase 27's paths and the backward kernels at every public
+            # config's shapes
+            *train_family_cases(dtype, gen, dev),
             ("paged_attention", "paper_demo", check_paged("decode", dtype,
                                                           gen, dev)),
             ("paged_attention", None, check_paged("suffix", dtype, gen, dev)),
@@ -1018,7 +1214,8 @@ def phase_kernels(dev, label):
         flash_attention.LAUNCHES, "paged_attention":
         paged_attention.LAUNCHES, "ssd_scan": ssd_scan.LAUNCHES,
         "rmsnorm_backward": rmsnorm.BACKWARD_LAUNCHES,
-        "flash_attention_backward": flash_attention.BACKWARD_LAUNCHES}))
+        "flash_attention_backward": flash_attention.BACKWARD_LAUNCHES,
+        "ssd_scan_backward": ssd_scan.BACKWARD_LAUNCHES}))
     return summary
 
 
@@ -1425,6 +1622,7 @@ def phase_card_bound(cfg, params, dev, host_ms, label, make_engine=None,
 
 FAMILIES = [("flash_attention backward", ("flash_bwd",)),
             ("rmsnorm backward", ("rmsnorm_bwd",)),
+            ("ssd_scan backward", ("ssd_bwd",)),
             ("paged_attention", ("paged_attn",)),
             ("flash_attention", ("flash_fwd",)),
             ("ssd_scan", ("ssd_",)),
@@ -2622,12 +2820,13 @@ def kernel_modules():
 
 
 #: the backward kernels, counted by their forward's module
-BACKWARD_NAMES = ("rmsnorm_backward", "flash_attention_backward")
+BACKWARD_NAMES = ("rmsnorm_backward", "flash_attention_backward",
+                  "ssd_scan_backward")
 
 
 def backward_modules():
-    from repro_torch.kernels import flash_attention, rmsnorm
-    return dict(zip(BACKWARD_NAMES, (rmsnorm, flash_attention)))
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    return dict(zip(BACKWARD_NAMES, (rmsnorm, flash_attention, ssd_scan)))
 
 
 def zero_counts() -> None:
@@ -3697,34 +3896,38 @@ def tree_rel_diff(a, b, where=None) -> float:
 WELL_CONDITIONED_GRAD = 1e-6
 
 
-def train_step_check(dev):
-    """25a: one fp32 step at full width on the card (the kernels, forward
-    and backward) against the same step on the CPU (the plain versions),
-    from one converted state and batch."""
+def train_step_check(dev, cfg=None, batch=(TRAIN_CHECK_BATCH,
+                                          TRAIN_CHECK_SEQ), tag="25a",
+                     what="at full width"):
+    """25a / 27a: one fp32 step of ``cfg`` (paper_demo by default) on the
+    card (the kernels, forward and backward) against the same step on the
+    CPU (the plain versions), from one converted state and one synthetic
+    batch of ``batch`` = (B, S) (whisper: S the encoder's frames)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticTokenSource
     from repro_torch.models.convert import train_state_from_numpy
     from repro_torch.optim import OptConfig
     from repro_torch.optim.tree import tree_map
     from repro_torch.train.train_step import init_train_state, make_train_step
-    cfg = get_config("paper_demo", dtype=torch.float32,
-                     param_dtype=torch.float32)
+    if cfg is None:
+        cfg = get_config("paper_demo", dtype=torch.float32,
+                         param_dtype=torch.float32)
     opt = OptConfig()
     tree = tree_map(lambda t: t.numpy(), init_train_state(
         cfg, opt, seed=0, device="cpu"))
     card = train_state_from_numpy(tree, cfg, dev)
     host = train_state_from_numpy(tree, cfg, "cpu")
     del tree
-    tokens = torch.from_numpy(SyntheticTokenSource(
-        cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, seed=0).make_batch(0)[
-            "tokens"])
+    B, S = batch
+    data = {k: torch.from_numpy(v) for k, v in SyntheticTokenSource(
+        cfg, B, S, seed=0).make_batch(0).items()}
     step = make_train_step(cfg, opt)
     t0 = time.perf_counter()
-    card, mg = step(card, {"tokens": tokens.to(dev)})
+    card, mg = step(card, {k: v.to(dev) for k, v in data.items()})
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    host, mc = step(host, {"tokens": tokens})
+    host, mc = step(host, data)
     host_s = time.perf_counter() - t0
     part = {"params": lambda st: st["params"],
             "m": lambda st: st["opt"]["m"], "v": lambda st: st["opt"]["v"]}
@@ -3736,8 +3939,8 @@ def train_step_check(dev):
         card["params"], host["params"], sure),
         "m": diffs["m"], "v": diffs["v"]}
     worst = max(held.values())
-    log(f"phase 25a: one fp32 train step of paper_demo at full width "
-        f"(B {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}), card (kernels) vs "
+    log(f"phase {tag}: one fp32 train step of {cfg.name} {what} "
+        f"(B {B} x {S}), card (kernels) vs "
         f"CPU (plain versions) from one converted state: loss "
         f"{float(mg['loss']):.6f} vs {float(mc['loss']):.6f}, grad_norm "
         f"{float(mg['grad_norm']):.6f} vs {float(mc['grad_norm']):.6f}; "
@@ -3749,27 +3952,28 @@ def train_step_check(dev):
     if worst > 1e-4 or abs(float(mg["loss"]) - float(mc["loss"])) > 1e-4 \
             or abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1) \
             > 1e-4:
-        raise AssertionError(f"25a: the card's step is off the CPU's: "
+        raise AssertionError(f"{tag}: the card's step is off the CPU's: "
                              f"{held}")
 
 
-def train_profile(dev):
-    """The card time of one 25b step by kernel family (torch.profiler)."""
+def train_profile(dev, cfg=None, batch=(TRAIN_BATCH, TRAIN_SEQ)):
+    """The card time of one train step of ``cfg`` (25b's paper_demo by
+    default) at ``batch`` = (B, S) by kernel family (torch.profiler)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticTokenSource
     from repro_torch.launch.train import upload
     from repro_torch.optim import OptConfig, warmup_cosine
     from repro_torch.train.train_step import init_train_state, make_train_step
-    cfg = get_config("paper_demo", dtype=torch.float32,
-                     param_dtype=torch.float32)
+    if cfg is None:
+        cfg = get_config("paper_demo", dtype=torch.float32,
+                         param_dtype=torch.float32)
     opt = OptConfig()
     state = [init_train_state(cfg, opt, seed=0, device=dev)]
     step = make_train_step(cfg, opt, lr_schedule=warmup_cosine(3e-4, 1, 30))
-    batch = upload(SyntheticTokenSource(cfg, TRAIN_BATCH, TRAIN_SEQ).
-                   make_batch(0), dev)
+    data = upload(SyntheticTokenSource(cfg, *batch).make_batch(0), dev)
 
     def one():
-        state[0] = step(state[0], batch)[0]
+        state[0] = step(state[0], data)[0]
     return busy_ms(one, runs=2, by_name=True)
 
 
@@ -3813,7 +4017,8 @@ def phase_train(dev, label):
             "flash_attention": L * TRAIN_STEPS,
             "paged_attention": 0, "ssd_scan": 0,
             "rmsnorm_backward": (2 * L + 1) * TRAIN_STEPS,
-            "flash_attention_backward": L * TRAIN_STEPS}
+            "flash_attention_backward": L * TRAIN_STEPS,
+            "ssd_scan_backward": 0}
     if launches != want:
         raise AssertionError(f"25b: launches {launches}, {TRAIN_STEPS} steps "
                              f"say {want}")
@@ -4240,6 +4445,189 @@ def phase_shards(dev, label):
     return b["counts"]
 
 
+# ------------------------------------------------------------ phase 27
+FAMILY_STEPS = 20      # 27b: launch.train's steps a path
+FAMILY_CHECK_SEQ = 256                # 27a's B 2 x 256 (whisper: 1500 frames)
+
+
+def train_family_config(f, depth=None):
+    """A TRAIN_FAMILIES entry's config in fp32 at its published widths:
+    at 27b's depth, or ``depth`` (27a's layer counts)."""
+    from repro_torch.configs import get_config
+    over = depth or ({"n_layers": f["n_layers"]} if f["n_layers"] else {})
+    return get_config(f["arch"], dtype=torch.float32,
+                      param_dtype=torch.float32, remat=f["remat"], **over)
+
+
+def family_step_launches(cfg) -> dict:
+    """Each kernel's launches in one train step of ``cfg``: a forward a
+    layer (twice under remat ``"full"``, which re-runs each layer's
+    forward in the backward; a hybrid's stack and the enc-dec are never
+    rematerialised) and a backward a layer."""
+    from repro_torch.models.common import AUDIO, HYBRID, SSM
+    L = cfg.n_layers
+    rerun = 2 if cfg.remat == "full" and cfg.family not in (AUDIO,
+                                                             HYBRID) else 1
+    fwd = dict.fromkeys(KERNEL_NAMES, 0)
+    if cfg.family == AUDIO:
+        fwd.update(rmsnorm=2 * cfg.n_enc_layers + 3 * cfg.n_dec_layers + 2,
+                   flash_attention=cfg.n_enc_layers + 2 * cfg.n_dec_layers)
+        bwd = dict(fwd)
+    elif cfg.family == SSM:
+        fwd.update(rmsnorm=rerun * L + 1, ssd_scan=rerun * L)
+        bwd = dict(fwd, rmsnorm=L + 1, ssd_scan=L)
+    elif cfg.family == HYBRID:
+        sites = cfg.hybrid_sites
+        fwd.update(rmsnorm=L + 2 * sites + 1, flash_attention=sites,
+                   ssd_scan=L)
+        bwd = dict(fwd)
+    else:
+        fwd.update(rmsnorm=rerun * 2 * L + 1, flash_attention=rerun * L)
+        bwd = dict(fwd, rmsnorm=2 * L + 1, flash_attention=L)
+    return {**fwd, **{f"{k}_backward": bwd[k] for k in
+                      ("rmsnorm", "flash_attention", "ssd_scan")}}
+
+
+def family_model_flops(cfg, B: int, S: int) -> float:
+    """6 N a token, N the weights a token passes through: zamba2's shared
+    block once a site, whisper's encoder (and frontend) over its S frames
+    and its decoder and embedding over the decoder's tokens."""
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.common import AUDIO, HYBRID
+    if cfg.family == AUDIO:
+        p = encdec.init_params(cfg, device="meta")
+        enc = tree_numel({k: p[k] for k in ("frontend", "encoder",
+                                            "enc_norm")})
+        dec = tree_numel(p) - enc
+        return 6.0 * B * (enc * S + dec * min(cfg.max_target_len,
+                                               WHISPER_DEC))
+    p = lm.init_params(cfg, device="meta")
+    n = tree_numel(p)
+    if cfg.family == HYBRID:
+        sh = p["shared"]
+        n += (cfg.hybrid_sites - 1) * (tree_numel(sh) - sh["proj"].numel())
+    return 6.0 * n * B * S
+
+
+#: each 27b cell's memory as ``repro_torch.launch.dryrun`` counts it on
+#: the CPU (torch 2.13; the card machine's torch lacks a DTensor view rule
+#: that a mamba2 step needs), bytes of arguments, outputs and the live
+#: peak of temporaries: ``PYTHONPATH=src python -m repro_torch.launch.
+#: dryrun --arch ARCH --shape train_4k --mesh 1x1 --dtype float32
+#: --microbatches 1 --batch B --seq-len S --remat R [--n-layers 6]``
+FAMILY_DRYRUN = {
+    "train_mamba2": (4419061768, 4419029012, 9953199240),
+    "train_zamba2": (15169988104, 15169979924, 25672611336),
+    "train_whisper": (28007151112, 27999467540, 38989701144),
+    "train_danube": (14097425416, 14097392660, 20683407384),
+}
+
+
+def family_train(path, f, dev, label):
+    """27b and 27c for one path: ``launch.train`` at 27b's cell; the
+    card's ms a step, tokens/s, model FLOP/s, the loss readbacks pending
+    at first poll, peak memory beside the dry run's count, one step's
+    card time by kernel family, and the launches against the steps."""
+    from repro_torch.launch.train import train
+    from repro_torch.models.common import AUDIO
+    cfg = train_family_config(f)
+    B, S = f["batch"], f["seq"]
+    audio = cfg.family == AUDIO
+    tokens = B * (S + min(cfg.max_target_len, WHISPER_DEC)) if audio \
+        else B * S
+    flops = family_model_flops(cfg, B, S)
+    start = peak_start()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = train(f["arch"], steps=FAMILY_STEPS, global_batch=B, seq_len=S,
+                n_layers=f["n_layers"], remat=f["remat"], log_every=100,
+                device=dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() - start
+    want = {k: v * FAMILY_STEPS for k, v in
+            family_step_launches(cfg).items()}
+    rows = out["rows"]
+    losses = [r["loss"] for r in rows]
+    pend, n = out["loss_pending_at_first_poll"], out["loss_ops"]
+    card_ms = statistics.median(out["card_ms_per_step"][1:])
+    dry_args, dry_out, dry_temp = FAMILY_DRYRUN[path]
+    free_card()
+    busy, split, names = train_profile(dev, cfg, (B, S))
+    free_card()
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers" if audio
+             else f"{cfg.n_layers} layers")
+    log(f"phase 27b: {path}: launch.train {cfg.name} at full width "
+        f"({depth}, d {cfg.d_model}) in fp32, remat {f['remat']!r}, on "
+        f"{label}: {FAMILY_STEPS} steps of B {B} x "
+        + (f"{S} frames + {min(cfg.max_target_len, WHISPER_DEC)} decoder "
+           "tokens" if audio else f"{S} tokens")
+        + f": card {card_ms:.1f} ms a step by events (median over steps "
+        f"1-{FAMILY_STEPS - 1}), host {out['host_ms_per_step']:.1f} ms a "
+        f"step over the loop; {tokens / card_ms * 1e3:,.0f} tokens/s by "
+        f"the card's step ({tokens * FAMILY_STEPS / wall:,.0f} over the "
+        f"whole call, {wall:.1f} s with init and the last readback); model "
+        f"FLOP/s {flops / card_ms / 1e9:.2f} TFLOP/s ({flops / 1e12:.2f} "
+        f"TFLOP a step, 6 N a token) against fp32's "
+        f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} "
+        f"({flops / card_ms * 1e3 / PEAK_FLOPS[torch.float32]:.1%}); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (means of the first and last "
+        f"5: {np.mean(losses[:5]):.4f}, {np.mean(losses[-5:]):.4f}); {pend} "
+        f"of {n} loss readbacks pending at first poll; peak device memory "
+        f"{mib(peak)} above the {mib(start)} allocated when it began, the "
+        f"dry run's count on the CPU {mib(dry_args + dry_out + dry_temp)} "
+        f"(arguments {mib(dry_args)}, outputs {mib(dry_out)}, live peak "
+        f"{mib(dry_temp)}: it runs the kernels' plain versions, and their "
+        f"intermediates, on meta tensors)")
+    log(f"  one step's card time by kernel family (torch.profiler, "
+        f"{busy:.1f} ms busy): " + ", ".join(
+            f"{fam} {v:.1%}" for fam, v in split.items()))
+    for name, (share, k) in list(names.items())[:6]:
+        log(f"    {share:6.1%} in {k:g} launches a step: {name[:100]}")
+    log(f"phase 27c: {path}: launches {json.dumps(launches)}; "
+        f"{FAMILY_STEPS} steps say {json.dumps(want)}")
+    if launches != want:
+        raise AssertionError(f"27c: {path}: launches {launches}, "
+                             f"{FAMILY_STEPS} steps say {want}")
+    if [r["step"] for r in rows] != list(range(FAMILY_STEPS)):
+        raise AssertionError(f"27b: {path}: loss readbacks for steps "
+                             f"{[r['step'] for r in rows]}")
+    if not all(np.isfinite(losses)) or not \
+            np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"27b: {path}: the loss did not fall: "
+                             f"{losses}")
+    if pend < 0.9 * n:
+        raise AssertionError(f"27b: {path}: {pend} of {n} loss readbacks "
+                             "pending at first poll")
+    return launches
+
+
+def phase_train_families(dev, label):
+    """Phase 27: training mamba2, zamba2, whisper and danube at full width
+    in fp32 on the card, through the three backward kernels. Returns each
+    path's 27b launches."""
+    from repro_torch.models.common import AUDIO
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # 27a: each path's step at a cut depth, card against CPU
+    for path, f in TRAIN_FAMILIES.items():
+        cfg = train_family_config(f, f["check"])
+        audio = cfg.family == AUDIO
+        seq = f["seq"] if audio else FAMILY_CHECK_SEQ
+        depth = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers" if audio
+                 else f"{cfg.n_layers} layers")
+        train_step_check(dev, cfg, (TRAIN_CHECK_BATCH, seq), tag="27a",
+                         what=f"({path}) at full width, {depth}")
+        free_card()
+    log(f"phase 27a: {time.perf_counter() - t_phase:.1f} s")
+    # 27b/27c: each path whole (danube at 6 layers)
+    paths = {path: family_train(path, f, dev, label)
+             for path, f in TRAIN_FAMILIES.items()}
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4316,7 +4704,8 @@ def main() -> int:
              "whisper_large_v3": phase_whisper(dev, label),
              "internvl2_26b": phase_vlm(dev, label),
              "train": phase_train(dev, label),
-             "train_sharded": phase_shards(dev, label)}
+             "train_sharded": phase_shards(dev, label),
+             **phase_train_families(dev, label)}
     # one entry per (kernel, path that ran it): that path's launches beside
     # phase 3's case at its shape; a kernel's row is its first path's
     # entry, every path's entry under "paths"

@@ -561,12 +561,17 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // causal) the work is five products of (pairs x 64) each, ~32 GFLOP a
 // call against ~0.1 GB of q/k/v/o/dO/dq/dk/dv, so operations: ~0.5 ms at
 // fp32's 67 TFLOP/s. This first version runs every product on fp32 FMAs
-// (bf16 inputs are widened as they are staged), 64 x 64 tiles staged in
-// shared memory as fp32 rows of 65 floats (the pad spreads a column over
-// the banks), each of 256 threads owning a 4 x 4 interleaved sub-tile
-// (rows ty + 16i, columns tx + 16j); the shared-memory reads, two a
-// multiply-add pair, bound it well below the FMA peak. Tensor cores
-// (mma.sync for bf16, wgmma) are later work.
+// (bf16 inputs are widened as they are staged), 64-row tiles staged in
+// shared memory as fp32 rows of the head_dim rounded up to 64, plus one
+// float (the pad spreads a column over the banks; head_dim 120 is staged
+// as 128 with zero columns, and its 8 padded columns are never stored),
+// and P and dS as 64 x 65 tiles. Each of 256 threads owns a 4 x 4
+// interleaved sub-tile of S and dP (rows ty + 16i, columns tx + 16j) and
+// 4 x (head_dim / 16) of dK, dV or dQ; the shared-memory reads, two a
+// multiply-add pair, bound it well below the FMA peak. At head_dim 128
+// the dK/dV block takes 162 KB of shared memory and the dQ block 146 KB:
+// one block an SM. Tensor cores (mma.sync for bf16, wgmma) are later
+// work.
 //
 // dK/dV: one block per (key tile, KV head, batch) loops over the G query
 // heads of its group and over the query tiles that see its keys, so the
@@ -579,20 +584,74 @@ constexpr int kBwdThreads = 256;   // 16 x 16 threads, 4 x 4 elements each
 
 template <int HD>
 struct BwdDims {
-  static constexpr int kLd = HD + 1;                 // floats a staged row
-  static constexpr int kTile = kBT * kLd;            // floats a tile
-  static constexpr int kDkdvSmem = (6 * kTile + 2 * kBT) * 4;
-  static constexpr int kDqSmem = (5 * kTile + 2 * kBT) * 4;
-  static_assert(HD == 64, "the backward is instantiated at head_dim 64");
+  // head_dim columns a tile stages: 120 is padded to 128 with zero
+  // columns, as the forward's MmaDims rounds it; a thread owns kJ of them
+  static constexpr int kHDP = (HD + 63) / 64 * 64;
+  static constexpr int kJ = kHDP / 16;
+  static constexpr int kLd = kHDP + 1;               // floats a staged row
+  static constexpr int kTile = kBT * kLd;            // floats a q/k/v/dO tile
+  static constexpr int kLdP = kBT + 1;               // floats a P/dS row
+  static constexpr int kPTile = kBT * kLdP;
+  static constexpr int kDkdvSmem = (4 * kTile + 2 * kPTile + 2 * kBT) * 4;
+  static constexpr int kDqSmem = (4 * kTile + kPTile + 2 * kBT) * 4;
+  static_assert(HD == 64 || HD == 120 || HD == 128,
+                "the backward is instantiated at head_dim 64, 120 and 128");
 };
 
-// acc[i][j] += sum_d A[ty + 16i][d] * B[tx + 16j][d]   (A B^T)
-template <int HD>
+// Stage kBT rows of HD elements of two tensors into shared memory as fp32
+// (row stride LD), as common.cuh's stage_tile does, and zero the columns
+// from HD to LD - 1 (head_dim 120's padding to 128).
+template <typename T, int HD, int LD, class Row>
+__device__ __forceinline__ void stage_bwd(float* As, float* Bs, Row row) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = HD / kVec;
+  constexpr int kTotal = kBT * kPerRow;
+  constexpr int kIters = (kTotal + kBwdThreads - 1) / kBwdThreads;
+  static_assert(HD % kVec == 0, "rows must split into 16-byte vectors");
+  uint4 abuf[kIters], bbuf[kIters];
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int idx = threadIdx.x + i * kBwdThreads;
+    abuf[i] = bbuf[i] = make_uint4(0u, 0u, 0u, 0u);
+    const T* ar;
+    const T* br;
+    if (idx < kTotal && row(idx / kPerRow, ar, br)) {
+      const int c = idx % kPerRow;
+      abuf[i] = reinterpret_cast<const uint4*>(ar)[c];
+      bbuf[i] = reinterpret_cast<const uint4*>(br)[c];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int idx = threadIdx.x + i * kBwdThreads;
+    if (idx < kTotal) {
+      const int t = idx / kPerRow;
+      const int d0 = (idx % kPerRow) * kVec;
+      const T* ae = reinterpret_cast<const T*>(&abuf[i]);
+      const T* be = reinterpret_cast<const T*>(&bbuf[i]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        As[t * LD + d0 + e] = to_float(ae[e]);
+        Bs[t * LD + d0 + e] = to_float(be[e]);
+      }
+    }
+  }
+  constexpr int kPad = LD - 1 - HD;
+  if constexpr (kPad > 0) {
+    for (int idx = threadIdx.x; idx < kBT * kPad; idx += kBwdThreads) {
+      const int at = (idx / kPad) * LD + HD + idx % kPad;
+      As[at] = 0.f;
+      Bs[at] = 0.f;
+    }
+  }
+}
+
+// acc[i][j] += sum_{d < K} A[ty + 16i][d] * B[tx + 16j][d]   (A B^T)
+template <int K, int L>
 __device__ __forceinline__ void tile_abt(const float* A, const float* B,
                                          float (&acc)[4][4], int ty, int tx) {
-  constexpr int L = HD + 1;
 #pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < K; ++d) {
     float a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * L + d];
@@ -606,48 +665,47 @@ __device__ __forceinline__ void tile_abt(const float* A, const float* B,
 }
 
 // acc[i][j] += sum_r A[r][ty + 16i] * B[r][tx + 16j]   (A^T B, r < kBT)
-template <int HD>
+template <int J, int LA, int LB>
 __device__ __forceinline__ void tile_atb(const float* A, const float* B,
-                                         float (&acc)[4][4], int ty, int tx) {
-  constexpr int L = HD + 1;
+                                         float (&acc)[4][J], int ty, int tx) {
 #pragma unroll 8
   for (int r = 0; r < kBT; ++r) {
-    float a[4], b[4];
+    float a[4], b[J];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[r * L + ty + 16 * i];
+    for (int i = 0; i < 4; ++i) a[i] = A[r * LA + ty + 16 * i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[r * L + tx + 16 * j];
+    for (int j = 0; j < J; ++j) b[j] = B[r * LB + tx + 16 * j];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < J; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
 // acc[i][j] += sum_c A[ty + 16i][c] * B[c][tx + 16j]   (A B, c < kBT)
-template <int HD>
+template <int J, int LA, int LB>
 __device__ __forceinline__ void tile_ab(const float* A, const float* B,
-                                        float (&acc)[4][4], int ty, int tx) {
-  constexpr int L = HD + 1;
+                                        float (&acc)[4][J], int ty, int tx) {
 #pragma unroll 8
   for (int c = 0; c < kBT; ++c) {
-    float a[4], b[4];
+    float a[4], b[J];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * L + c];
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LA + c];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[c * L + tx + 16 * j];
+    for (int j = 0; j < J; ++j) b[j] = B[c * LB + tx + 16 * j];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < J; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
-__device__ __forceinline__ void zero4x4(float (&a)[4][4]) {
+template <int J>
+__device__ __forceinline__ void zero_tile(float (&a)[4][J]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+    for (int j = 0; j < J; ++j) a[i][j] = 0.f;
 }
 
 // delta[b][h][q] = sum_d dO * O in fp32: one warp a (b, q, h) row
@@ -677,13 +735,12 @@ __global__ void __launch_bounds__(256)
 // P and dS of one (query tile, key tile) pair into shared memory, from
 // S = Q K^T and dP = dO V^T in registers; masked entries and rows past Sq
 // are 0
-template <int HD>
 __device__ __forceinline__ void probs_and_ds(
     const float (&sacc)[4][4], const float (&pacc)[4][4], float* Ps,
     float* dSs, const float* lse_s, const float* delta_s, int q_row0,
     int k0, int Sq, int Sk, int causal, int window, int q_offset,
     float scale, int ty, int tx) {
-  constexpr int L = HD + 1;
+  constexpr int L = kBT + 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -711,15 +768,15 @@ __global__ void __launch_bounds__(kBwdThreads)
                           T* __restrict__ dv, int Sq, int Sk, int H, int KV,
                           int causal, int window, int q_offset, float scale) {
   using Dm = BwdDims<HD>;
-  constexpr int L = Dm::kLd;
+  constexpr int L = Dm::kLd, LP = Dm::kLdP, J = Dm::kJ;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + Dm::kTile;
   float* Qs = Vs + Dm::kTile;
   float* dOs = Qs + Dm::kTile;
   float* Ps = dOs + Dm::kTile;
-  float* dSs = Ps + Dm::kTile;
-  float* lse_s = dSs + Dm::kTile;
+  float* dSs = Ps + Dm::kPTile;
+  float* lse_s = dSs + Dm::kPTile;
   float* delta_s = lse_s + kBT;
   const int k0 = blockIdx.x * kBT;
   const int kvh = blockIdx.y;
@@ -731,7 +788,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const size_t q_stride = static_cast<size_t>(H) * HD;
   const T* kb = k + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
   const T* vb = v + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
-  stage_tile<T, HD, kBT, kBwdThreads>(
+  stage_bwd<T, HD, L>(
       Ks, Vs, [&](int r, const T*& kr, const T*& vr) {
         if (k0 + r >= Sk) return false;
         kr = kb + (k0 + r) * kv_stride;
@@ -739,9 +796,9 @@ __global__ void __launch_bounds__(kBwdThreads)
         return true;
       });
   const int k_last = min(k0 + kBT, Sk) - 1;
-  float dk_acc[4][4], dv_acc[4][4];
-  zero4x4(dk_acc);
-  zero4x4(dv_acc);
+  float dk_acc[4][J], dv_acc[4][J];
+  zero_tile(dk_acc);
+  zero_tile(dv_acc);
   const int n_qt = (Sq + kBT - 1) / kBT;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
@@ -758,7 +815,7 @@ __global__ void __launch_bounds__(kBwdThreads)
       if (causal && last < k0) continue;
       if (window > 0 && k_last <= first - window) continue;
       __syncthreads();   // the previous query tile has been consumed
-      stage_tile<T, HD, kBT, kBwdThreads>(
+      stage_bwd<T, HD, L>(
           Qs, dOs, [&](int r, const T*& qr, const T*& gr) {
             if (q_row0 + r >= Sq) return false;
             qr = qb + (q_row0 + r) * q_stride;
@@ -772,15 +829,15 @@ __global__ void __launch_bounds__(kBwdThreads)
       }
       __syncthreads();
       float sacc[4][4], pacc[4][4];
-      zero4x4(sacc);
-      zero4x4(pacc);
-      tile_abt<HD>(Qs, Ks, sacc, ty, tx);
-      tile_abt<HD>(dOs, Vs, pacc, ty, tx);
-      probs_and_ds<HD>(sacc, pacc, Ps, dSs, lse_s, delta_s, q_row0, k0, Sq,
-                       Sk, causal, window, q_offset, scale, ty, tx);
+      zero_tile(sacc);
+      zero_tile(pacc);
+      tile_abt<HD, L>(Qs, Ks, sacc, ty, tx);
+      tile_abt<HD, L>(dOs, Vs, pacc, ty, tx);
+      probs_and_ds(sacc, pacc, Ps, dSs, lse_s, delta_s, q_row0, k0, Sq, Sk,
+                   causal, window, q_offset, scale, ty, tx);
       __syncthreads();
-      tile_atb<HD>(Ps, dOs, dv_acc, ty, tx);
-      tile_atb<HD>(dSs, Qs, dk_acc, ty, tx);
+      tile_atb<J, LP, L>(Ps, dOs, dv_acc, ty, tx);
+      tile_atb<J, LP, L>(dSs, Qs, dk_acc, ty, tx);
     }
   }
   T* dkb = dk + static_cast<size_t>(b) * Sk * kv_stride + kvh * HD;
@@ -790,8 +847,9 @@ __global__ void __launch_bounds__(kBwdThreads)
     const int kp = k0 + ty + 16 * i;
     if (kp >= Sk) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < J; ++j) {
       const int d = tx + 16 * j;
+      if (d >= HD) continue;     // head_dim 120's padding
       dkb[kp * kv_stride + d] = from_float<T>(dk_acc[i][j] * scale);
       dvb[kp * kv_stride + d] = from_float<T>(dv_acc[i][j]);
     }
@@ -807,13 +865,14 @@ __global__ void __launch_bounds__(kBwdThreads)
                         int Sq, int Sk, int H, int KV, int causal, int window,
                         int q_offset, float scale) {
   using Dm = BwdDims<HD>;
+  constexpr int L = Dm::kLd, LP = Dm::kLdP, J = Dm::kJ;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + Dm::kTile;
   float* Ks = dOs + Dm::kTile;
   float* Vs = Ks + Dm::kTile;
   float* dSs = Vs + Dm::kTile;
-  float* lse_s = dSs + Dm::kTile;
+  float* lse_s = dSs + Dm::kPTile;
   float* delta_s = lse_s + kBT;
   // heaviest first, as the forward: the last causal query tiles walk the
   // most key tiles
@@ -828,7 +887,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int q_row0 = qt * kBT;
   const T* qb = q + static_cast<size_t>(b) * Sq * q_stride + h * HD;
   const T* gb = dout + static_cast<size_t>(b) * Sq * q_stride + h * HD;
-  stage_tile<T, HD, kBT, kBwdThreads>(
+  stage_bwd<T, HD, L>(
       Qs, dOs, [&](int r, const T*& qr, const T*& gr) {
         if (q_row0 + r >= Sq) return false;
         qr = qb + (q_row0 + r) * q_stride;
@@ -854,12 +913,12 @@ __global__ void __launch_bounds__(kBwdThreads)
     const int x = q_start - window - kBT + 1;   // last skipped k0
     t_begin = x < 0 ? 0 : x / kBT + 1;
   }
-  float dq_acc[4][4];
-  zero4x4(dq_acc);
+  float dq_acc[4][J];
+  zero_tile(dq_acc);
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kBT;
     __syncthreads();   // the previous key tile has been consumed
-    stage_tile<T, HD, kBT, kBwdThreads>(
+    stage_bwd<T, HD, L>(
         Ks, Vs, [&](int r, const T*& kr, const T*& vr) {
           if (k0 + r >= Sk) return false;
           kr = kb + (k0 + r) * kv_stride;
@@ -868,14 +927,14 @@ __global__ void __launch_bounds__(kBwdThreads)
         });
     __syncthreads();
     float sacc[4][4], pacc[4][4];
-    zero4x4(sacc);
-    zero4x4(pacc);
-    tile_abt<HD>(Qs, Ks, sacc, ty, tx);
-    tile_abt<HD>(dOs, Vs, pacc, ty, tx);
-    probs_and_ds<HD>(sacc, pacc, nullptr, dSs, lse_s, delta_s, q_row0, k0,
-                     Sq, Sk, causal, window, q_offset, scale, ty, tx);
+    zero_tile(sacc);
+    zero_tile(pacc);
+    tile_abt<HD, L>(Qs, Ks, sacc, ty, tx);
+    tile_abt<HD, L>(dOs, Vs, pacc, ty, tx);
+    probs_and_ds(sacc, pacc, nullptr, dSs, lse_s, delta_s, q_row0, k0, Sq,
+                 Sk, causal, window, q_offset, scale, ty, tx);
     __syncthreads();
-    tile_ab<HD>(dSs, Ks, dq_acc, ty, tx);
+    tile_ab<J, LP, L>(dSs, Ks, dq_acc, ty, tx);
   }
   T* dqb = dq + static_cast<size_t>(b) * Sq * q_stride + h * HD;
 #pragma unroll
@@ -883,8 +942,10 @@ __global__ void __launch_bounds__(kBwdThreads)
     const int qi = q_row0 + ty + 16 * i;
     if (qi >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dqb[qi * q_stride + tx + 16 * j] = from_float<T>(dq_acc[i][j] * scale);
+    for (int j = 0; j < J; ++j)
+      if (tx + 16 * j < HD)      // head_dim 120's padding
+        dqb[qi * q_stride + tx + 16 * j] =
+            from_float<T>(dq_acc[i][j] * scale);
   }
 }
 
@@ -930,6 +991,30 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int dispatch_bwd(int D, const void* q, const void* k, const void* v,
+                 const void* o, const void* dout, const float* lse,
+                 float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                 int Sk, int H, int KV, int causal, int window, int q_offset,
+                 float scale, cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               Sq, Sk, H, KV, causal, window, q_offset,
+                               scale, s);
+    case 120:
+      return launch_bwd<T, 120>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                Sq, Sk, H, KV, causal, window, q_offset,
+                                scale, s);
+    case 128:
+      return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                Sq, Sk, H, KV, causal, window, q_offset,
+                                scale, s);
+    default:
+      return kBadArgument;
+  }
+}
+
 }  // namespace
 }  // namespace repro
 
@@ -963,7 +1048,7 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
 
 // The gradient of repro_flash_attention: q, o, dout, dq: (B, Sq, H, D);
 // k, v, dk, dv: (B, Sk, KV, D); lse: the forward's (B, H, Sq) fp32; delta:
-// (B, H, Sq) fp32 scratch; all contiguous. D = 64 only.
+// (B, H, Sq) fp32 scratch; all contiguous; D in {64, 120, 128}.
 extern "C" int repro_flash_attention_backward(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -971,17 +1056,16 @@ extern "C" int repro_flash_attention_backward(
     int window, int q_offset, float scale, void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || D != 64) return kBadArgument;
+  if (KV <= 0 || H % KV != 0) return kBadArgument;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<float*>(delta);
   if (dtype == kFloat32)
-    return launch_bwd<float, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq,
-                                 Sk, H, KV, causal, window, q_offset, scale,
-                                 s);
+    return dispatch_bwd<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq,
+                               Sk, H, KV, causal, window, q_offset, scale, s);
   if (dtype == kBFloat16)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, l, dl, dq, dk, dv,
-                                         B, Sq, Sk, H, KV, causal, window,
-                                         q_offset, scale, s);
+    return dispatch_bwd<__nv_bfloat16>(D, q, k, v, o, dout, l, dl, dq, dk,
+                                       dv, B, Sq, Sk, H, KV, causal, window,
+                                       q_offset, scale, s);
   return kBadArgument;
 }

@@ -115,8 +115,8 @@ int launch(const void* x, const float* scale, void* out, int rows, int d,
 // (blocks, D) fp32 partial sum written and read again: at 8192 x 768 fp32
 // ~76 MB, ~23 us at 3.35 TB/s).
 //
-// Design: kBwdWarps warps a block over a contiguous range of rows, one
-// warp a row at a time. Pass 1 reduces sum(x^2) and sum(dy*scale*x) with
+// Design: up to kBwdWarps warps a block over a contiguous range of rows,
+// one warp a row at a time. Pass 1 reduces sum(x^2) and sum(dy*scale*x) with
 // warp shuffles (r is recomputed here, never stored by the forward); pass
 // 2 reads the row again (from L1) and writes dx. Each warp adds dy*x*r
 // into its own fp32 row of dscale sums in shared memory, each lane only at
@@ -124,9 +124,19 @@ int launch(const void* x, const float* scale, void* out, int rows, int d,
 // block sums its warps in a fixed order into one partial row per block. A
 // second launch from this source sums the blocks' partial rows, column by
 // column, in block order. No atomics anywhere: the result is the same on
-// every run.
+// every run. The warps' rows of sums, warps x D floats, must fit the 227 KB
+// a block may take: rows wider than 14,528 (llama3's 16,384) run fewer
+// warps a block (3 there, 192 KB), and the widest a block of one warp
+// takes is 58,112.
 constexpr int kBwdWarps = 4;
-constexpr int kMaxBwdD = 12288;   // 4 warps x D floats within 192 KB
+constexpr int kMaxBwdSmem = 232448;   // bytes a block may opt in to
+constexpr int kMaxBwdD = kMaxBwdSmem / 4;
+
+// warps a block at width d: as many rows of d fp32 sums as fit, up to 4
+__host__ __device__ constexpr int bwd_warps(int d) {
+  return kMaxBwdSmem / (4 * d) < kBwdWarps ? kMaxBwdSmem / (4 * d)
+                                           : kBwdWarps;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kBwdWarps)
@@ -136,7 +146,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
                        int rows_per_block, float eps) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kScale = kVec / 4;
-  extern __shared__ float acc[];     // [kBwdWarps][d]
+  extern __shared__ float acc[];     // [warps][d]
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nvec = d / kVec;
@@ -147,7 +158,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
   const float4* sc = reinterpret_cast<const float4*>(scale);
   const int row0 = blockIdx.x * rows_per_block;
   const int row_end = min(rows, row0 + rows_per_block);
-  for (int row = row0 + warp; row < row_end; row += kBwdWarps) {
+  for (int row = row0 + warp; row < row_end; row += warps) {
     const uint4* xr = reinterpret_cast<const uint4*>(x)
                       + static_cast<size_t>(row) * nvec;
     const uint4* gr = reinterpret_cast<const uint4*>(dy)
@@ -199,8 +210,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
   __syncthreads();
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
     float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kBwdWarps; ++w) s += acc[w * d + c];
+    for (int w = 0; w < warps; ++w) s += acc[w * d + c];
     partial[static_cast<size_t>(blockIdx.x) * d + c] = s;
   }
 }
@@ -220,14 +230,15 @@ template <typename T>
 int launch_bwd(const void* x, const float* scale, const void* dy, void* dx,
                float* dscale, float* partial, int blocks, int rows, int d,
                float eps, cudaStream_t stream) {
-  // once per dtype: allow the widest rows' 192 KB of shared memory
+  // once per dtype: allow a block all the shared memory it may take
   static const cudaError_t attr = cudaFuncSetAttribute(
       rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kBwdWarps * kMaxBwdD * static_cast<int>(sizeof(float)));
+      kMaxBwdSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int per_block = (rows + blocks - 1) / blocks;
-  const size_t smem = static_cast<size_t>(kBwdWarps) * d * sizeof(float);
-  rmsnorm_bwd_kernel<T><<<blocks, 32 * kBwdWarps, smem, stream>>>(
+  const int warps = bwd_warps(d);
+  const size_t smem = static_cast<size_t>(warps) * d * sizeof(float);
+  rmsnorm_bwd_kernel<T><<<blocks, 32 * warps, smem, stream>>>(
       static_cast<const T*>(x), scale, static_cast<const T*>(dy),
       static_cast<T*>(dx), partial, rows, d, per_block, eps);
   const cudaError_t err = cudaGetLastError();
@@ -258,14 +269,15 @@ extern "C" int repro_rmsnorm(int dtype, const void* x, const void* scale,
 
 // The gradient of repro_rmsnorm. x, dy, dx: (rows, d) contiguous like the
 // forward's x; scale: (d,) fp32; dscale: (d,) fp32; partial: (blocks, d)
-// fp32 scratch, blocks >= 1 (the wrapper picks how many); d <= 12288.
+// fp32 scratch, blocks >= 1 (the wrapper picks how many); d <= 58112.
 extern "C" int repro_rmsnorm_backward(int dtype, const void* x,
                                       const void* scale, const void* dy,
                                       void* dx, void* dscale, void* partial,
                                       int blocks, int rows, int d, float eps,
                                       void* stream) {
   using namespace repro;
-  if (rows <= 0 || blocks <= 0 || d > kMaxBwdD) return kBadArgument;
+  if (rows <= 0 || blocks <= 0 || d <= 0 || d > kMaxBwdD)
+    return kBadArgument;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* sc = static_cast<const float*>(scale);
   auto* ds = static_cast<float*>(dscale);

@@ -10,10 +10,11 @@ the wrappers once, at capture, where their increments count nothing; the
 step graph adds each kernel's launches in the step back to ``LAUNCHES``
 on every replay, so the counts stay launches on the card.
 
-Training differentiates through rmsnorm and flash attention (head_dim 64)
-on the card: with grad enabled and an input that requires grad, their
-wrappers run a ``torch.autograd.Function`` whose backward is a kernel too,
-counted in the module's ``BACKWARD_LAUNCHES``. A CUDA call that wants a
-gradient no kernel gives raises ``NotImplementedError``; there is no
-fallback to the plain version.
+Training differentiates through rmsnorm, flash attention and the SSD
+scan on the card, at every shape their forwards take: with grad enabled
+and an input that requires grad, their wrappers run a
+``torch.autograd.Function`` whose backward is a kernel too, counted in
+the module's ``BACKWARD_LAUNCHES``. A CUDA call that wants a gradient no
+kernel gives (the SSD scan's final state) raises ``NotImplementedError``;
+there is no fallback to the plain version.
 """

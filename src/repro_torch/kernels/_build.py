@@ -45,6 +45,7 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _P],
+    "repro_ssd_scan_backward": [_I] + [_P] * 14 + [_I] * 6 + [_P],
 }
 
 #: where the CUDA toolkit is looked for when neither CUDA_HOME nor PATH

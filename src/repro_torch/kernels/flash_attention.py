@@ -4,15 +4,14 @@ version + CUDA kernel wrapper, and its gradient.
 Counterpart of ``repro/kernels/flash_attention/{kernel,ref,ops}.py``; the
 kernels are ``csrc/flash_attention.cu``: the forward, which also writes
 each row's log-sum-exp when the backward will need it, and a backward
-kernel (no TPU counterpart) at head_dim 64.
+kernel (no TPU counterpart), both at every head_dim of ``HEAD_DIMS``.
 
 The wrapper's rule: CPU tensors take the plain version, which autograd
 differentiates natively. A CUDA call with grad enabled and an input that
 requires grad goes through ``_FlashFunction`` (the forward kernel writing
-the log-sum-exp, then the backward kernel); at a head_dim with no
-backward kernel it raises ``NotImplementedError`` at the forward. Any
-other CUDA call is the forward launch alone, writing no log-sum-exp, as
-serving makes it. DTensors run each rank's shard through this same rule
+the log-sum-exp, then the backward kernel). Any other CUDA call is the
+forward launch alone, writing no log-sum-exp, as serving makes it.
+DTensors run each rank's shard through this same rule
 (``kernels._shards``): batch and heads may be sharded, with each rank's q
 heads beside their own KV heads; the sequence and head_dim may not. Meta
 shards (the dry run's) take the plain version.
@@ -30,7 +29,7 @@ LAUNCHES = 0
 #: backward kernel calls (three grids each: delta, dK/dV, dQ)
 BACKWARD_LAUNCHES = 0
 HEAD_DIMS = (64, 120, 128)   # the kernels' instantiations (ported configs)
-BACKWARD_HEAD_DIMS = (64,)   # the backward kernel's
+BACKWARD_HEAD_DIMS = HEAD_DIMS   # the backward kernel's: the same
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, q_offset: int,
@@ -161,13 +160,6 @@ def _launch(q, k, v, causal, window, q_offset, scale, code,
     return out, lse
 
 
-def _require_backward(D: int) -> None:
-    if D not in BACKWARD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention: no backward kernel at head_dim {D} "
-            f"(instantiated: {BACKWARD_HEAD_DIMS}); see ROADMAP A.7")
-
-
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                        *, causal: bool = True, window: int = 0,
@@ -180,7 +172,6 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require_cuda("flash_attention_backward", q, o, lse, do)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    _require_backward(D)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
         raise ValueError("flash_attention_backward: o and do must have q's "
@@ -240,7 +231,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _check(q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        _require_backward(q.shape[-1])
         return _FlashFunction.apply(q, k, v, causal, window, q_offset, scale,
                                     code)
     return _launch(q, k, v, causal, window, q_offset, scale, code,

@@ -24,9 +24,10 @@ from repro_torch.kernels import _build, _shards
 LAUNCHES = 0
 #: backward kernel calls (two grids each: the rows, then the dscale sum)
 BACKWARD_LAUNCHES = 0
-#: the widest row the backward kernel takes (its per-warp dscale sums
-#: live in shared memory)
-MAX_BACKWARD_D = 12288
+#: the widest row the backward kernel takes: one warp's fp32 row of
+#: dscale sums in a block's 227 KB of shared memory (a block holds up to
+#: four such rows, fewer for rows wider than 14,528)
+MAX_BACKWARD_D = 232448 // 4
 #: blocks of the backward's first grid at most (two an SM of an H100)
 BACKWARD_BLOCKS = 264
 
@@ -55,8 +56,10 @@ def rmsnorm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
     return dx.to(x.dtype), dscale
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
-    """Validate a CUDA call; returns the dtype code."""
+def _check(x: torch.Tensor, scale: torch.Tensor,
+           backward: bool = False) -> int:
+    """Validate a CUDA call (of the backward kernel with ``backward``);
+    returns the dtype code."""
     _build.require_cuda("rmsnorm", x, scale)
     code = _build.dtype_code("rmsnorm", x.dtype)
     d = x.shape[-1]
@@ -67,6 +70,9 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
     if d % vec or x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError(f"rmsnorm: rows and scale must be 16-byte aligned "
                          f"vectors (D={d} a multiple of {vec})")
+    if backward and d > MAX_BACKWARD_D:
+        raise ValueError(f"rmsnorm: no backward kernel for rows of {d} (at "
+                         f"most {MAX_BACKWARD_D})")
     return code
 
 
@@ -89,17 +95,13 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     ``x``'s shape and dtype). Each row's rstd is recomputed; ``dscale`` is
     summed over rows by the kernel itself, in a fixed order."""
     global BACKWARD_LAUNCHES
-    code = _check(x, scale)
+    code = _check(x, scale, backward=True)
     _build.require_cuda("rmsnorm_backward", x, dy)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.data_ptr() % 16:
         raise ValueError(f"rmsnorm_backward: dy {tuple(dy.shape)} "
                          f"{dy.dtype} does not match x {tuple(x.shape)} "
                          f"{x.dtype} (or is not 16-byte aligned)")
     d = x.shape[-1]
-    if d > MAX_BACKWARD_D:
-        raise NotImplementedError(
-            f"rmsnorm: no backward kernel for rows of {d} (at most "
-            f"{MAX_BACKWARD_D}); see ROADMAP A.7")
     rows = x.numel() // d
     dx = torch.empty_like(x)
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
@@ -141,13 +143,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         return _rmsnorm_shards(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
-    code = _check(x, scale)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        if x.shape[-1] > MAX_BACKWARD_D:
-            raise NotImplementedError(
-                f"rmsnorm: no backward kernel for rows of {x.shape[-1]} "
-                f"(at most {MAX_BACKWARD_D}); see ROADMAP A.7")
-        return _RMSNormFunction.apply(x, scale, eps, code)
+        return _RMSNormFunction.apply(x, scale, eps,
+                                      _check(x, scale, backward=True))
+    code = _check(x, scale)
     return _launch(x, scale, eps, code)
 
 

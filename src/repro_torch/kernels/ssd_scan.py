@@ -1,7 +1,10 @@
-"""Mamba-2 SSD chunked scan: plain PyTorch version + CUDA kernel wrapper.
+"""Mamba-2 SSD chunked scan: plain PyTorch version + CUDA kernel wrapper,
+and its gradient.
 
-Counterpart of ``repro/kernels/ssd_scan/{kernel,ref,ops}.py``; the kernel
-is ``csrc/ssd_scan.cu``. Shapes (the reference's):
+Counterpart of ``repro/kernels/ssd_scan/{kernel,ref,ops}.py``; the
+kernels are ``csrc/ssd_scan.cu``: the forward, and a backward kernel (no
+TPU counterpart) that training on the card differentiates through.
+Shapes (the reference's):
 
 * x  ``(B, T, H, P)``  per-head inputs, fp32 or bf16
 * dt ``(B, T, H)``     fp32 positive step sizes (softplus + bias applied)
@@ -33,6 +36,10 @@ from repro_torch.kernels import _build, _shards
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
+#: backward kernel calls (seven grids each: the forward's chunk states and
+#: state passing again, the state gradients' chunk terms, their reverse
+#: pass, the chunk gradients, the group sums, the (B, T) sums)
+BACKWARD_LAUNCHES = 0
 #: the kernel's instantiations: (head_dim P, state_dim N) of mamba2-370m
 #: and zamba2-1.2b, and chunk
 SHAPES = ((64, 128), (64, 64))
@@ -174,31 +181,131 @@ def _ssd_chunk_parallel_plain(x: torch.Tensor, dt: torch.Tensor,
     return (y, state) if return_state else y
 
 
+def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, Bm: torch.Tensor,
+                            Cm: torch.Tensor, D: torch.Tensor,
+                            dy: torch.Tensor, *, chunk: int = CHUNK
+                            ) -> Tuple[torch.Tensor, ...]:
+    """``(dx, ddt, dA, dB, dC, dD)`` of ``ssd_scan_plain``'s ``y`` for the
+    output gradient ``dy``, in fp32 in the forward's chunk decomposition
+    (the backward kernel's plain version): dx, dB and dC in ``x.dtype``,
+    ddt, dA and dD fp32. The final state is taken to carry no gradient
+    (training never reads it). Per chunk c, with ``E_c`` the state
+    entering it:
+
+    1. the output terms: ``dD``, ``dE_c = Σ_i exp(cum_i) dy_i C_iᵀ``,
+       ``dC_i += exp(cum_i) E_cᵀ dy_i``, ``dcum_i += dy_i · y_inter_i``;
+    2. the reverse state pass: ``G = 0``; for c from the last chunk down,
+       ``dS_c = G``, ``dtotal_c += exp(total_c) ⟨E_c, G⟩``, ``G = dE_c +
+       exp(total_c) G``;
+    3. the chunk-state terms of ``S_c = Σ_j w_j x_j B_jᵀ``;
+    4. the intra-chunk terms of ``scores_ij = (C_i·B_j) L_ij dt_j``;
+    5. ``dcum`` (with ``dtotal`` on the chunk's last row) reverse-summed
+       into the step sizes' ``da``: ``ddt += da·A``, ``dA = Σ da·dt``;
+    6. dB and dC summed over each group's heads."""
+    B_, T, H, P = x.shape
+    G = Bm.shape[2]
+    nC = -(-T // chunk)
+    pad = nC * chunk - T
+
+    def chunks(t: torch.Tensor) -> torch.Tensor:
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((B_, pad) + tuple(t.shape[2:]))],
+                          dim=1)
+        return t.reshape((B_, nC, chunk) + tuple(t.shape[2:]))
+
+    xf, dtf, gy = chunks(x), chunks(dt), chunks(dy)
+    Bh, Ch = chunks(_expand_groups(Bm, H)), chunks(_expand_groups(Cm, H))
+    N = Bh.shape[-1]
+    a = A.float()
+    cum = torch.cumsum(dtf * a, dim=2)                 # (B, C, Q, H)
+    total = cum[:, :, -1, :]                           # (B, C, H)
+    decay = torch.exp(total)
+    to_end = torch.exp(total[:, :, None, :] - cum)
+    w = dtf * to_end
+    ecum = torch.exp(cum)
+    S = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", w, xf, Bh)
+    state = S.new_zeros((B_, H, P, N))
+    entering = []
+    for c in range(nC):
+        entering.append(state)
+        state = state * decay[:, c, :, None, None] + S[:, c]
+    E = torch.stack(entering, dim=1)                   # (B, C, H, P, N)
+
+    # 1. output terms
+    dD = (gy * xf).sum(dim=(0, 1, 2, 4))
+    dE = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", ecum, gy, Ch)
+    dC = ecum[..., None] * torch.einsum("bchpn,bcqhp->bcqhn", E, gy)
+    dcum = (Ch * dC).sum(dim=-1)                       # dy_i · y_inter_i
+    # 2. reverse state pass
+    dtotal = torch.zeros_like(total)
+    g = S.new_zeros((B_, H, P, N))
+    dS = [g] * nC
+    for c in reversed(range(nC)):
+        dS[c] = g
+        dtotal[:, c] = decay[:, c] * (E[:, c] * g).sum(dim=(-2, -1))
+        g = dE[:, c] + decay[:, c, :, None, None] * g
+    dS = torch.stack(dS, dim=1)
+    # 3. chunk-state terms
+    dSB = torch.einsum("bchpn,bcqhn->bcqhp", dS, Bh)
+    dx = w[..., None] * dSB
+    dB = w[..., None] * torch.einsum("bchpn,bcqhp->bcqhn", dS, xf)
+    dw = (xf * dSB).sum(dim=-1)                        # (B, C, Q, H)
+    ddt = dw * to_end
+    dtotal = dtotal + (dw * w).sum(dim=2)
+    dcum = dcum - dw * w
+    # 4. intra-chunk terms; the exponent only where i >= j
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, None, :, :, None]
+    ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    L = torch.where(tri, ldiff, ldiff.new_full((), -float("inf"))).exp()
+    M = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * L
+    scores = M * dtf[:, :, None, :, :]
+    dscores = torch.einsum("bcihp,bcjhp->bcijh", gy, xf)
+    dx = dx + torch.einsum("bcijh,bcihp->bcjhp", scores, gy)
+    dM = dscores * L * dtf[:, :, None, :, :]
+    dC = dC + torch.einsum("bcijh,bcjhn->bcihn", dM, Bh)
+    dB = dB + torch.einsum("bcijh,bcihn->bcjhn", dM, Ch)
+    t = dscores * M
+    col = t.sum(dim=2)                                 # over i: (B, C, Q, H)
+    ddt = ddt + col
+    dcum = dcum + (t * dtf[:, :, None, :, :]).sum(dim=3) - dtf * col
+    # 5. dcum (total is the last row's cum) into the step sizes
+    dcum[:, :, -1, :] += dtotal
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = ddt + da * a
+    dA = (da * dtf).sum(dim=(0, 1, 2))
+    dx = dx + gy * D.float()[None, None, None, :, None]
+
+    # 6. back to (B, T, ...), each group's heads summed
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape((B_, nC * chunk) + tuple(t.shape[3:]))[:, :T]
+
+    dB = rows(dB).reshape(B_, T, G, H // G, N).sum(dim=3)
+    dC = rows(dC).reshape(B_, T, G, H // G, N).sum(dim=3)
+    return (rows(dx).to(x.dtype), rows(ddt), dA, dB.to(x.dtype),
+            dC.to(x.dtype), dD)
+
+
 def scratch_floats(B: int, T: int, H: int, P: int, N: int) -> int:
     """fp32 scratch of one kernel call: the (B, nC, H, P, N) chunk states
     and the (B, nC, H) chunk decays."""
     return B * -(-T // CHUNK) * H * (P * N + 1)
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
-             chunk: int = CHUNK, return_state: bool = False) -> Out:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel:
-    three grids per call (chunk states, state passing, chunk scan; see
-    ``_ssd_chunk_parallel_plain``), counted as one launch. The kernel has
-    no backward: a CUDA call that wants a gradient raises."""
-    global LAUNCHES
-    if _shards.any_dtensor(x, dt, A, Bm, Cm, D):
-        return _ssd_shards(x, dt, A, Bm, Cm, D, chunk=chunk,
-                           return_state=return_state)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk,
-                              return_state=return_state)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, Bm, Cm, D)):
-        raise NotImplementedError(
-            "ssd_scan: no backward kernel, so SSM and hybrid training on "
-            "the card waits for one; see ROADMAP A.7")
+def backward_scratch_floats(B: int, T: int, H: int, P: int, N: int) -> int:
+    """fp32 scratch of one backward call: the forward's (entering states
+    and decays, recomputed), the state gradients (B, nC, H, P, N), each
+    head's dB and dC rows (B, T, H, N) before the group sums, and the
+    per-chunk dA and dD terms (B, nC, H) each."""
+    nC = -(-T // CHUNK)
+    return scratch_floats(B, T, H, P, N) + B * nC * H * (P * N + 2) \
+        + 2 * B * T * H * N
+
+
+def _check(x, dt, A, Bm, Cm, D, chunk: int) -> int:
+    """Validate a CUDA call; returns the dtype code."""
     _build.require_cuda("ssd_scan", x, dt, A, Bm, Cm, D)
     code = _build.dtype_code("ssd_scan", x.dtype)
     B_, T, H, P = x.shape
@@ -219,6 +326,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "fp32")
     if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
         raise ValueError("ssd_scan: x, B and C must be 16-byte aligned")
+    return code
+
+
+def _launch(x, dt, A, Bm, Cm, D, code: int, return_state: bool) -> Out:
+    """The forward kernel on validated CUDA tensors."""
+    global LAUNCHES
+    B_, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
     final: Optional[torch.Tensor] = None
     if return_state:
@@ -236,6 +351,79 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check(rc, "ssd_scan")
     LAUNCHES += 1
     return (y, final) if return_state else y
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+                      dy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel: ``(dx, ddt, dA, dB, dC, dD)`` for CUDA tensors
+    (``dy`` of x's shape and dtype), as ``ssd_scan_backward_plain``
+    computes them. It recomputes the entering states with the forward's
+    first two grids rather than keeping them from the forward."""
+    global BACKWARD_LAUNCHES
+    code = _check(x, dt, A, Bm, Cm, D, CHUNK)
+    _build.require_cuda("ssd_scan_backward", x, dy)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.data_ptr() % 16:
+        raise ValueError(f"ssd_scan_backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} does not match x {tuple(x.shape)} "
+                         f"{x.dtype} (or is not 16-byte aligned)")
+    B_, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty_like(dt)
+    dA, dD = torch.empty_like(A), torch.empty_like(D)
+    scratch = torch.empty(backward_scratch_floats(B_, T, H, P, N),
+                          dtype=torch.float32, device=x.device)
+    rc = _build.lib().repro_ssd_scan_backward(
+        code, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dD.data_ptr(), scratch.data_ptr(), B_, T, H, G, P, N,
+        _build.stream_handle(x))
+    _build.check(rc, "ssd_scan_backward")
+    BACKWARD_LAUNCHES += 1
+    return dx, ddt, dA, dB, dC, dD
+
+
+class _SSDFunction(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, code):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        return _launch(x, dt, A, Bm, Cm, D, code, return_state=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_scan_backward(*ctx.saved_tensors,
+                                 dy.contiguous()) + (None,)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = CHUNK, return_state: bool = False) -> Out:
+    """CPU tensors take the plain version, which autograd differentiates;
+    CUDA tensors launch the kernel: three grids per call (chunk states,
+    state passing, chunk scan; see ``_ssd_chunk_parallel_plain``), counted
+    as one launch. With grad enabled and an input that requires grad, a
+    CUDA call goes through ``_SSDFunction`` (the backward kernel
+    differentiates it); one that also asks for the final state raises, as
+    no training path reads that state."""
+    if _shards.any_dtensor(x, dt, A, Bm, Cm, D):
+        return _ssd_shards(x, dt, A, Bm, Cm, D, chunk=chunk,
+                           return_state=return_state)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk,
+                              return_state=return_state)
+    code = _check(x, dt, A, Bm, Cm, D, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, D)):
+        if return_state:
+            raise NotImplementedError(
+                "ssd_scan: no gradient through the final state: only "
+                "prefill asks for it, and prefill takes no gradient")
+        return _SSDFunction.apply(x, dt, A, Bm, Cm, D, code)
+    return _launch(x, dt, A, Bm, Cm, D, code, return_state)
 
 
 def _ssd_shards(x, dt, A, Bm, Cm, D, *, chunk: int,

@@ -67,9 +67,12 @@ def train(arch: str = "paper_demo", steps: int = 100, global_batch: int = 4,
           ckpt_every: int = 50, log_every: int = 10, reduced: bool = False,
           num_microbatches: int = 1, log_path: Optional[str] = None,
           seed: int = 0, device: Any = "cuda", *,
+          n_layers: Optional[int] = None, remat: str = "none",
           before_step: Optional[Callable[[int], None]] = None,
           sync_debug_mode: Optional[str] = None) -> Dict[str, Any]:
-    """Train ``arch`` in fp32 with the reference's loop. ``before_step(i)``
+    """Train ``arch`` in fp32 with the reference's loop (its remat policy
+    ``"none"`` unless ``remat`` says otherwise; ``n_layers`` cuts the
+    depth, widths kept). ``before_step(i)``
     runs ahead of step ``i`` (the card checks queue a sleep there);
     ``sync_debug_mode`` (a card run) is set for the step loop alone. The
     result adds to the reference's: the host's ms a step over the loop and
@@ -79,8 +82,10 @@ def train(arch: str = "paper_demo", steps: int = 100, global_batch: int = 4,
     ``save_async`` returned."""
     dev = resolve_device(device)
     engine = Engine()
-    cfg = get_config(arch, reduced=reduced, remat="none",
-                     dtype=torch.float32, param_dtype=torch.float32)
+    overrides = {"n_layers": n_layers} if n_layers else {}
+    cfg = get_config(arch, reduced=reduced, remat=remat,
+                     dtype=torch.float32, param_dtype=torch.float32,
+                     **overrides)
     opt = OptConfig(lr=lr)
     sched = warmup_cosine(lr, warmup_steps=max(1, steps // 20),
                           total_steps=steps)

@@ -668,22 +668,122 @@ def test_autograd_takes_the_kernels_only_when_a_gradient_is_wanted(cuda):
 
 
 def test_autograd_refuses_a_gradient_no_kernel_gives(cuda):
-    """No fallback: flash at head_dim 128 and the SSD scan raise at the
-    forward when a gradient is wanted, and launch nothing."""
+    """No fallback: what no backward kernel computes raises at the forward
+    and launches nothing: the SSD scan's final state with grad (only
+    prefill asks for it), and a head_dim with no kernel."""
     f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
-    q = _randn(cuda, (1, 64, 8, 128), torch.bfloat16).requires_grad_()
-    k = _randn(cuda, (1, 64, 2, 128), torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.attention(q, k, k)
     x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, 1, 64, 4, 64, 1, 128,
                                       torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, D)
+    with pytest.raises(NotImplementedError, match="final state"):
+        ssd.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, D, return_state=True)
+    q = _randn(cuda, (1, 64, 8, 96), torch.bfloat16).requires_grad_()
+    k = _randn(cuda, (1, 64, 2, 96), torch.bfloat16)
+    with pytest.raises(ValueError, match="D in"):
+        fa.attention(q, k, k)
     assert (fa.LAUNCHES, ssd.LAUNCHES) == (f0, s0)
     with torch.no_grad():                    # serving: the forward runs
-        fa.attention(q, k, k)
-        ssd.ssd_scan(x, dt, A, Bm, Cm, D)
-    assert (fa.LAUNCHES, ssd.LAUNCHES) == (f0 + 1, s0 + 1)
+        ssd.ssd_scan(x, dt, A, Bm, Cm, D, return_state=True)
+    assert ssd.LAUNCHES == s0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,G,N", [
+    (2, 1024, 32, 1, 128),   # mamba2-370m's training step, at B 2
+    (1, 509, 32, 1, 128),    # a prime length: masked tail chunk
+    (2, 100, 8, 2, 128),     # groups, and a tail of 36 rows
+    (1, 7, 4, 1, 128),       # shorter than one chunk
+    (2, 1024, 64, 1, 64),    # zamba2-1.2b's
+    (1, 64, 64, 1, 64),      # one chunk
+])
+def test_ssd_scan_backward_kernel(cuda, dtype, B, T, H, G, N):
+    """The SSD backward kernel against the plain backward in fp32 on the
+    same (dtype-valued) inputs: each gradient within the tolerance of its
+    largest magnitude, the same bits on a second call (no atomics)."""
+    args = _ssd_inputs(cuda, B, T, H, 64, G, N, dtype)
+    dy = _randn(cuda, (B, T, H, 64), dtype)
+    n0 = ssd.BACKWARD_LAUNCHES
+    got = ssd.ssd_scan_backward(*args, dy)
+    assert ssd.BACKWARD_LAUNCHES == n0 + 1
+    x, dt, A, Bm, Cm, D = args
+    want = ssd.ssd_scan_backward_plain(x.float(), dt, A, Bm.float(),
+                                       Cm.float(), D, dy.float())
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert g.shape == w.shape, name
+        assert g.dtype == (dtype if name in ("dx", "dB", "dC")
+                           else torch.float32), name
+        assert torch.isfinite(g).all(), name
+        assert float((g.float() - w).abs().max()) <= _grad_tol(dtype, w), \
+            name
+    again = ssd.ssd_scan_backward(*args, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssd_scan_autograd_takes_the_backward_kernel(cuda):
+    """With grad wanted the wrapper runs ``_SSDFunction``: the gradients of
+    all six inputs equal autograd of the plain version; without, the
+    forward alone."""
+    args = _ssd_inputs(cuda, 2, 200, 32, 64, 1, 128, torch.float32)
+    dy = _randn(cuda, (2, 200, 32, 64), torch.float32)
+    n0, b0 = ssd.LAUNCHES, ssd.BACKWARD_LAUNCHES
+    watched = [t.clone().requires_grad_() for t in args]
+    got = torch.autograd.grad(ssd.ssd_scan(*watched), watched, dy)
+    assert (ssd.LAUNCHES, ssd.BACKWARD_LAUNCHES) == (n0 + 1, b0 + 1)
+    plain = [t.clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(ssd.ssd_scan_plain(*plain), plain, dy)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= _grad_tol(torch.float32, w)
+    with torch.no_grad():
+        ssd.ssd_scan(*watched)
+    assert (ssd.LAUNCHES, ssd.BACKWARD_LAUNCHES) == (n0 + 2, b0 + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window", [
+    (1, 700, 700, 32, 8, 120, True, 300),    # h2o-danube3 (hd 120), window
+    (2, 256, 256, 32, 32, 128, True, 0),     # zamba2's shared block
+    (1, 200, 200, 64, 4, 128, True, 0),      # qwen3-moe's G = 16
+    (1, 150, 150, 56, 8, 128, True, 0),      # deepseek's G = 7
+    (2, 77, 131, 8, 8, 120, False, 0),       # non-causal, odd lengths
+])
+def test_flash_attention_backward_kernel_at_head_dims_120_and_128(
+        cuda, dtype, B, Sq, Sk, H, KV, D, causal, window):
+    kw = dict(causal=causal, window=window)
+    q = _randn(cuda, (B, Sq, H, D), dtype)
+    k = _randn(cuda, (B, Sk, KV, D), dtype)
+    v = _randn(cuda, (B, Sk, KV, D), dtype)
+    do = _randn(cuda, (B, Sq, H, D), dtype)
+    code = 0 if dtype is torch.float32 else 1
+    o, lse = fa._launch(q, k, v, causal, window, 0, D ** -0.5, code,
+                        with_lse=True)
+    n0 = fa.BACKWARD_LAUNCHES
+    got = fa.attention_backward(q, k, v, o, lse, do, **kw)
+    assert fa.BACKWARD_LAUNCHES == n0 + 1
+    plain_lse = fa.attention_lse_plain(q, k, **kw)
+    o32 = fa.attention_plain(q.float(), k.float(), v.float(), **kw)
+    want = fa.attention_backward_plain(q.float(), k.float(), v.float(), o32,
+                                       plain_lse, do.float(), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert float((g.float() - w).abs().max()) <= _grad_tol(dtype, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 12288), (64, 16384), (5, 16384)])
+def test_rmsnorm_backward_kernel_past_12288_columns(cuda, dtype, rows, d):
+    """command-r's 12,288 and llama3's 16,384 (3 warps a block there)."""
+    x = _randn(cuda, (rows, d), dtype)
+    scale = 1 + 0.1 * torch.randn((d,), generator=cuda, device="cuda")
+    dy = _randn(cuda, (rows, d), dtype)
+    n0 = rn.BACKWARD_LAUNCHES
+    got = rn.rmsnorm_backward(x, scale, dy)
+    assert rn.BACKWARD_LAUNCHES == n0 + 1
+    want = rn.rmsnorm_backward_plain(x, scale, dy)
+    for g, w in zip(got, want):
+        assert float((g.float() - w.float()).abs().max()) <= _grad_tol(
+            dtype, w)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        rn.rmsnorm(_randn(cuda, (2, 65536), dtype).requires_grad_(),
+                   torch.ones(65536, device="cuda"))
 
 
 def test_train_step_on_card_matches_the_cpu(cuda):

@@ -49,7 +49,10 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 STEP_RTOL, STEP_ATOL = 1e-4, 5e-5
 VJP_ATOL = 1e-5
 LM_CONFIGS = ("paper_demo", "mamba2_370m", "qwen3_moe_235b_a22b",
-              "zamba2_1p2b", "internvl2_26b")
+              "zamba2_1p2b", "internvl2_26b", "h2o_danube3_4b")
+#: overrides of a reduced config in the gradient test: danube's window
+#: cut below the batch's 32 positions, so that the window masks keys
+LM_OVERRIDES = {"h2o_danube3_4b": {"window": 8}}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -139,7 +142,7 @@ def test_cross_entropy_matches_jax(masked):
 
 @pytest.mark.parametrize("name", LM_CONFIGS)
 def test_lm_loss_and_grads_match_jax(name):
-    jcfg, tcfg, jp, tp = _model(name)
+    jcfg, tcfg, jp, tp = _model(name, **LM_OVERRIDES.get(name, {}))
     batch = _batch(tcfg, seed=1)
     jloss, jgrads = jax.jit(jax.value_and_grad(
         lambda p, b: jlm.lm_loss(p, b, jcfg)))(
@@ -219,18 +222,25 @@ ATTN_CASES = {
     "window": dict(Sq=48, Sk=48, H=4, KV=2, causal=True, window=9),
     "q_offset": dict(Sq=12, Sk=40, H=4, KV=2, causal=True, q_offset=28),
     "noncausal": dict(Sq=17, Sk=30, H=4, KV=2, causal=False),
+    "gqa7": dict(Sq=24, Sk=24, H=14, KV=2, causal=True),
 }
+#: head_dims of the plain backward's cases: a small one, and the backward
+#: kernel's 120 (h2o-danube3) and 128 (zamba2's shared block and the dense
+#: and MoE configs); the small one keeps each case's bare name
+ATTN_DIMS = (16, 120, 128)
 
 
-@pytest.mark.parametrize("case", sorted(ATTN_CASES))
-def test_attention_backward_plain_matches_jax_vjp(case):
+@pytest.mark.parametrize("case,D", [
+    pytest.param(case, D, id=case if D == 16 else f"{case}-d{D}")
+    for case in sorted(ATTN_CASES) for D in ATTN_DIMS])
+def test_attention_backward_plain_matches_jax_vjp(case, D):
     c = dict(ATTN_CASES[case])
     Sq, Sk, H, KV = c.pop("Sq"), c.pop("Sk"), c.pop("H"), c.pop("KV")
     rng = np.random.default_rng(6)
-    q = rng.standard_normal((2, Sq, H, 16)).astype(np.float32)
-    k = rng.standard_normal((2, Sk, KV, 16)).astype(np.float32)
-    v = rng.standard_normal((2, Sk, KV, 16)).astype(np.float32)
-    do = rng.standard_normal((2, Sq, H, 16)).astype(np.float32)
+    q = rng.standard_normal((2, Sq, H, D)).astype(np.float32)
+    k = rng.standard_normal((2, Sk, KV, D)).astype(np.float32)
+    v = rng.standard_normal((2, Sk, KV, D)).astype(np.float32)
+    do = rng.standard_normal((2, Sq, H, D)).astype(np.float32)
     want = jax.jit(lambda a, b, w, g: jax.vjp(
         lambda a, b, w: jattn_ref.attention(a, b, w, **c), a, b, w)[1](g))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(do))
@@ -243,7 +253,7 @@ def test_attention_backward_plain_matches_jax_vjp(case):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=VJP_ATOL)
     # the log-sum-exp normalises each row's visible probabilities
     s = torch.einsum("bqhd,bkhd->bhqk", tq,
-                     tk.repeat_interleave(H // KV, dim=2)) * 16 ** -0.5
+                     tk.repeat_interleave(H // KV, dim=2)) * D ** -0.5
     mask = flash._mask(Sq, Sk, c.get("causal", True), c.get("window", 0),
                        c.get("q_offset", 0), tq.device)
     p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
