@@ -598,6 +598,9 @@ def check_flash_bwd(dtype, gen, dev, B=8, S=1024, H=12, KV=4, D=64,
     o, lse = K._launch(q, k, v, causal, window, 0, D ** -0.5,
                        _build.DTYPE_CODES[dtype], with_lse=True)
     got = K.attention_backward(q, k, v, o, lse, do, **kw)
+    # no atomics: a second call gives the same bits
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        got, K.attention_backward(q, k, v, o, lse, do, **kw)))
     plain_lse = K.attention_lse_plain(q, k, **kw)
     o32 = K.attention_plain(q.float(), k.float(), v.float(), **kw)
     want = K.attention_backward_plain(q.float(), k.float(), v.float(), o32,
@@ -629,6 +632,9 @@ def check_flash_bwd(dtype, gen, dev, B=8, S=1024, H=12, KV=4, D=64,
                      for r in range(S)) if causal else Sq * S)
     return dict(err=max(err, lse_err), grads=dict(zip(("dq", "dk", "dv"),
                                                       errs), lse=lse_err),
+                bit_equal=bit_equal,
+                splits=K.backward_splits(B, S, H, KV,
+                                         K.backward_key_tile(dtype, D)),
                 ms=median_ms(lambda: K.attention_backward(q, k, v, o, lse,
                                                           do, **kw)),
                 plain_ms=median_ms(lambda: K.attention_backward_plain(
@@ -1167,7 +1173,7 @@ def phase_kernels(dev, label):
             tol = TOL[dtype]
             ok = r.get("err_y", r["err"]) <= tol \
                 and r.get("err_state", 0.0) <= STATE_TOL \
-                and r.get("pools_exact", True)
+                and r.get("pools_exact", True) and r.get("bit_equal", True)
             lib = r["library_ms"]
             log(f"  {name:16s} {str(dtype):15s} {r['shape']}: max_abs_err "
                 + (f"y {r['err_y']:.3g} (tol {tol:g}), final state "
@@ -1195,7 +1201,10 @@ def phase_kernels(dev, label):
                     f"{n} {e:.3g}" for n, e in r["grads"].items())
                    + " (the error above is each over max(1, its largest "
                    "|plain|))" if "grads" in r else "")
-                + (f" | SDPA backward alone {r['sdpa_bwd_ms']:.4f} ms"
+                + (f" | SDPA backward alone {r['sdpa_bwd_ms']:.4f} ms "
+                   f"(kernel/SDPA backward {r['ms'] / r['sdpa_bwd_ms']:.2f}x)"
+                   f", {r['splits']} split(s) of the dK/dV grid, a second "
+                   f"call bit-equal: {r['bit_equal']}"
                    if "sdpa_bwd_ms" in r else ""))
             if not ok:
                 bad.append(f"{name} {dtype} {r['shape']}: {r}")
@@ -4143,27 +4152,29 @@ PHASE26_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 KEPT_CKPT = os.path.join(PHASE26_ROOT, "ckpt")
 
 
-def dryrun_counts(shape, mesh, *flags):
-    """``repro_torch.launch.dryrun`` of paper_demo at ``shape`` on a fake
-    process group of ``mesh``'s size, started in a subprocess (CPU only)."""
+def dryrun_counts(shape, mesh, *flags, arch="paper_demo"):
+    """``repro_torch.launch.dryrun`` of ``arch`` at ``shape`` on a fake
+    process group of ``mesh``'s size (the debug mesh with ``mesh`` None),
+    started in a subprocess (CPU only)."""
     env = dict(os.environ)
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = os.path.join(here, "src")
+    where = ["--debug-mesh"] if mesh is None else [
+        "--mesh", "x".join(str(n) for n in mesh)]
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-           "paper_demo", "--shape", shape, "--mesh",
-           "x".join(str(n) for n in mesh), *flags]
+           arch, "--shape", shape, *where, *flags]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env)
 
 
-def read_counts_json(proc, what):
-    out, err = proc.communicate(timeout=300)
+def read_counts_json(proc, what, tag="26a"):
+    out, err = proc.communicate(timeout=600)
     if proc.returncode != 0:
-        raise AssertionError(f"26a: the dry run of {what} failed:\n"
+        raise AssertionError(f"{tag}: the dry run of {what} failed:\n"
                              f"{err[-3000:]}")
     r = json.loads(out[out.index("{"):])
     if r["status"] != "ok":
-        raise AssertionError(f"26a: the dry run of {what}: {r['status']}")
+        raise AssertionError(f"{tag}: the dry run of {what}: {r['status']}")
     return r
 
 
@@ -4354,7 +4365,41 @@ def phase26_rank(rank, world, port):
         if equal != total:
             raise AssertionError(f"26d: rank {rank}: {equal} of {total} "
                                  "leaves bit-equal after the re-shard")
+        # 26e: a mamba2 train step under DTensor on the mesh (full width at
+        # 2 layers) against the unsharded step on card 0: the SSM family's
+        # sharded path (its causal conv runs on each rank's shard)
+        mcfg = get_config("mamba2_370m", dtype=torch.float32,
+                          param_dtype=torch.float32, n_layers=2)
+        mtree = tree_map(lambda t: t.numpy(), init_train_state(
+            mcfg, opt, seed=1, device="cpu"))
+        mtok = torch.from_numpy(SyntheticTokenSource(
+            mcfg, 2 * world, 256, seed=1).make_batch(0)["tokens"])
         if rank == 0:
+            st, m = make_train_step(mcfg, opt)(
+                train_state_from_numpy(mtree, mcfg, dev),
+                {"tokens": mtok.to(dev)})
+            mwant = (float(m["loss"]), tree_map(
+                lambda x: x.detach().cpu(), st["opt"]["m"]))
+            del st
+            free_card()
+        mspecs = train_state_specs(mcfg)
+        st = place(train_state_from_numpy(mtree, mcfg, dev),
+                   specs_to_shardings(mspecs, mesh, rules))
+        mb = place({"tokens": mtok.to(dev)}, specs_to_shardings(
+            batch_logical_axes({"tokens": mtok}), mesh, rules))
+        with use_sharding(mesh, rules):
+            st, m = make_train_step(mcfg, opt)(st, mb)
+        mloss = float(m["loss"].full_tensor())
+        mm = tree_map(lambda x: x.full_tensor().cpu(), st["opt"]["m"])
+        del st
+        free_card()
+        if rank == 0:
+            out["26e"] = {"loss": mloss, "want_loss": mwant[0],
+                          "m": tree_rel_diff(mm, mwant[1]),
+                          "B": 2 * world}
+            if out["26e"]["m"] > 1e-5 or \
+                    abs(mloss - mwant[0]) > 1e-5 * abs(mwant[0]):
+                raise AssertionError(f"26e: {out['26e']}")
             with open(os.path.join(PHASE26_ROOT, "out.json"), "w") as f:
                 json.dump(out, f)
         dist.barrier()
@@ -4382,6 +4427,9 @@ def phase_shards(dev, label):
     train_p = dryrun_counts("train_4k", mesh, "--exact", "--microbatches",
                             "1", "--batch", str(TRAIN_BATCH), "--seq-len",
                             str(TRAIN_SEQ), "--dtype", "float32")
+    # whisper's prefill on the 2x2 debug mesh, its rows and heads both
+    # split (the grouped einsum of its BOS step runs on each rank's shard)
+    whisper_p = dryrun_counts("prefill_32k", None, arch="whisper_large_v3")
     # ... and the decode step re-timed on this card, whole (the train
     # step's card ms are 26b's unsharded steps after the first)
     cfg = get_config("paper_demo")
@@ -4414,6 +4462,13 @@ def phase_shards(dev, label):
                  "26b's unsharded steps after the first)",
                  read_counts_json(train_p, "the train step"),
                  statistics.median(b["want_ms"][1:]), torch.float32, label)
+    w = read_counts_json(whisper_p, "whisper's prefill_32k debug cell")
+    log(f"phase 26a: whisper_large_v3 prefill_32k on the 2x2 debug mesh "
+        f"(batch and heads split) runs on this machine's torch "
+        f"({torch.__version__}): {w['cost']['flops_per_device'] / 1e12:.4f}"
+        f" TFLOP a device, live peak "
+        f"{w['memory']['temp_bytes_per_device'] / 2**30:.2f} GiB, "
+        f"collectives {json.dumps({k: v['count'] for k, v in w['collectives'].items() if v['count']})}")
     log(f"phase 26b: paper_demo at full width in fp32, {SHARD_STEPS} train "
         f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} on the {out['mesh']} mesh "
         f"(state by train_state_specs, rules_for(\"train\"), grad_spec_tree "
@@ -4441,6 +4496,12 @@ def phase_shards(dev, label):
         f"checkpoint onto the mesh: {d['equal']} of {d['leaves']} leaves "
         f"bit-equal to the saved state ({d['s']:.2f} s restore and "
         "re-shard)")
+    e = out["26e"]
+    log(f"phase 26e: a mamba2_370m train step (2 layers at full width, "
+        f"B {e['B']} x 256) under DTensor on the {out['mesh']} mesh against "
+        f"the unsharded step on card 0: loss {e['loss']:.6f} vs "
+        f"{e['want_loss']:.6f}, AdamW's first moment (the gradient) off by "
+        f"{e['m']:.3g} of each leaf's max (tol 1e-5)")
     log(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
     return b["counts"]
 
@@ -4509,25 +4570,23 @@ def family_model_flops(cfg, B: int, S: int) -> float:
     return 6.0 * n * B * S
 
 
-#: each 27b cell's memory as ``repro_torch.launch.dryrun`` counts it on
-#: the CPU (torch 2.13; the card machine's torch lacks a DTensor view rule
-#: that a mamba2 step needs), bytes of arguments, outputs and the live
-#: peak of temporaries: ``PYTHONPATH=src python -m repro_torch.launch.
-#: dryrun --arch ARCH --shape train_4k --mesh 1x1 --dtype float32
-#: --microbatches 1 --batch B --seq-len S --remat R [--n-layers 6]``
-FAMILY_DRYRUN = {
-    "train_mamba2": (4419061768, 4419029012, 9953199240),
-    "train_zamba2": (15169988104, 15169979924, 25672611336),
-    "train_whisper": (28007151112, 27999467540, 38989701144),
-    "train_danube": (14097425416, 14097392660, 20683407384),
-}
+def family_dryrun(f):
+    """``repro_torch.launch.dryrun`` of a TRAIN_FAMILIES cell at its 27b
+    shape on a 1x1 mesh (a CPU subprocess on meta DTensors, started while
+    27a runs): each path's argument, output and live-peak bytes."""
+    depth = ["--n-layers", str(f["n_layers"])] if f["n_layers"] else []
+    return dryrun_counts("train_4k", (1, 1), "--dtype", "float32",
+                         "--microbatches", "1", "--batch", str(f["batch"]),
+                         "--seq-len", str(f["seq"]), "--remat", f["remat"],
+                         *depth, arch=f["arch"])
 
 
-def family_train(path, f, dev, label):
+def family_train(path, f, dev, label, dry):
     """27b and 27c for one path: ``launch.train`` at 27b's cell; the
     card's ms a step, tokens/s, model FLOP/s, the loss readbacks pending
-    at first poll, peak memory beside the dry run's count, one step's
-    card time by kernel family, and the launches against the steps."""
+    at first poll, peak memory beside the dry run's count (``dry``, the
+    subprocess of ``family_dryrun``), one step's card time by kernel
+    family, and the launches against the steps."""
     from repro_torch.launch.train import train
     from repro_torch.models.common import AUDIO
     cfg = train_family_config(f)
@@ -4551,7 +4610,9 @@ def family_train(path, f, dev, label):
     losses = [r["loss"] for r in rows]
     pend, n = out["loss_pending_at_first_poll"], out["loss_ops"]
     card_ms = statistics.median(out["card_ms_per_step"][1:])
-    dry_args, dry_out, dry_temp = FAMILY_DRYRUN[path]
+    mem = read_counts_json(dry, f"the {path} cell", tag="27b")["memory"]
+    dry_args, dry_out, dry_temp = (mem[k + "_bytes_per_device"] for k in
+                                   ("argument", "output", "temp"))
     free_card()
     busy, split, names = train_profile(dev, cfg, (B, S))
     free_card()
@@ -4575,7 +4636,8 @@ def family_train(path, f, dev, label):
         f"5: {np.mean(losses[:5]):.4f}, {np.mean(losses[-5:]):.4f}); {pend} "
         f"of {n} loss readbacks pending at first poll; peak device memory "
         f"{mib(peak)} above the {mib(start)} allocated when it began, the "
-        f"dry run's count on the CPU {mib(dry_args + dry_out + dry_temp)} "
+        f"dry run's count on this machine (torch {torch.__version__}) "
+        f"{mib(dry_args + dry_out + dry_temp)} "
         f"(arguments {mib(dry_args)}, outputs {mib(dry_out)}, live peak "
         f"{mib(dry_temp)}: it runs the kernels' plain versions, and their "
         f"intermediates, on meta tensors)")
@@ -4610,6 +4672,8 @@ def phase_train_families(dev, label):
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # each 27b cell's dry run, on the host's cores while 27a runs
+    dry = {path: family_dryrun(f) for path, f in TRAIN_FAMILIES.items()}
     # 27a: each path's step at a cut depth, card against CPU
     for path, f in TRAIN_FAMILIES.items():
         cfg = train_family_config(f, f["check"])
@@ -4622,10 +4686,99 @@ def phase_train_families(dev, label):
         free_card()
     log(f"phase 27a: {time.perf_counter() - t_phase:.1f} s")
     # 27b/27c: each path whole (danube at 6 layers)
-    paths = {path: family_train(path, f, dev, label)
+    paths = {path: family_train(path, f, dev, label, dry[path])
              for path, f in TRAIN_FAMILIES.items()}
     log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+#: each phase's seconds in this run (``timed``)
+PHASE_SECONDS = {}
+T_START = time.perf_counter()
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds logged and kept as phase
+    ``name``'s."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"phase {name} took {PHASE_SECONDS[name]:.1f} s")
+    return out
+
+
+def ptxas_summary() -> None:
+    """Registers and spills of every kernel as ``-Xptxas -v`` printed them
+    at the build, the flash backward's by name; fails on any spill."""
+    from repro_torch.kernels import _build
+    name, regs, spills = None, {}, {}
+    for line in _build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+
+    def short(mangled):
+        m = re.search(r"(flash_bwd_(?:dkdv|dq)_(?:wgmma|f32))ILi(\d+)",
+                      mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else None
+    named = sorted((short(k), v) for k, v in regs.items() if short(k))
+    log("  ptxas -v, the flash backward kernels' registers: "
+        + ", ".join(f"{k} {v}" for k, v in named)
+        + f"; spill bytes over all {len(regs)} kernels: "
+        f"{sum(spills.values())}")
+    if any(spills.values()):
+        raise AssertionError("phase 2: spills in " + ", ".join(
+            k for k, v in spills.items() if v))
+
+
+def backward_sass() -> None:
+    """The flash backward's SASS in the built library (``cuobjdump
+    -sass``): each kernel's tensor-core (HGMMA), TMA-load (UTMALDG),
+    cp.async (LDGSTS) and FFMA instruction counts, and an excerpt of the
+    bf16 kernels; fails unless both bf16 kernels have HGMMA fed by
+    UTMALDG."""
+    from repro_torch.kernels import _build
+    lib = _build.BUILD_ROOT / _build.digest() / _build.LIB_NAME
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
+    counts, excerpt, name = {}, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_bwd_(?:dkdv|dq)_(?:wgmma|f32))ILi(\d+)",
+                          line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                counts[name] = dict.fromkeys(ops, 0)
+                excerpt[name] = {}
+            continue
+        if name is None:
+            continue
+        for op in ops:
+            if re.search(rf"\b{op}\b", line):
+                counts[name][op] += 1
+                if op in ("HGMMA", "UTMALDG"):
+                    excerpt[name].setdefault(
+                        op, re.sub(r"\s+", " ", line.strip())[:110])
+    for k in sorted(counts):
+        log(f"  SASS {k}: {json.dumps(counts[k])}")
+        for line in excerpt[k].values():
+            log(f"    {line}")
+    bad = [k for k in counts if "wgmma" in k and not (
+        counts[k]["HGMMA"] and counts[k]["UTMALDG"])]
+    if bad or not any("dkdv_wgmma" in k for k in counts) or \
+            not any("dq_wgmma" in k for k in counts):
+        raise AssertionError(f"phase 2: bf16 backward kernels without "
+                             f"HGMMA or UTMALDG: {bad or counts}")
 
 
 def main() -> int:
@@ -4649,63 +4802,67 @@ def main() -> int:
     _build.lib()
     log(f"phase 2: kernels built in {_build.BUILD_SECONDS:.1f} s "
         f"({_build.BUILD_ROOT / _build.digest()})")
-    for line in _build.build_log().splitlines():
-        if "Used" in line or "spill stores" in line:
-            log("  ptxas: " + line.strip())
+    ptxas_summary()
+    backward_sass()
     dev = torch.device("cuda", 0)
-    summary = phase_kernels(dev, label)
-    phase_graph_edges(dev)
-    ident = phase_identity(dev)
-    cfg, params, launches, host_ms, fused_d = phase_serve(dev, label)
-    phase_card_bound(cfg, params, dev, host_ms, label)
-    phase_spec_serve(cfg, params, dev, label)
-    phase_card_bound(cfg, params, dev, host_ms, label,
-                     make_engine=spec_engine, phase="5c")
-    phase_profile(cfg, params, dev, label)
+    summary = timed("3", phase_kernels, dev, label)
+    timed("3g", phase_graph_edges, dev)
+    ident = timed("4", phase_identity, dev)
+    cfg, params, launches, host_ms, fused_d = timed("5", phase_serve, dev,
+                                                    label)
+    timed("5b", phase_card_bound, cfg, params, dev, host_ms, label)
+    timed("5s", phase_spec_serve, cfg, params, dev, label)
+    timed("5c", phase_card_bound, cfg, params, dev, host_ms, label,
+          make_engine=spec_engine, phase="5c")
+    timed("6", phase_profile, cfg, params, dev, label)
     del params
-    phase_mamba_identity(dev)
-    mcfg, mparams, mlaunches, mhost_ms = phase_mamba_serve(dev, label)
-    phase_card_bound(mcfg, mparams, dev, mhost_ms, label,
-                     make_engine=mamba_engine, phase="8b")
-    phase_profile(mcfg, mparams, dev, label, window_steps=12,
-                  make_engine=mamba_engine,
-                  work=mamba_workload(mcfg, np.random.default_rng(5)),
-                  seated=8, phase="9")
+    timed("7", phase_mamba_identity, dev)
+    mcfg, mparams, mlaunches, mhost_ms = timed("8", phase_mamba_serve, dev,
+                                               label)
+    timed("8b", phase_card_bound, mcfg, mparams, dev, mhost_ms, label,
+          make_engine=mamba_engine, phase="8b")
+    timed("9", phase_profile, mcfg, mparams, dev, label, window_steps=12,
+          make_engine=mamba_engine,
+          work=mamba_workload(mcfg, np.random.default_rng(5)),
+          seated=8, phase="9")
     del mparams
-    phase_zones(dev, label)
-    phase_cholesky(dev, label)
-    phase_offload(dev, label)
+    timed("10", phase_zones, dev, label)
+    timed("11", phase_cholesky, dev, label)
+    timed("12", phase_offload, dev, label)
     t_phase = time.perf_counter()
     tokens = phase_disagg_identity(dev, ident)
     bf16 = phase_disagg_serve(dev, label)
     phase_disagg_card_bound(dev, ident, tokens, label)
     phase_chunk_kernels(dev, label)
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    phase_router(dev, ident, bf16, label)
-    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    PHASE_SECONDS["13"] = time.perf_counter() - t_phase
+    timed("14", phase_router, dev, ident, bf16, label)
     # the paper_demo paths added later run here, on phase 4's and 13's
     # weights: unfused paged serving (23), the bench's tiers (24)
-    unfused = phase_unfused(dev, ident, bf16, fused_d, label)
-    phase_bench(dev, bf16, label)
+    unfused = timed("23", phase_unfused, dev, ident, bf16, fused_d, label)
+    timed("24", phase_bench, dev, bf16, label)
     del ident, bf16
     free_card()
     # each serving path's launches, its counts set to 0 just before it ran
     paths = {"paper_demo": launches, "paper_demo_unfused": unfused,
              "mamba2_370m": mlaunches,
-             "h2o_danube3_4b": phase_danube(dev, label),
-             "deepseek_coder_33b": phase_deepseek(dev, label),
-             **phase_wide(dev, label),
-             "qwen3_moe_235b_a22b": phase_moe("18", "qwen3_moe_235b_a22b",
-                                              dev, label),
-             "llama4_scout_17b_16e": phase_moe("19", "llama4_scout_17b_16e",
-                                               dev, label),
-             "zamba2_1p2b": phase_zamba(dev, label),
-             "whisper_large_v3": phase_whisper(dev, label),
-             "internvl2_26b": phase_vlm(dev, label),
-             "train": phase_train(dev, label),
-             "train_sharded": phase_shards(dev, label),
-             **phase_train_families(dev, label)}
+             "h2o_danube3_4b": timed("15", phase_danube, dev, label),
+             "deepseek_coder_33b": timed("16", phase_deepseek, dev, label),
+             **timed("17", phase_wide, dev, label),
+             "qwen3_moe_235b_a22b": timed("18", phase_moe, "18",
+                                          "qwen3_moe_235b_a22b", dev, label),
+             "llama4_scout_17b_16e": timed("19", phase_moe, "19",
+                                           "llama4_scout_17b_16e", dev,
+                                           label),
+             "zamba2_1p2b": timed("20", phase_zamba, dev, label),
+             "whisper_large_v3": timed("21", phase_whisper, dev, label),
+             "internvl2_26b": timed("22", phase_vlm, dev, label),
+             "train": timed("25", phase_train, dev, label),
+             "train_sharded": timed("26", phase_shards, dev, label),
+             **timed("27", phase_train_families, dev, label)}
+    log("each phase's seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; the script so far {time.perf_counter() - T_START:.1f} s")
     # one entry per (kernel, path that ran it): that path's launches beside
     # phase 3's case at its shape; a kernel's row is its first path's
     # entry, every path's entry under "paths"

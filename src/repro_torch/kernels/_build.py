@@ -38,9 +38,8 @@ _SIGNATURES = {
                                _P],
     "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _P],
-    "repro_flash_attention_backward": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                       _I, _I, _F, _P],
+    "repro_flash_attention_backward": [_I] + [_P] * 11 + [_I] * 10
+                                      + [_F, _P],
     "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

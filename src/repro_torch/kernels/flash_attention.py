@@ -10,7 +10,10 @@ The wrapper's rule: CPU tensors take the plain version, which autograd
 differentiates natively. A CUDA call with grad enabled and an input that
 requires grad goes through ``_FlashFunction`` (the forward kernel writing
 the log-sum-exp, then the backward kernel). Any other CUDA call is the
-forward launch alone, writing no log-sum-exp, as serving makes it.
+forward launch alone, writing no log-sum-exp, as serving makes it. The
+backward kernel splits a KV group's query heads over several dK/dV blocks
+when the grid would not fill the card (``backward_splits``); the wrapper
+then allocates the fp32 scratch of their partial sums.
 DTensors run each rank's shard through this same rule
 (``kernels._shards``): batch and heads may be sharded, with each rank's q
 heads beside their own KV heads; the sequence and head_dim may not. Meta
@@ -26,10 +29,13 @@ from repro_torch.kernels import _build, _shards
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
-#: backward kernel calls (three grids each: delta, dK/dV, dQ)
+#: backward kernel calls (three grids each: delta, dK/dV, dQ; a fourth
+#: that sums the dK/dV partials when the group's heads are split)
 BACKWARD_LAUNCHES = 0
 HEAD_DIMS = (64, 120, 128)   # the kernels' instantiations (ported configs)
 BACKWARD_HEAD_DIMS = HEAD_DIMS   # the backward kernel's: the same
+#: the card's SMs: the dK/dV grid is split until it fills two waves
+SMS = 132
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, q_offset: int,
@@ -121,6 +127,60 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def backward_key_tile(dtype: torch.dtype, D: int) -> int:
+    """Keys a block of the backward's dK/dV grid holds: 128 for fp32 at
+    head_dim 64 (8 x 8 register micro-tiles), else 64."""
+    return 128 if dtype == torch.float32 and D == 64 else 64
+
+
+def backward_splits(B: int, Sk: int, H: int, KV: int,
+                    key_tile: int = 64) -> int:
+    """Blocks a KV group's query heads are split over in the backward's
+    dK/dV grid: the smallest divisor of the group size ``H // KV`` that
+    gives at least two waves of ``SMS`` blocks of (``key_tile`` keys, KV
+    head, batch) (1 when the grid already does, the whole group when none
+    does). Each block sums its share of the heads; the shares are added
+    in split order (``attention_backward``)."""
+    G = H // KV
+    blocks = B * KV * -(-Sk // key_tile)
+    for s in range(1, G + 1):
+        if G % s == 0 and blocks * s >= 2 * SMS:
+            return s
+    return G
+
+
+def _attention_backward_split_plain(q, k, v, o, lse, do, splits: int, *,
+                                    causal: bool = True, window: int = 0,
+                                    q_offset: int = 0,
+                                    scale: Optional[float] = None):
+    """The backward kernel's split dK/dV grid in plain fp32 PyTorch, for
+    the tests: each KV group's query heads cut into ``splits`` shares of
+    consecutive heads, each share's unscaled dK and its dV summed over its
+    heads, the shares added in split order, then dK scaled. dq is
+    ``attention_backward_plain``'s. Returns fp32 ``(dq, dk, dv)``."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if G % splits:
+        raise ValueError(f"{splits} splits do not divide a group of {G}")
+    scale = D ** -0.5 if scale is None else scale
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    dq, _, _ = attention_backward_plain(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), **kw)
+    n = G // splits
+    dk = dv = 0.0
+    for s in range(splits):
+        heads = [kv * G + g for kv in range(KV)
+                 for g in range(s * n, (s + 1) * n)]
+        _, pk, pv = attention_backward_plain(
+            q.float()[:, :, heads], k.float(), v.float(),
+            o.float()[:, :, heads], lse[:, heads], do.float()[:, :, heads],
+            **kw)
+        dk = dk + pk / scale
+        dv = dv + pv
+    return dq, dk * scale, dv
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     """Validate a CUDA call; returns the dtype code."""
     _build.require_cuda("flash_attention", q, k, v)
@@ -184,11 +244,17 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    splits = backward_splits(B, Sk, H, KV, backward_key_tile(q.dtype, D))
+    # the split dK/dV grid's fp32 partial sums (dk's, then dv's)
+    part = torch.empty((2, splits, B, Sk, KV, D), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
     rc = _build.lib().repro_flash_attention_backward(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, D, int(causal),
-        int(window), int(q_offset), float(scale), _build.stream_handle(q))
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        part.data_ptr() if part is not None else None, dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, D, splits,
+        int(causal), int(window), int(q_offset), float(scale),
+        _build.stream_handle(q))
     _build.check(rc, "flash_attention_backward")
     BACKWARD_LAUNCHES += 1
     return dq, dk, dv

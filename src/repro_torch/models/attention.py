@@ -317,9 +317,6 @@ def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
     q = constrain(q, "batch", None, "act_heads", None)
     ck = constrain(cache["k"], "batch", "kv_seq", None, None)
     cv = constrain(cache["v"], "batch", "kv_seq", None, None)
-    KVp = cfg.padded_kv_heads
-    G = cfg.padded_heads // KVp
-    qg = q.reshape(B, S1, KVp, G, -1)
     idx = torch.arange(L, device=dev)
     if cfg.window:
         p = qpos[:, :1]                                         # (B, 1)
@@ -329,13 +326,55 @@ def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
                  & (held > p - cfg.window))[:, None, :]         # (B, 1, L)
     else:
         valid = idx[None, None, :] <= qpos[:, :, None]          # (B, S1, L)
+    if is_dtensor(q) and any(p.is_shard(2) for p in q.placements):
+        o = _grouped_shards(q, ck, cv, valid, cfg)
+    else:
+        o = _grouped(q, ck, cv, valid, cfg)
+    return _out_proj(params, o, cfg), cache
+
+
+def _grouped(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+             valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Grouped-einsum GQA of ``q (B, S1, H, hd)`` over a cache ``ck, cv
+    (B, L, KV, hd)`` where ``valid (B|1, S1|1, L)``: ``(B, S1, H, hd)``."""
+    B, S1, H, _ = q.shape
+    KV = ck.shape[2]
+    qg = q.reshape(B, S1, KV, H // KV, -1)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float() \
         * cfg.resolved_head_dim ** -0.5
     scores = scores.masked_fill(~valid[:, None, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
     o = torch.einsum("bkgst,btkd->bskgd", probs, cv)
-    o = o.reshape(B, S1, cfg.padded_heads, -1)
-    return _out_proj(params, o, cfg), cache
+    return o.reshape(B, S1, H, -1)
+
+
+def _grouped_shards(q, ck, cv, valid, cfg):
+    """``_grouped`` of a DTensor ``q`` whose heads are split over ranks
+    (the ``prefill`` rules: the cache's length whole), on each rank's
+    shard: the einsum would flatten the split batch and head dims into
+    one, which DTensor refuses in some torch releases. The cache and
+    ``valid`` are placed on q's rows and heads first (a local slice where
+    they are whole)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels import _shards
+    _shards.check("decode_attention", "q", q, (0, 2))
+    mesh = q.device_mesh
+
+    def placed(t, want):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        if tuple(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        return t.to_local()
+
+    kv_place = tuple(p if p.is_shard() else Replicate()
+                     for p in q.placements)
+    rows = tuple(Shard(0) if p.is_shard(0) and valid.shape[0] > 1
+                 else Replicate() for p in q.placements)
+    o = _grouped(q.to_local(), placed(ck, kv_place), placed(cv, kv_place),
+                 placed(valid, rows), cfg)
+    return _shards.wrap(o, q, q.shape)
 
 
 def paged_decode_attention(params, x: torch.Tensor, cfg: ModelConfig,

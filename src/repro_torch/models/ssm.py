@@ -97,21 +97,50 @@ def ssm_state_specs(layer_stacked: bool) -> Dict[str, Any]:
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor
                            ) -> torch.Tensor:
     """x: (B, T, C); w: (W, C) — causal depthwise conv along T. A sharded
-    x (a DTensor, channels split over ranks) takes the same sum as W
-    shifted products, accumulated in fp32, which keeps each rank on its
-    own channels."""
+    x (a DTensor: rows and channels split over ranks, T whole) runs on
+    each rank's shard, with w placed on x's channels: the same sum as W
+    shifted products, accumulated in fp32. (DTensor's own rule for the
+    padding is missing or broken in some torch releases.)"""
     W, C = w.shape
     if is_dtensor(x):
-        T = x.shape[1]
-        xp = F.pad(x, (0, 0, W - 1, 0)).float()
-        wf = w.float()
-        out = xp[:, 0:T] * wf[0]
-        for i in range(1, W):
-            out = out + xp[:, i:i + T] * wf[i]
-        return out.to(x.dtype)
+        return _sharded_conv(x, w)
     xp = F.pad(x.transpose(1, 2), (W - 1, 0))          # (B, C, W-1+T)
     out = F.conv1d(xp, w.t()[:, None, :], groups=C)    # (B, C, T)
     return out.transpose(1, 2)
+
+
+def _sharded_conv(x, w):
+    """The conv of DTensor ``x`` on each rank's shard. The conv is linear,
+    so a partial sum in ``x`` stays one in the output (its gradient is
+    whole), and ``w``'s gradient is a partial sum over every mesh dim
+    that splits ``x``'s rows or sums it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.kernels import _shards
+    mesh = x.device_mesh
+    for p in x.placements:
+        if p.is_shard() and p.dim not in (0, 2):
+            raise ValueError(f"causal_conv: x placed {tuple(x.placements)}"
+                             ": the sequence may not be sharded")
+    # w on x's channel split, replicated elsewhere
+    place = tuple(Shard(1) if p.is_shard(2) else Replicate()
+                  for p in x.placements)
+    if not is_dtensor(w):
+        w = DTensor.from_local(w, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    if tuple(w.placements) != place:
+        w = w.redistribute(mesh, place)
+    xl = x.to_local(grad_placements=tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+    wl = w.to_local(grad_placements=tuple(
+        Partial() if q.is_replicate() and not p.is_replicate() else q
+        for p, q in zip(x.placements, place)))
+    W, T = wl.shape[0], xl.shape[1]
+    xp = F.pad(xl, (0, 0, W - 1, 0)).float()
+    wf = wl.float()
+    out = xp[:, 0:T] * wf[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + T] * wf[i]
+    return _shards.wrap(out.to(xl.dtype), x, x.shape)
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,

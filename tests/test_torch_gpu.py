@@ -744,9 +744,17 @@ def test_ssd_scan_autograd_takes_the_backward_kernel(cuda):
     (1, 200, 200, 64, 4, 128, True, 0),      # qwen3-moe's G = 16
     (1, 150, 150, 56, 8, 128, True, 0),      # deepseek's G = 7
     (2, 77, 131, 8, 8, 120, False, 0),       # non-causal, odd lengths
+    # a ragged key tail that cuts a 64-row TMA box, at both widths
+    (1, 131, 131, 8, 2, 120, True, 0),
+    (1, 131, 131, 8, 2, 128, True, 0),
+    # the dK/dV grid splits the group's query heads (64 blocks, G 16:
+    # 8 splits) and sums the partials in a second pass
+    (1, 1024, 1024, 64, 4, 128, True, 0),
 ])
 def test_flash_attention_backward_kernel_at_head_dims_120_and_128(
         cuda, dtype, B, Sq, Sk, H, KV, D, causal, window):
+    """The backward kernel at head_dim 120 and 128 against the plain
+    backward in fp32; a second call gives the same bits."""
     kw = dict(causal=causal, window=window)
     q = _randn(cuda, (B, Sq, H, D), dtype)
     k = _randn(cuda, (B, Sk, KV, D), dtype)
@@ -765,6 +773,8 @@ def test_flash_attention_backward_kernel_at_head_dims_120_and_128(
     for g, w in zip(got, want):
         assert g.dtype == dtype
         assert float((g.float() - w).abs().max()) <= _grad_tol(dtype, w)
+    again = fa.attention_backward(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -260,6 +260,45 @@ def test_attention_backward_plain_matches_jax_vjp(case, D):
     torch.testing.assert_close(p.sum(-1), torch.ones_like(lse))
 
 
+@pytest.mark.parametrize("case,splits", [("gqa", 3), ("gqa7", 7),
+                                         ("window", 2), ("q_offset", 2)])
+def test_attention_backward_split_order_matches_jax_vjp(case, splits):
+    """The backward kernel's dK/dV grid split over a group's query heads
+    (``backward_splits``), its partial sums added in split order, against
+    the unsplit plain version and ``jax.vjp`` of the reference."""
+    c = dict(ATTN_CASES[case])
+    Sq, Sk, H, KV = c.pop("Sq"), c.pop("Sk"), c.pop("H"), c.pop("KV")
+    D = 16
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((2, Sq, H, D)).astype(np.float32)
+    k = rng.standard_normal((2, Sk, KV, D)).astype(np.float32)
+    v = rng.standard_normal((2, Sk, KV, D)).astype(np.float32)
+    do = rng.standard_normal((2, Sq, H, D)).astype(np.float32)
+    want = jax.jit(lambda a, b, w, g: jax.vjp(
+        lambda a, b, w: jattn_ref.attention(a, b, w, **c), a, b, w)[1](g))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
+    o = flash.attention_plain(tq, tk, tv, **c)
+    lse = flash.attention_lse_plain(tq, tk, **c)
+    got = flash._attention_backward_split_plain(tq, tk, tv, o, lse, tdo,
+                                                splits, **c)
+    whole = flash.attention_backward_plain(tq, tk, tv, o, lse, tdo, **c)
+    for g, p, w in zip(got, whole, want):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+def test_backward_splits_fill_two_waves():
+    """The dK/dV grid is split only below two waves of the card's SMs, by
+    the smallest divisor of the group that reaches them."""
+    assert flash.backward_splits(8, 1024, 12, 4) == 1    # 512 blocks
+    assert flash.backward_splits(1, 1024, 64, 8) == 4    # 128 -> 512
+    assert flash.backward_splits(1, 1024, 64, 4) == 8    # 64 -> 512
+    assert flash.backward_splits(1, 1024, 48, 8) == 3    # 128 -> 384
+    assert flash.backward_splits(1, 64, 4, 4) == 1       # G 1: no split
+    assert flash.backward_splits(1, 64, 6, 2) == 3       # the whole group
+
+
 def test_attention_lse_of_a_row_that_sees_no_key_is_inf():
     q = torch.randn(1, 4, 2, 8)
     k = torch.randn(1, 6, 2, 8)
