@@ -274,7 +274,10 @@ decoder's self- and cross-attention, danube's 32/8 of 120 under its
 window, also at 6144 rows) and at 1024 rows of every other config's heads
 (deepseek, llama3, command-r, qwen3, llama4, internvl2); the SSD scan's
 against ``ssd_scan_backward_plain`` (no library call) at mamba2's and
-zamba2's training batches, T 1024, and at T 509 and 64.
+zamba2's training batches, T 1024, at T 509 and 64, and with the final
+state's gradient (B 2, T 1024). Every backward case must also give the
+same bits on a second call; its line gives its share of the bound (and
+the SSD's scratch bytes and head-slices).
 
 Phases 23 and 24 run right after 14, on phase 4's and 13's weights.
 Each phase's weights are freed before the next. Each serve phase sets
@@ -557,14 +560,17 @@ def check_rmsnorm_bwd(dtype, rows, D, gen, dev):
     got = K.rmsnorm_backward(x, scale, dy)
     want = K.rmsnorm_backward_plain(x, scale, dy)
     errs = [max_err(g, w) for g, w in zip(got, want)]
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        got, K.rmsnorm_backward(x, scale, dy)))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
     xl = x.clone().requires_grad_()
     wl = scale.to(dtype).requires_grad_()
     y = F.rms_norm(xl, (D,), wl, 1e-5)
     library = lambda: torch.autograd.grad(  # noqa: E731
         y, (xl, wl), dy, retain_graph=True)
     item = x.element_size()
-    return dict(err=grad_err(got, want), grads=dict(zip(("dx", "dscale"),
-                                                        errs)),
+    return dict(err=grad_err(got, want) if finite else float("inf"),
+                grads=dict(zip(("dx", "dscale"), errs)), bit_equal=bit_equal,
                 ms=median_ms(lambda: K.rmsnorm_backward(x, scale, dy)),
                 plain_ms=median_ms(lambda: K.rmsnorm_backward_plain(
                     x, scale, dy)),
@@ -834,40 +840,53 @@ def check_ssd(dtype, B, T, gen, dev, H=32, N=128):
                 shape=f"B={B} T={T} H={H} P={P} G=1 N={N} (y, final state)")
 
 
-def check_ssd_bwd(dtype, B, T, gen, dev, H=32, N=128):
+def check_ssd_bwd(dtype, B, T, gen, dev, H=32, N=128, dfinal=False):
     """The SSD backward kernel against ``ssd_scan_backward_plain`` in fp32
-    on the same (dtype-valued) inputs (no library call computes it). The
-    bound counts x, dy, B, C, dt read and dx, dB, dC, ddt written once,
-    and per (batch, head, chunk of q real rows) the products the
-    gradient needs without recomputing the states: dE, dS B, x^T dS and
-    dy E (q P N each), and C B^T, dy x^T, scores^T dy, dM^T C and dM B
-    over the q (q + 1) / 2 pairs at or below the diagonal."""
+    on the same (dtype-valued) inputs (no library call computes it), with
+    the final state's gradient when ``dfinal``; a second call must give
+    the same bits. The bound counts x, dy, B, C, dt (and dfinal) read and
+    dx, dB, dC, ddt written once, and per (batch, head, chunk of q real
+    rows) the products the gradient needs without recomputing the states:
+    dE, dS B, x^T dS and dy E (q P N each), and C B^T, dy x^T, scores^T
+    dy, dM^T C and dM B over the q (q + 1) / 2 pairs at or below the
+    diagonal. The kernel's fp32 scratch (``backward_scratch_floats``) is
+    logged beside it."""
     from repro_torch.kernels import ssd_scan as K
     args = ssd_inputs(gen, dev, B, T, dtype, H=H, N=N)
     x, dt, A, Bm, Cm, D = args
-    P, Q = x.shape[3], K.CHUNK
+    P, Q, G = x.shape[3], K.CHUNK, Bm.shape[2]
     dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
-    got = K.ssd_scan_backward(*args, dy)
+    df = torch.randn((B, H, P, N), generator=gen, device=dev) \
+        if dfinal else None
+    got = K.ssd_scan_backward(*args, dy, df)
     want = K.ssd_scan_backward_plain(x.float(), dt, A, Bm.float(),
-                                     Cm.float(), D, dy.float())
+                                     Cm.float(), D, dy.float(), df)
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
     errs = [max_err(g, w) for g, w in zip(got, want)]
     err = grad_err(got, want)
     finite = all(bool(torch.isfinite(g).all()) for g in got)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        got, K.ssd_scan_backward(*args, dy, df)))
     del got, want
     item = x.element_size()
     n_bytes = (3 * x.numel() + 4 * Bm.numel()) * item + 8 * dt.numel() \
-        + 16 * H
+        + 16 * H + (4 * df.numel() if dfinal else 0)
     rows = [min(Q, T - t0) for t0 in range(0, T, Q)]
     flops = B * H * sum(8 * q * P * N + q * (q + 1) * (3 * N + 2 * P)
                         for q in rows)
+    splits = K.backward_head_splits(
+        B, T, H, G, torch.cuda.get_device_properties(dev).multi_processor_count)
     return dict(err=err if finite else float("inf"),
-                grads=dict(zip(names, errs)),
-                ms=median_ms(lambda: K.ssd_scan_backward(*args, dy)),
+                grads=dict(zip(names, errs)), bit_equal=bit_equal,
+                splits=splits,
+                scratch_bytes=4 * K.backward_scratch_floats(B, T, H, G, P, N,
+                                                            splits),
+                ms=median_ms(lambda: K.ssd_scan_backward(*args, dy, df)),
                 plain_ms=median_ms(lambda: K.ssd_scan_backward_plain(
-                    *args, dy), runs=10),
+                    *args, dy, df), runs=10),
                 library_ms=None, bound=bound_ms(n_bytes, flops, dtype),
-                shape=f"B={B} T={T} H={H} P={P} G=1 N={N} backward")
+                shape=f"B={B} T={T} H={H} P={P} G={G} N={N} backward"
+                      + (" with dfinal" if dfinal else ""))
 
 
 # each attention config of phases 15-19: (d_model, padded q-heads, KV
@@ -965,6 +984,10 @@ def train_family_cases(dtype, gen, dev):
             dtype, m["batch"], m["seq"], gen, dev)),
         ("ssd_scan_backward", None, check_ssd_bwd(dtype, m["batch"], 509,
                                                   gen, dev)),
+        # the final state's gradient too (ssd_scan(..., return_state=True)
+        # with grad)
+        ("ssd_scan_backward", None, check_ssd_bwd(dtype, 2, 1024, gen, dev,
+                                                  dfinal=True)),
         # zamba2: its SSM layers' width (38 of 53 norms a step) and the
         # shared block's, flash at 32/32 heads of 128, the SSD at (64, 64)
         ("rmsnorm", "train_zamba2", check_rmsnorm(
@@ -1188,7 +1211,15 @@ def phase_kernels(dev, label):
                 + f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
                 + (f", library {lib:.4f} ms (kernel/library "
                    f"{r['ms'] / lib:.2f}x)" if lib is not None else "")
-                + f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
+                + f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]}"
+                + (f", {r['bound'][0] / r['ms']:.1%} of it"
+                   if name in BACKWARD_NAMES else "") + ")"
+                + (f", scratch {r['scratch_bytes'] / 1e6:.1f} MB, "
+                   f"{r['splits']} head-slice(s) a group, a second call "
+                   f"bit-equal: {r['bit_equal']}"
+                   if "scratch_bytes" in r else "")
+                + (f", a second call bit-equal: {r['bit_equal']}"
+                   if name == "rmsnorm_backward" else "")
                 + (" | device time (torch.profiler, median of "
                    f"{TIMED_RUNS}): kernel {r['device'][0]:.4f} ms, library "
                    f"{r['device'][1]:.4f} ms (kernel/library "
@@ -4741,22 +4772,27 @@ def ptxas_summary() -> None:
 
 def backward_sass() -> None:
     """The flash backward's SASS in the built library (``cuobjdump
-    -sass``): each kernel's tensor-core (HGMMA), TMA-load (UTMALDG),
-    cp.async (LDGSTS) and FFMA instruction counts, and an excerpt of the
-    bf16 kernels; fails unless both bf16 kernels have HGMMA fed by
-    UTMALDG."""
+    -sass``): each kernel's tensor-core (HGMMA, HMMA), TMA-load
+    (UTMALDG), cp.async (LDGSTS) and FFMA instruction counts, and an
+    excerpt of the bf16 kernels; fails unless both bf16 flash kernels have
+    HGMMA fed by UTMALDG and both bf16 SSD backward grids (the state
+    passes, the chunk gradients) have HMMA (``mma.sync``)."""
     from repro_torch.kernels import _build
     lib = _build.BUILD_ROOT / _build.digest() / _build.LIB_NAME
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    ops = ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")
+    ops = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "FFMA")
     counts, excerpt, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_bwd_(?:dkdv|dq)_(?:wgmma|f32))ILi(\d+)",
                           line)
             name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            m = re.search(r"(ssd_bwd_chunk_mma|ssd_bwd_pass)I(?:13__nv_"
+                          r"bfloat16)?Li(\d+)ELi(\d+)", line)
+            if m:
+                name = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
             if name:
                 counts[name] = dict.fromkeys(ops, 0)
                 excerpt[name] = {}
@@ -4766,7 +4802,7 @@ def backward_sass() -> None:
         for op in ops:
             if re.search(rf"\b{op}\b", line):
                 counts[name][op] += 1
-                if op in ("HGMMA", "UTMALDG"):
+                if op in ("HGMMA", "UTMALDG", "HMMA"):
                     excerpt[name].setdefault(
                         op, re.sub(r"\s+", " ", line.strip())[:110])
     for k in sorted(counts):
@@ -4775,10 +4811,14 @@ def backward_sass() -> None:
             log(f"    {line}")
     bad = [k for k in counts if "wgmma" in k and not (
         counts[k]["HGMMA"] and counts[k]["UTMALDG"])]
+    bad += [k for k in counts if k.startswith("ssd_bwd")
+            and not counts[k]["HMMA"]]
     if bad or not any("dkdv_wgmma" in k for k in counts) or \
-            not any("dq_wgmma" in k for k in counts):
+            not any("dq_wgmma" in k for k in counts) or \
+            sum(k.startswith("ssd_bwd") for k in counts) != 4:
         raise AssertionError(f"phase 2: bf16 backward kernels without "
-                             f"HGMMA or UTMALDG: {bad or counts}")
+                             f"their tensor-core instructions: "
+                             f"{bad or counts}")
 
 
 def main() -> int:

@@ -52,7 +52,7 @@
 // the products as per-thread register tiles over fp32 shared memory.
 //
 // The gradient (repro_ssd_scan_backward, training) is the last part of the
-// file: the forward's first two grids again, then five grids of its own.
+// file: three grids of its own.
 #include <algorithm>
 #include <type_traits>
 
@@ -667,57 +667,99 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 }
 
 // ------------------------------------------------------------- backward
-// The gradient of the scan above for dy (no TPU counterpart: the JAX
-// package differentiates its XLA reference `ssd_chunked`, and its Pallas
-// kernel has no custom_vjp). kernels/ssd_scan.py
-// `ssd_scan_backward_plain` is its plain version, term by term. Per
-// (batch, head, chunk c), with E_c the state entering the chunk, w_j =
-// dt_j exp(total - cum_j) and the final state carrying no gradient:
-//   dE_c = sum_i exp(cum_i) dy_i C_i^T                   (ssd_bwd_state_grad)
-//   G = 0; for c down: dS_c = G, G = dE_c + exp(total_c) G (ssd_bwd_state_pass)
-//   then, chunk by chunk                                  (ssd_bwd_chunk)
-//   dx_j = D dy_j + w_j dS_c B_j + sum_{i>=j} scores_ij dy_i
-//   dB_j = w_j dS_c^T x_j + sum_i dM_ij C_i,  dC_i = exp(cum_i) E_c^T dy_i
-//          + sum_j dM_ij B_j, with dM_ij = (dy_i . x_j) L_ij dt_j (j <= i)
+// The gradient of the scan above for dy and for the final state's
+// gradient dfinal (no TPU counterpart: the JAX package differentiates its
+// XLA reference `ssd_chunked`, and its Pallas kernel has no custom_vjp).
+// kernels/ssd_scan.py `ssd_scan_backward_plain` is its plain version, term
+// by term. Per (batch, head, chunk c), with E_c the state entering the
+// chunk, w_j = dt_j exp(total - cum_j) and M_ij = (C_i . B_j) L_ij:
+//   E_0 = 0, E_{c+1} = exp(total_c) E_c + S_c, S_c = sum_j w_j x_j B_j^T;
+//   G = dfinal (or 0), for c down: dS_c = G, G = dE_c + exp(total_c) G,
+//   dE_c = sum_i exp(cum_i) dy_i C_i^T                  (1. ssd_bwd_pass)
+//   then, chunk by chunk                               (2. ssd_bwd_chunk)
+//   dx_j = D dy_j + w_j dS_c B_j + dt_j sum_{i>=j} M_ij dy_i
+//   dB_j = sum_h [w_j dS_c^T x_j] + sum_i dM_ij C_i, dC_i = sum_h
+//          [exp(cum_i) E_c^T dy_i] + sum_j dM_ij B_j, with dM the sum over
+//          the group's heads of (dy_i . x_j) L_ij dt_j (j <= i)
 //   dcum from the intra-chunk, inter-chunk and chunk-state terms, the
 //   chunk's dtotal (sum_j dw_j w_j + exp(total) <E_c, dS_c>) on its last
 //   row, reverse-summed into da: ddt = (intra and w terms) + A da, and
 //   per-chunk partial sums of dA (da . dt) and dD (dy . x)
-// and two fixed-order sums: dB and dC over each group's heads
-// (ssd_bwd_group_sum), dA and dD over (batch, chunk) (ssd_bwd_head_sum).
-// E_c is recomputed by the forward's first two grids into the scratch
-// rather than kept from the forward: kept, it would cost B nC H P N fp32
-// a layer for the whole backward of a model (134 MB a layer for mamba2 at
-// 8 x 1024, 6.4 GB over its 48 layers). No atomics: every output element
-// and partial sum has one writer and a fixed order, so results do not
-// depend on the run. Rows past T are staged as zeros with dt = 0; their
+// and the fixed-order sums of a third grid (3. ssd_bwd_sums): dA and dD
+// over (batch, chunk), and dB and dC over a group's head-slices when the
+// group is split. Grids 2 and 3 are chained to the one before by
+// programmatic dependent launch. No atomics: every output element and
+// partial sum has one writer and a fixed order, so results do not depend
+// on the run. Rows past T are staged as zeros with dt = 0; their
 // gradients are not stored.
 //
+// Grid 1 walks each (batch, head)'s chunks in order, forward for E_c and
+// back for dS_c, the running state in registers: S_c and dE_c never reach
+// device memory. A block of grid 2 spans the heads of one slice of one
+// group (the group's heads cut into k slices, k from the wrapper:
+// `backward_head_splits`, the fewest that give two waves of the card). It
+// stages the chunk's B and C once and computes C B^T once; each head
+// applies its own decay. B and C are the group's, so the intra-chunk dB
+// and dC are products of the heads' summed dM (one each for the block),
+// and the chunk-state and inter-chunk terms gather over the heads in
+// registers (or shared memory): the block writes one fp32 partial row a
+// head-slice, (B, T, G, k, N), or the final dB and dC when k = 1. No
+// (B, T, H, N) rows a head.
+//
 // What bounds it: at mamba2's training shape (B 8, T 1024, 32 heads, P 64,
-// N 128) a call does ~30 GFLOP of products (dE, C B^T, dy x^T, two for dx,
-// two each for dB and dC, and the recomputed states) against ~0.2 GB of
-// inputs and outputs in fp32, so operations. This first version runs
-// every product on fp32 FMAs from shared memory (bf16 inputs are widened
-// as they are staged), one block of 256 threads per (head, batch x
-// chunk), each thread a 4 x 4 (4 x N/16) interleaved sub-tile (rows
-// ty + 16a, columns tx + 16b); the shared-memory reads bound it well below
-// the FMA peak. Tensor cores are later work.
-constexpr int kBwdThreads = 256;   // 16 x 16 threads
+// N 128) the products the gradient needs are ~26 GFLOP (0.39 ms on fp32's
+// 67 TFLOP/s, 0.026 ms on bf16's tensor cores) and its inputs and outputs
+// ~0.11 GB in bf16 (0.033 ms at 3.35 TB/s). The scratch is E_c and dS_c,
+// (B, nC, H, P, N) fp32 each, 134 MB each at that shape, written once by
+// grid 1 and read once by grid 2 (0.54 GB, 0.16 ms), besides the
+// (B, nC, H) dA and dD terms and, at k = 4 there, 2 x 16.8 MB of
+// head-slice partials of dB and dC: those bytes, not the tensor cores,
+// bound the bf16 kernel; the FMAs bound the fp32 one.
+//
+// bf16 runs every product on the tensor cores as mma.sync.m16n8k16 with
+// ldmatrix operands from swizzled shared memory, fp32 accumulators.
+// mma.sync rather than wgmma: each product is 64 rows by 64 or N columns,
+// chained per head through registers (x dy^T -> the scores and dM ->
+// their products) in the m16n8k16 accumulator and A layouts, and the
+// operands are wanted in both orientations (x and dy as rows and as
+// columns, B dS^T and x^T dS), which ldmatrix and ldmatrix.trans read from
+// one swizzled tile; at these sizes the kernel waits on the state bytes
+// and on its per-head phases, not on the rate of the products. The
+// operands computed in fp32 (diag(w) x and diag(exp(cum)) dy of grid 1,
+// the masked scores, the heads' summed dM, E_c and dS_c) are rounded to
+// bf16 once: `BACKWARD_ROUNDING`, whose plain mirror keeps every gradient
+// within bf16's tolerance (tests/test_torch_train_families.py). The row
+// and column sums that feed dcum, ddt and dA (rsum, csum, dw, the inter
+// term, <E_c, dS_c>) are taken from fp32 accumulators or fp32 values,
+// never from rounded operands.
+//
+// fp32 runs on FMAs (TF32 would break the 1e-4 tolerance) as 8 x 8
+// register tiles over padded shared-memory rows (an operand whose rows
+// run along the tile's columns read as two 16-byte vectors): in grid 2 a
+// team of 128 threads takes a 64 x N product (N = 128), a quarter of 64
+// threads a 64 x 64 one, so that independent products run side by side.
+// Grid 2's blocks hold B, C, x, dy, E_c or dS_c, C B^T, M, the heads'
+// summed dM and a dx tile, ~217 KB at N = 128 (two teams' slice sums of
+// dB and dC in 255 registers a thread): one block (8 warps) an SM, not
+// two.
+constexpr int kBwdThreads = 256;
+constexpr int kXLdB = 64;       // bf16 x / dy tile rows (P = 64)
 
 // Stage ROWS rows of W elements of T (widened to fp32) into shared memory
 // with row stride LD; rows at or past n_rows are zeros. `src(r)` points at
 // row r (16-byte aligned). All loads are issued before any is stored.
-template <typename T, int ROWS, int W, int LD, class Src>
-__device__ __forceinline__ void stage_rows(float* dst, int n_rows, Src src) {
+template <typename T, int ROWS, int W, int LD, int NT, class Src>
+__device__ __forceinline__ void stage_rows(float* dst, int n_rows, int tid,
+                                           Src src) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = W / kVec;
-  static_assert(W % kVec == 0 && (ROWS * kPerRow) % kBwdThreads == 0,
-                "rows split over the block");
-  constexpr int kIters = ROWS * kPerRow / kBwdThreads;
+  static_assert(W % kVec == 0 && (ROWS * kPerRow) % NT == 0,
+                "rows split over the threads");
+  constexpr int kIters = ROWS * kPerRow / NT;
   uint4 buf[kIters];
 #pragma unroll
   for (int k = 0; k < kIters; ++k) {
-    const int idx = threadIdx.x + k * kBwdThreads;
+    const int idx = tid + k * NT;
     const int r = idx / kPerRow;
     buf[k] = r < n_rows
                  ? reinterpret_cast<const uint4*>(src(r))[idx % kPerRow]
@@ -725,7 +767,7 @@ __device__ __forceinline__ void stage_rows(float* dst, int n_rows, Src src) {
   }
 #pragma unroll
   for (int k = 0; k < kIters; ++k) {
-    const int idx = threadIdx.x + k * kBwdThreads;
+    const int idx = tid + k * NT;
     const T* e = reinterpret_cast<const T*>(&buf[k]);
     float* row = dst + (idx / kPerRow) * LD + (idx % kPerRow) * kVec;
 #pragma unroll
@@ -733,488 +775,1372 @@ __device__ __forceinline__ void stage_rows(float* dst, int n_rows, Src src) {
   }
 }
 
-// Where a backward block's chunk lies: blockIdx = (head, b * nC + c).
+// Where a backward block's chunk lies: blockIdx.y = b * nC + c.
 struct BwdPos {
-  int h, b, c, bc, rows, g;
+  int b, c, bc, rows;
   size_t row0;   // sequence row (b * T + c * kQ) of the chunk's first row
 
-  __device__ __forceinline__ BwdPos(int T_, int H, int G, int nC) {
-    h = blockIdx.x;
+  __device__ __forceinline__ BwdPos(int T_, int nC) {
     bc = blockIdx.y;
     b = bc / nC;
     c = bc % nC;
     rows = min(kQ, T_ - c * kQ);
-    g = h / (H / G);
     row0 = static_cast<size_t>(b) * T_ + static_cast<size_t>(c) * kQ;
   }
 };
 
-template <int P, int N>
-struct BwdStateSmem {
-  float dYs[kQ * (P + 1)];
-  float Cs[kQ * (N + 1)];
-  float cum[kQ], dts[kQ], ecum[kQ];
+// One warp: a chunk's per-row scalars from its dt, rows 2 lane and 2 lane
+// + 1 in d0 and d1 (0 past the sequence): cum (the inclusive cumsum of dt
+// a), dt, w = dt exp(total - cum) and exp(cum); returns total.
+__device__ __forceinline__ float chunk_scalars(float d0, float d1, float a,
+                                               int lane, float* cum,
+                                               float* dts, float* wts,
+                                               float* ecum) {
+  const int i0 = 2 * lane;
+  const float v1 = d1 * a;
+  float incl = d0 * a + v1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const float total = __shfl_sync(0xffffffffu, incl, 31);
+  const float c0 = incl - v1, c1 = incl;
+  cum[i0] = c0;
+  cum[i0 + 1] = c1;
+  dts[i0] = d0;
+  dts[i0 + 1] = d1;
+  wts[i0] = d0 * expf(total - c0);
+  wts[i0 + 1] = d1 * expf(total - c1);
+  ecum[i0] = expf(c0);
+  ecum[i0 + 1] = expf(c1);
+  return total;
+}
+
+// 4-byte global -> shared copy; with `full` false it writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// acc[a][b] += sum over k < K of A(a, k) * B(b, k): one thread's 8 x 8
+// register tile of an fp32 product, its operands read from shared memory
+// by `av(a, k)` and `bv(b, k)`; the loop over k unrolled twice, or
+// (kUnroll false) not at all, for a kernel short of registers
+template <int K, bool kUnroll = true, class FA, class FB>
+__device__ __forceinline__ void fma_tile(float (&acc)[8][8], FA av, FB bv) {
+  auto step = [&](int k) {
+    float ar[8], br[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) ar[a] = av(a, k);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) br[b] = bv(b, k);
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+  };
+  if constexpr (kUnroll) {
+#pragma unroll 2
+    for (int k = 0; k < K; ++k) step(k);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) step(k);
+  }
+}
+
+template <int M, int N2>
+__device__ __forceinline__ void zero(float (&t)[M][N2]) {
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int b = 0; b < N2; ++b) t[a][b] = 0.f;
+}
+
+// a barrier over the 128 threads of one team (ids 1 and 2; 0 is the
+// block's __syncthreads)
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(team + 1) : "memory");
+}
+
+// ------------------------------- 1. the states and their gradients
+// Grid (P / PS, B * H): one block a (P-slice of PS rows, batch, head)
+// walks the chunks in order, computing each chunk's S_c slice [p][n] =
+// sum_j w_j x_j[p] B_j[n] and writing the state entering it (E_0 = 0,
+// E_{c+1} = exp(total_c) E_c + S_c), then back from the last, computing
+// dE_c [p][n] = sum_i exp(cum_i) dy_i[p] C_i[n] and writing dS_c (G =
+// dfinal or 0; dS_c = G, G = dE_c + exp(total_c) G). The running state
+// stays in registers, and each chunk's tiles (x or dy slice, B or C, dt)
+// arrive by cp.async while the chunk before is computed: S_c and dE_c
+// never reach device memory. bf16: PS 64 (all of P: B and C come from L2
+// once a (batch, head) and chunk), 4 warps, m16n8k16 with the scaled rows
+// transposed as A (built in registers, rounded once) and B or C via
+// ldmatrix.trans; warp w owns the rows 16 w .. 16 w + 15.
+// fp32: 8 x 8 tiles read as 16-byte vectors, PS 32 at N 128 (p = 4 ty
+// .. 4 ty + 3 and 16 more, n = 4 tx .. 4 tx + 3 and 64 more) and 64 at
+// N 64 (32 more each), groups of 64 threads (two at N 128, four at 64)
+// over a share of the chunk's rows each, added in group order.
+// As fma_tile, with B read as two 16-byte vectors: the thread's columns
+// are c0 .. c0 + 3 and c0 + kHalf .. c0 + kHalf + 3 of the row that
+// `brow(k)` points at (16-byte aligned rows), so a k step loads 8 scalars
+// of A and 2 vectors of B for its 64 multiply-adds, not 16 scalars
+template <int K, int kHalf, bool kUnroll = true, class FA, class FB>
+__device__ __forceinline__ void fma_tile_v(float (&acc)[8][8], FA av,
+                                           FB brow, int c0) {
+  auto step = [&](int k) {
+    float ar[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) ar[a] = av(a, k);
+    const float* r = brow(k) + c0;
+    const float4 b0 = *reinterpret_cast<const float4*>(r);
+    const float4 b1 = *reinterpret_cast<const float4*>(r + kHalf);
+    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+  };
+  if constexpr (kUnroll) {
+#pragma unroll 2
+    for (int k = 0; k < K; ++k) step(k);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) step(k);
+  }
+}
+
+// As fma_tile_v, with A read as vectors too: the thread's rows are r0 ..
+// r0 + 3 and r0 + kHalfA .. r0 + kHalfA + 3 of the row `arow(k)` points
+// at, each scaled by `ascale(k)`
+template <int K, int kHalfA, int kHalfB, class FA, class FS, class FB>
+__device__ __forceinline__ void fma_tile_vv(float (&acc)[8][8], FA arow,
+                                            FS ascale, int r0, FB brow,
+                                            int c0) {
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    const float* ra = arow(k) + r0;
+    const float* rb = brow(k) + c0;
+    const float s = ascale(k);
+    const float4 a0 = *reinterpret_cast<const float4*>(ra);
+    const float4 a1 = *reinterpret_cast<const float4*>(ra + kHalfA);
+    const float4 b0 = *reinterpret_cast<const float4*>(rb);
+    const float4 b1 = *reinterpret_cast<const float4*>(rb + kHalfB);
+    const float ar[8] = {s * a0.x, s * a0.y, s * a0.z, s * a0.w,
+                         s * a1.x, s * a1.y, s * a1.z, s * a1.w};
+    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+  }
+}
+
+template <typename T, int P, int N>
+struct PassShape {
+  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr int kPS = kBf16 ? 64 : (N == 128 ? 32 : 64);
+  // fp32: groups of 64 threads, each over an equal share of the chunk's
+  // rows, their 8 x 8 tiles added in group order by the first; four at N
+  // 64 (B * H blocks only), two at 128
+  static constexpr int kGroups = kBf16 ? 1 : (N == 128 ? 2 : 4);
+  static constexpr int kThreads = kBf16 ? 128 : 64 * kGroups;
+  static constexpr int kLd = kBf16 ? kPS + 8 : kPS;   // x / dy slice rows
+  // chunks in flight: a bf16 step is short next to a load's latency
+  static constexpr int kStages = kBf16 ? 3 : 2;
 };
 
-// dE_c[p][n] = sum_i exp(cum_i) dy_i[p] C_i[n] into `dstates` (B, nC, H,
-// P, N); thread (ty, tx) owns p = ty + 16a, n = tx + 16b.
 template <typename T, int P, int N>
-__global__ void __launch_bounds__(kBwdThreads)
-    ssd_bwd_state_grad(const T* __restrict__ dy, const float* __restrict__ dt,
-                       const float* __restrict__ A, const T* __restrict__ Cm,
-                       float* __restrict__ dstates, int T_, int H, int G,
-                       int nC) {
-  static_assert(P == 64 && N % 16 == 0, "thread tiles");
-  constexpr int LP = P + 1, LN = N + 1, kNB = N / 16;
+struct BwdPassSmem {
+  using S = PassShape<T, P, N>;
+  T Ms[S::kStages][kQ * N];       // B (forward) or C (back) of a chunk
+  T Rs[S::kStages][kQ * S::kLd];  // the x or dy slice
+  float dts[S::kStages][kQ];      // the chunk's dt, as it arrives
+  float cum[kQ], dtc[kQ], wts[kQ], ecum[kQ];
+  // fp32: the other groups' partial tiles, [group][element][thread]
+  float part[S::kBf16 ? 1 : S::kGroups - 1][S::kBf16 ? 1 : 64][64];
+  float decay;
+};
+
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(PassShape<T, P, N>::kThreads)
+    ssd_bwd_pass(const T* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const T* __restrict__ Bm,
+                 const T* __restrict__ Cm, const T* __restrict__ dy,
+                 const float* __restrict__ dfinal,
+                 float* __restrict__ states, float* __restrict__ dstates,
+                 int T_, int H, int G, int nC) {
+  using S = PassShape<T, P, N>;
+  constexpr bool kBf16 = S::kBf16;
+  constexpr int kPS = S::kPS, kNT = S::kThreads, kLd = S::kLd;
+  // a thread's tile of the (PS, N) state: bf16, the m16n8k16 accumulators
+  // of the warp's 16 rows; fp32, 8 x 8
+  constexpr int kR = kBf16 ? N / 8 : 8, kC = kBf16 ? 4 : 8;
+  constexpr int kTX = N == 128 ? 16 : 8;
   extern __shared__ float4 smem4[];
-  auto& sm = *reinterpret_cast<BwdStateSmem<P, N>*>(smem4);
-  const BwdPos at(T_, H, G, nC);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  stage_rows<T, kQ, P, LP>(sm.dYs, at.rows, [&](int r) {
-    return dy + ((at.row0 + r) * H + at.h) * P;
-  });
-  stage_rows<T, kQ, N, LN>(sm.Cs, at.rows, [&](int r) {
-    return Cm + ((at.row0 + r) * G + at.g) * N;
-  });
-  if (tid < 32) {
-    chunk_cumsum(dt + at.row0 * H + at.h, H, at.rows, A[at.h], tid, sm.cum,
-                 sm.dts, nullptr);
-    sm.ecum[2 * tid] = expf(sm.cum[2 * tid]);
-    sm.ecum[2 * tid + 1] = expf(sm.cum[2 * tid + 1]);
+  auto& sm = *reinterpret_cast<BwdPassSmem<T, P, N>*>(smem4);
+  // the chunk grid may launch now and run its first intra-chunk part
+  griddep_launch_dependents();
+  const int ps = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int grp = tid / 64, lq = tid % 64;   // fp32: a thread's group
+  const int ty = lq / kTX, tx = lq % kTX;
+  const float a = A[h];
+  // chunk c's tiles of `rows` (x or dy) and `mat` (B or C), and its dt,
+  // into buffer `buf`: one cp.async group
+  auto load = [&](const T* rows, const T* mat, int c, int buf) {
+    const size_t row0 =
+        static_cast<size_t>(b) * T_ + static_cast<size_t>(c) * kQ;
+    const int n_rows = min(kQ, T_ - c * kQ);
+    constexpr int kE = 16 / sizeof(T);   // elements a 16-byte copy
+    constexpr int kMC = N / kE, kRC = kPS / kE;
+    for (int k = tid; k < kQ * kMC; k += kNT) {
+      const int r = k / kMC, cc = k % kMC;
+      const bool ok = r < n_rows;
+      T* dst = kBf16 ? &sm.Ms[buf][swz<N>(r, cc)] : &sm.Ms[buf][r * N + cc * kE];
+      cp_async16(smem_u32(dst),
+                 mat + ((row0 + (ok ? r : 0)) * G + g) * N + cc * kE, ok);
+    }
+    for (int k = tid; k < kQ * kRC; k += kNT) {
+      const int r = k / kRC, cc = k % kRC;
+      const bool ok = r < n_rows;
+      cp_async16(smem_u32(&sm.Rs[buf][r * kLd + cc * kE]),
+                 rows + ((row0 + (ok ? r : 0)) * H + h) * P + ps * kPS
+                     + cc * kE,
+                 ok);
+    }
+    for (int r = tid; r < kQ; r += kNT)
+      cp_async4(&sm.dts[buf][r], dt + (row0 + (r < n_rows ? r : 0)) * H + h,
+                r < n_rows);
+    cp_async_commit();
+  };
+  // acc = sum over the chunk's rows j of scl_j rows_j[p] mat_j[n] (fp32:
+  // the first group's tile holds the sum)
+  auto product = [&](float (&acc)[kR][kC], int buf, bool forward) {
+    const float* scl = forward ? sm.wts : sm.ecum;
+    zero(acc);
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        uint32_t af[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int p = 16 * warp + g4 + 8 * (q & 1);
+          const int j = kk * 16 + 2 * t4 + 8 * (q >> 1);
+          af[q] = pack_bf16(
+              scl[j] * to_float(sm.Rs[buf][j * kLd + p]),
+              scl[j + 1] * to_float(sm.Rs[buf][(j + 1) * kLd + p]));
+        }
+#pragma unroll
+        for (int np = 0; np < kR / 2; ++np) {
+          uint32_t bf[4];
+          ldsm_x4_trans(bf, smem_u32(&sm.Ms[buf][swz<N>(
+                                kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                np * 2 + (lane >> 4))]));
+          mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+          mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+        }
+      }
+    } else {
+      constexpr int kG = S::kGroups, kJ = kQ / kG;
+      const int j0 = grp * kJ;
+      const T* rs = sm.Rs[buf] + j0 * kLd;
+      const T* ms = sm.Ms[buf] + j0 * N;
+      scl += j0;
+      fma_tile_vv<kJ, kPS / 2, N / 2>(
+          acc, [&](int j) { return rs + j * kLd; },
+          [&](int j) { return scl[j]; }, 4 * ty,
+          [&](int j) { return ms + j * N; }, 4 * tx);
+      if constexpr (kG > 1) {
+        if (grp > 0)
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+#pragma unroll
+            for (int q = 0; q < kC; ++q)
+              sm.part[grp - 1][r * kC + q][lq] = acc[r][q];
+        __syncthreads();
+        if (grp == 0)
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+#pragma unroll
+            for (int q = 0; q < kC; ++q)
+#pragma unroll
+              for (int o = 0; o < kG - 1; ++o)
+                acc[r][q] += sm.part[o][r * kC + q][lq];
+      }
+    }
+  };
+  // element (r, c) of the thread's tile: its offset in a (PS, N) slice
+  auto at = [&](int r, int c) {
+    if constexpr (kBf16)
+      return (16 * warp + g4 + 8 * (c >> 1)) * N + r * 8 + 2 * t4 + (c & 1);
+    else
+      return (4 * ty + (r & 3) + (r >> 2) * (kPS / 2)) * N + 4 * tx + (c & 3)
+             + (c >> 2) * (N / 2);
+  };
+  auto slot = [&](float* base, int c) {
+    return base + ((static_cast<size_t>(b) * nC + c) * H + h) * P * N
+           + static_cast<size_t>(ps) * kPS * N;
+  };
+  float run[kR][kC], acc[kR][kC];
+  // one sweep: out[c] = the running state, then run = decay run + acc
+  auto sweep = [&](const T* rows, const T* mat, float* out, bool forward) {
+    constexpr int kSt = S::kStages;
+    const int c0 = forward ? 0 : nC - 1, step = forward ? 1 : -1;
+    // kSt - 1 chunks ahead, one cp.async group each (empty past the end)
+    for (int k = 0; k < kSt - 1; ++k) {
+      if (k < nC) load(rows, mat, c0 + step * k, k);
+      else cp_async_commit();
+    }
+    for (int k = 0; k < nC; ++k) {
+      const int c = c0 + step * k, buf = k % kSt, kn = k + kSt - 1;
+      // into the buffer the step before freed
+      if (kn < nC) load(rows, mat, c0 + step * kn, kn % kSt);
+      else cp_async_commit();
+      cp_async_wait<kSt - 1>();
+      __syncthreads();
+      if (warp == 0) {
+        const float total = chunk_scalars(
+            sm.dts[buf][2 * lane], sm.dts[buf][2 * lane + 1], a, lane,
+            sm.cum, sm.dtc, sm.wts, sm.ecum);
+        if (lane == 0) sm.decay = expf(total);
+      }
+      __syncthreads();
+      product(acc, buf, forward);
+      if (kBf16 || grp == 0) {
+        const float d = sm.decay;
+        float* o = slot(out, c);
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+#pragma unroll
+          for (int q = 0; q < kC; q += 2) {
+            // (q, q + 1): adjacent columns in both dtypes' tiles
+            *reinterpret_cast<float2*>(o + at(r, q)) =
+                make_float2(run[r][q], run[r][q + 1]);
+            run[r][q] = fmaf(run[r][q], d, acc[r][q]);
+            run[r][q + 1] = fmaf(run[r][q + 1], d, acc[r][q + 1]);
+          }
+      }
+      __syncthreads();   // this buffer is loaded again at the next step
+    }
+  };
+  zero(run);
+  sweep(x, Bm, states, true);
+  if (dfinal != nullptr && (kBf16 || grp == 0)) {
+    const float* df = dfinal + (static_cast<size_t>(bh) * P + ps * kPS) * N;
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int q = 0; q < kC; ++q) run[r][q] = df[at(r, q)];
+  } else {
+    zero(run);
   }
-  __syncthreads();
-  float acc[4][kNB] = {};
-#pragma unroll 4
-  for (int i = 0; i < kQ; ++i) {
-    const float e = sm.ecum[i];
-    float gv[4], cv[kNB];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) gv[a] = sm.dYs[i * LP + ty + 16 * a];
-#pragma unroll
-    for (int b = 0; b < kNB; ++b) cv[b] = e * sm.Cs[i * LN + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < kNB; ++b) acc[a][b] = fmaf(gv[a], cv[b], acc[a][b]);
-  }
-  float* out = dstates + (static_cast<size_t>(at.bc) * H + at.h) * P * N;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < kNB; ++b)
-      out[(ty + 16 * a) * N + tx + 16 * b] = acc[a][b];
+  sweep(dy, Cm, dstates, false);
 }
 
-// The reverse state pass, in place: slot c holds dE_c on entry and dS_c
-// (the gradient of the state leaving chunk c) on exit. Grid (P * N / 4 /
-// kPassThreads, B * H), 4 state elements a thread, as ssd_state_pass.
-template <int P, int N>
-__global__ void __launch_bounds__(kPassThreads)
-    ssd_bwd_state_pass(float* __restrict__ dstates,
-                       const float* __restrict__ decay, int H, int nC) {
-  constexpr int kVecs = P * N / 4;
-  static_assert(kVecs % kPassThreads == 0, "state splits over the blocks");
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int e = blockIdx.x * kPassThreads + threadIdx.x;
-  float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c = nC - 1; c >= 0; --c) {
-    float4* slot = reinterpret_cast<float4*>(dstates)
-                   + ((static_cast<size_t>(b) * nC + c) * H + h) * kVecs + e;
-    const float4 de = *slot;
-    const float d = decay[(static_cast<size_t>(b) * nC + c) * H + h];
-    *slot = run;
-    run.x = de.x + d * run.x;
-    run.y = de.y + d * run.y;
-    run.z = de.z + d * run.z;
-    run.w = de.w + d * run.w;
+// --------------------------------------------------- 2. chunk gradients
+// Grid (G * k, B * nC): block (g * k + s, b * nC + c) takes the heads of
+// slice s of group g in order. Per head it writes dx and ddt and the
+// chunk's dA and dD terms; at the end its slice's dB and dC rows.
+
+// The per-head scalars, one warp, two rows a lane: dcum from the partial
+// sums (rsum_i = sum_j t_ij dt_j, csum_j = sum_i t_ij with t = (dy_i .
+// x_j) M_ij, dw, the inter term), dtotal on the last row, the reverse
+// cumsum into da, ddt, and the chunk's dA and dD terms.
+struct HeadSums {
+  const float *rsum, *csum, *dw, *inter, *cum, *dts, *wts;
+  float total, es, dd;
+};
+
+__device__ __forceinline__ void head_tail(const HeadSums& s, float a,
+                                          int lane, int rows, size_t row0,
+                                          int H, int h, size_t bch,
+                                          float* __restrict__ ddt,
+                                          float* __restrict__ dA_part,
+                                          float* __restrict__ dD_part) {
+  const int i0 = 2 * lane;
+  float dcum[2], wdw = 0.f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = i0 + k;
+    const float dwi = s.dw[i] * s.wts[i];
+    wdw += dwi;
+    dcum[k] = s.rsum[i] + s.inter[i] - s.dts[i] * s.csum[i] - dwi;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    wdw += __shfl_xor_sync(0xffffffffu, wdw, off);
+  if (i0 + 1 == kQ - 1) dcum[1] += wdw + expf(s.total) * s.es;
+  // da_i = sum over rows r >= i of dcum_r
+  float incl = dcum[0] + dcum[1];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, incl, off);
+    if (lane + off < 32) incl += o;
+  }
+  float after = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) after = 0.f;
+  const float da[2] = {after + dcum[1] + dcum[0], after + dcum[1]};
+  float da_dt = 0.f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = i0 + k;
+    da_dt = fmaf(da[k], s.dts[i], da_dt);
+    if (i < rows)
+      ddt[(row0 + i) * H + h] =
+          s.csum[i] + s.dw[i] * expf(s.total - s.cum[i]) + a * da[k];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    da_dt += __shfl_xor_sync(0xffffffffu, da_dt, off);
+  if (lane == 0) {
+    dA_part[bch] = da_dt;
+    dD_part[bch] = s.dd;
   }
 }
 
-template <int P, int N>
-struct BwdChunkSmem {
-  float Xs[kQ * (P + 1)];
-  float dYs[kQ * (P + 1)];
-  float Bs[kQ * (N + 1)];
-  float Cs[kQ * (N + 1)];
-  float Es[P * (N + 1)];      // E_c (zeros for the first chunk)
-  float dSs[P * (N + 1)];     // dS_c
-  float Ms[kQ * (kQ + 1)];    // scores_ij (0 above the diagonal)
-  float Gs[kQ * (kQ + 1)];    // dM_ij = dscores_ij L_ij dt_j (likewise)
-  float part[2][kQ * 17];     // per-thread partial sums of a row / column
+// bf16: warp w owns the 16 rows 16 (w & 3) .. + 15 (rows j of the
+// transposed products, rows i of dC) and half w >> 2 of the columns of
+// its 64 x 64 (p) and 64 x N (n) products; the two halves share the 64 x
+// 64 ones (C B^T, x dy^T and what follows), which each computes.
+template <int N>
+struct BwdChunkSmemB {
+  bf16 Cs[kQ * N];          // [i][n], swizzled
+  bf16 Bs[kQ * N];          // [j][n]
+  bf16 Xs[2][kQ * kXLdB];   // [j][p], this head's and the next's; at the
+                            // end the heads' dM^T [j][i]
+  bf16 dYs[2][kQ * kXLdB];  // [i][p]
+  bf16 Es[64 * N];          // E_c [p][n], rounded once
+  bf16 dSs[64 * N];         // dS_c [p][n]
+  float Ef[64 * N];         // E_c and dS_c in fp32 as they arrive, the
+  float dSf[64 * N];        // next head's while this one computes
+  // C B^T and the heads' summed dM^T in the accumulator layout of a row
+  // block: [row block][n8 tile][lane] float4s, so a warp's reads of one
+  // tile are 512 consecutive bytes
+  float4 cbt[4][8][32];
+  float4 dmt[4][8][32];
+  float dtv[2][kQ];         // each head's dt as it arrives
   float cum[kQ], dts[kQ], wts[kQ], ecum[kQ];
-  float rsum[kQ], csum[kQ], dw[kQ], inter[kQ];
+  float rsum[4][kQ];        // by row block, summed in order
+  float csum[kQ];
+  float dw[2][kQ], inter[2][kQ];   // by column half
   float red[2][kBwdThreads / 32];
   float total;
 };
 
-// sum over the 16 partials of row r of `part` (rows of 17), in order
-__device__ __forceinline__ float row_of_partials(const float* part, int r) {
-  float s = 0.f;
+template <int P, int N>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_bwd_chunk_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const bf16* __restrict__ Bm,
+                      const bf16* __restrict__ Cm,
+                      const float* __restrict__ D,
+                      const bf16* __restrict__ dy,
+                      const float* __restrict__ states,
+                      const float* __restrict__ dstates,
+                      bf16* __restrict__ dx, float* __restrict__ ddt,
+                      bf16* __restrict__ dB, bf16* __restrict__ dC,
+                      float* __restrict__ dBp, float* __restrict__ dCp,
+                      float* __restrict__ dA_part,
+                      float* __restrict__ dD_part, int T_, int H, int G,
+                      int nC, int splits) {
+  static_assert(P == 64 && N % 64 == 0 && kQ == 64, "tile shapes");
+  constexpr int kNH = N / 16;     // n8 tiles of a column half
+  extern __shared__ float4 smem4[];
+  auto& sm = *reinterpret_cast<BwdChunkSmemB<N>*>(smem4);
+  // the sums' grid may launch now; it waits for this one
+  griddep_launch_dependents();
+  const BwdPos at(T_, nC);
+  const int hg = H / G, hs = hg / splits;
+  const int g = blockIdx.x / splits, slice = blockIdx.x % splits;
+  const int h0 = g * hg + slice * hs;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, t4 = lane & 3, rb = warp & 3, ch = warp >> 2;
+  const int j0 = 16 * rb;
+  {
+    const bf16* br = Bm + (at.row0 * G + g) * N;
+    const bf16* cr = Cm + (at.row0 * G + g) * N;
+    for (int k = tid; k < kQ * (N / 8); k += kBwdThreads) {
+      const int r = k / (N / 8), cc = k % (N / 8);
+      const bool ok = r < at.rows;
+      const size_t off = static_cast<size_t>(ok ? r : 0) * G * N + cc * 8;
+      cp_async16(smem_u32(&sm.Bs[swz<N>(r, cc)]), br + off, ok);
+      cp_async16(smem_u32(&sm.Cs[swz<N>(r, cc)]), cr + off, ok);
+    }
+  }
+  // x and dy of head h into buffer `buf`; E_c and dS_c of head h as they
+  // are (fp32) into the staging tiles. Each call is one cp.async group.
+  auto load_xdy = [&](int h, int buf) {
+    const bf16* xr = x + (at.row0 * H + h) * P;
+    const bf16* gr = dy + (at.row0 * H + h) * P;
+    for (int k = tid; k < kQ * (P / 8); k += kBwdThreads) {
+      const int r = k / (P / 8), cc = k % (P / 8);
+      const bool ok = r < at.rows;
+      const size_t off = static_cast<size_t>(ok ? r : 0) * H * P + cc * 8;
+      cp_async16(smem_u32(&sm.Xs[buf][swz<kXLdB>(r, cc)]), xr + off, ok);
+      cp_async16(smem_u32(&sm.dYs[buf][swz<kXLdB>(r, cc)]), gr + off, ok);
+    }
+    for (int r = tid; r < kQ; r += kBwdThreads)
+      cp_async4(&sm.dtv[buf][r], dt + (at.row0 + (r < at.rows ? r : 0)) * H + h,
+                r < at.rows);
+  };
+  auto load_es = [&](int h) {
+    const size_t st = (static_cast<size_t>(at.bc) * H + h) * P * N;
+    for (int k = tid; k < P * N / 4; k += kBwdThreads) {
+      cp_async16(smem_u32(&sm.Ef[4 * k]), states + st + 4 * k, true);
+      cp_async16(smem_u32(&sm.dSf[4 * k]), dstates + st + 4 * k, true);
+    }
+  };
+  load_xdy(h0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // (C B^T)^T [j][i] = B_j . C_i for the row block's j, i >= j only; once
+  if (ch == 0) {
+    float acc[8][4];
+    zero(acc);
 #pragma unroll
-  for (int q = 0; q < 16; ++q) s += part[r * 17 + q];
+    for (int kq = 0; kq < N / 32; ++kq) {
+      uint32_t ba[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        ldsm_x4(ba[q], smem_u32(&sm.Bs[swz<N>(
+                           j0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                           (2 * kq + q) * 2 + (lane >> 4))]));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt < 2 * rb) continue;   // i < j: masked
+        uint32_t cf[4];
+        ldsm_x4(cf, smem_u32(&sm.Cs[swz<N>(nt * 8 + (lane & 7),
+                                           kq * 4 + (lane >> 3))]));
+        mma_bf16(acc[nt], ba[0], cf[0], cf[1]);
+        mma_bf16(acc[nt], ba[1], cf[2], cf[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      sm.cbt[rb][nt][lane] =
+          make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+      sm.dmt[rb][nt][lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  // E_c and dS_c of the first head (grid 2 has finished); they arrive
+  // while its intra-chunk part runs
+  griddep_wait();
+  load_es(h0);
+  cp_async_commit();
+  float dbacc[kNH][4], dcacc[kNH][4];
+  zero(dbacc);
+  zero(dcacc);
+  auto xval = [&](const bf16* t, int r, int p) {
+    return __bfloat162float(t[swz<kXLdB>(r, p >> 3) + (p & 7)]);
+  };
+  // Two cp.async groups a head, committed in this order: the next head's x
+  // and dy, then (once this head's staging is converted) its E_c and dS_c;
+  // each wait<1> below leaves the younger group in flight.
+  for (int hi = 0; hi < hs; ++hi) {
+    const int h = h0 + hi, buf = hi & 1;
+    const bf16* Xs = sm.Xs[buf];
+    const bf16* dYs = sm.dYs[buf];
+    if (warp == 0) {
+      const float total = chunk_scalars(
+          sm.dtv[buf][2 * lane], sm.dtv[buf][2 * lane + 1], A[h], lane,
+          sm.cum, sm.dts, sm.wts, sm.ecum);
+      if (lane == 0) sm.total = total;
+    }
+    __syncthreads();
+    if (hi + 1 < hs) load_xdy(h + 1, buf ^ 1);
+    cp_async_commit();
+    // dscores^T [j][i] = x_j . dy_i, i >= j (x rows j as A fragments over
+    // k = p)
+    float ds[8][4];
+    zero(ds);
+    {
+      uint32_t xa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4(xa[kk], smem_u32(&Xs[swz<kXLdB>(
+                            j0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                            kk * 2 + (lane >> 4))]));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt < 2 * rb) continue;
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          uint32_t yf[4];
+          ldsm_x4(yf, smem_u32(&dYs[swz<kXLdB>(nt * 8 + (lane & 7),
+                                               kq * 4 + (lane >> 3))]));
+          mma_bf16(ds[nt], xa[2 * kq], yf[0], yf[1]);
+          mma_bf16(ds[nt], xa[2 * kq + 1], yf[2], yf[3]);
+        }
+      }
+    }
+    // scores^T = M^T dt_j (in place of dscores, then rounded once into A
+    // fragments), dM^T gathered over the heads, and the sums of t =
+    // dscores M: csum over i (this warp's rows), rsum over j (the row
+    // blocks' partials)
+    uint32_t sa[4][4];
+    {
+      float cs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float rs[2] = {0.f, 0.f};
+        const float4 cb4 = sm.cbt[rb][nt][lane];
+        float4 dm4 = ch == 0 ? sm.dmt[rb][nt][lane]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float cb[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+        float* dm = reinterpret_cast<float*>(&dm4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + gq + 8 * (e >> 1);
+          const int i = nt * 8 + 2 * t4 + (e & 1);
+          float sc = 0.f;
+          if (nt >= 2 * rb && i >= j) {
+            const float l = expf(sm.cum[i] - sm.cum[j]);
+            const float m = cb[e] * l, dtj = sm.dts[j];
+            const float t = ds[nt][e] * m;
+            sc = m * dtj;
+            dm[e] = fmaf(ds[nt][e] * l, dtj, dm[e]);
+            cs[e >> 1] += t;
+            rs[e & 1] = fmaf(t, dtj, rs[e & 1]);
+          }
+          ds[nt][e] = sc;
+        }
+        // the two column halves hold the same dM^T: the first keeps it
+        if (ch == 0) sm.dmt[rb][nt][lane] = dm4;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float v = rs[c];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (ch == 0 && gq == 0) sm.rsum[rb][nt * 8 + 2 * t4 + c] = v;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sa[kk][0] = pack_bf16(ds[2 * kk][0], ds[2 * kk][1]);
+        sa[kk][1] = pack_bf16(ds[2 * kk][2], ds[2 * kk][3]);
+        sa[kk][2] = pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
+        sa[kk][3] = pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], 1);
+        cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], 2);
+      }
+      if (ch == 0 && t4 == 0) {
+        sm.csum[j0 + gq] = cs[0];
+        sm.csum[j0 + gq + 8] = cs[1];
+      }
+    }
+    // dx's intra-chunk term [j][p of the half] = sum_{i >= j} scores^T_ji
+    // dy_ip (dy via ldmatrix.trans)
+    float xi[4][4];
+    zero(xi);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < rb) continue;
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp) {
+        uint32_t yf[4];
+        ldsm_x4_trans(yf, smem_u32(&dYs[swz<kXLdB>(
+                              kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              ch * 4 + pp * 2 + (lane >> 4))]));
+        mma_bf16(xi[2 * pp], sa[kk], yf[0], yf[1]);
+        mma_bf16(xi[2 * pp + 1], sa[kk], yf[2], yf[3]);
+      }
+    }
+    // this head's E_c and dS_c have landed: to bf16 tiles, rounded once;
+    // <E_c, dS_c> and <dy, x> in fp32
+    cp_async_wait<1>();
+    __syncthreads();
+    {
+      float es = 0.f, dd = 0.f;
+#pragma unroll 4
+      for (int k = tid; k < P * N / 4; k += kBwdThreads) {
+        const float4 ev = reinterpret_cast<const float4*>(sm.Ef)[k];
+        const float4 sv = reinterpret_cast<const float4*>(sm.dSf)[k];
+        es = fmaf(ev.x, sv.x, fmaf(ev.y, sv.y, fmaf(ev.z, sv.z,
+                                                    fmaf(ev.w, sv.w, es))));
+        const int p = k / (N / 4), n = (k % (N / 4)) * 4;
+        const int o = swz<N>(p, n >> 3) + (n & 7);
+        *reinterpret_cast<uint2*>(&sm.Es[o]) =
+            make_uint2(pack_bf16(ev.x, ev.y), pack_bf16(ev.z, ev.w));
+        *reinterpret_cast<uint2*>(&sm.dSs[o]) =
+            make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+      }
+      for (int k = tid; k < kQ * P; k += kBwdThreads)
+        dd = fmaf(xval(Xs, k / P, k % P), xval(dYs, k / P, k % P), dd);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        es += __shfl_xor_sync(0xffffffffu, es, off);
+        dd += __shfl_xor_sync(0xffffffffu, dd, off);
+      }
+      if (lane == 0) {
+        sm.red[0][warp] = es;
+        sm.red[1][warp] = dd;
+      }
+    }
+    __syncthreads();
+    // the staging tiles are free: the next head's E_c and dS_c
+    if (hi + 1 < hs) load_es(h + 1);
+    cp_async_commit();
+    const float wj[2] = {sm.wts[j0 + gq], sm.wts[j0 + gq + 8]};
+    // dx's chunk-state term [j][p of the half] = sum_n B_jn dS_pn; dx out,
+    // and dw_j = x_j . (dS_c B_j) over the half
+    {
+      float xs[4][4];
+      zero(xs);
+#pragma unroll 1
+      for (int kq = 0; kq < N / 32; ++kq) {
+        uint32_t ba[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          ldsm_x4(ba[q], smem_u32(&sm.Bs[swz<N>(
+                             j0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             (2 * kq + q) * 2 + (lane >> 4))]));
+#pragma unroll
+        for (int pt = 0; pt < 4; ++pt) {
+          uint32_t sf[4];
+          ldsm_x4(sf, smem_u32(&sm.dSs[swz<N>(ch * 32 + pt * 8 + (lane & 7),
+                                              kq * 4 + (lane >> 3))]));
+          mma_bf16(xs[pt], ba[0], sf[0], sf[1]);
+          mma_bf16(xs[pt], ba[1], sf[2], sf[3]);
+        }
+      }
+      const float dskip = D[h];
+      float dwp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = j0 + gq + 8 * hf;
+        bf16* dr = dx + ((at.row0 + j) * H + h) * P;
+#pragma unroll
+        for (int pt = 0; pt < 4; ++pt) {
+          const int p = ch * 32 + pt * 8 + 2 * t4;
+          float v[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float sb = xs[pt][2 * hf + c];
+            dwp[hf] = fmaf(xval(Xs, j, p + c), sb, dwp[hf]);
+            v[c] = xi[pt][2 * hf + c] + wj[hf] * sb
+                   + dskip * xval(dYs, j, p + c);
+          }
+          if (j < at.rows)
+            *reinterpret_cast<uint32_t*>(dr + p) = pack_bf16(v[0], v[1]);
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        dwp[hf] += __shfl_xor_sync(0xffffffffu, dwp[hf], 1);
+        dwp[hf] += __shfl_xor_sync(0xffffffffu, dwp[hf], 2);
+      }
+      if (t4 == 0) {
+        sm.dw[ch][j0 + gq] = dwp[0];
+        sm.dw[ch][j0 + gq + 8] = dwp[1];
+      }
+    }
+    // dB's chunk-state term [j][n of the half] = w_j sum_p x_jp dS_pn
+    {
+      float tmp[kNH][4];
+      zero(tmp);
+#pragma unroll 1
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t xa[4];
+        ldsm_x4(xa, smem_u32(&Xs[swz<kXLdB>(
+                        j0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                        kk * 2 + (lane >> 4))]));
+#pragma unroll
+        for (int np = 0; np < kNH / 2; ++np) {
+          uint32_t sf[4];
+          ldsm_x4_trans(sf, smem_u32(&sm.dSs[swz<N>(
+                                kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                ch * kNH + np * 2 + (lane >> 4))]));
+          mma_bf16(tmp[2 * np], xa, sf[0], sf[1]);
+          mma_bf16(tmp[2 * np + 1], xa, sf[2], sf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dbacc[nt][e] = fmaf(wj[e >> 1], tmp[nt][e], dbacc[nt][e]);
+    }
+    // dC's inter-chunk term [i][n of the half] = exp(cum_i) sum_p dy_ip
+    // E_pn, and its dot with C_i (dy_i . y_inter_i) over the half
+    {
+      float tmp[kNH][4];
+      zero(tmp);
+#pragma unroll 1
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ya[4];
+        ldsm_x4(ya, smem_u32(&dYs[swz<kXLdB>(
+                        j0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                        kk * 2 + (lane >> 4))]));
+#pragma unroll
+        for (int np = 0; np < kNH / 2; ++np) {
+          uint32_t ef[4];
+          ldsm_x4_trans(ef, smem_u32(&sm.Es[swz<N>(
+                                kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                ch * kNH + np * 2 + (lane >> 4))]));
+          mma_bf16(tmp[2 * np], ya, ef[0], ef[1]);
+          mma_bf16(tmp[2 * np + 1], ya, ef[2], ef[3]);
+        }
+      }
+      const float ei[2] = {sm.ecum[j0 + gq], sm.ecum[j0 + gq + 8]};
+      float ip[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = j0 + gq + 8 * (e >> 1);
+          const int n = ch * (N / 2) + nt * 8 + 2 * t4 + (e & 1);
+          const float v = ei[e >> 1] * tmp[nt][e];
+          dcacc[nt][e] += v;
+          ip[e >> 1] = fmaf(__bfloat162float(sm.Cs[swz<N>(i, n >> 3) + (n & 7)]),
+                            v, ip[e >> 1]);
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        ip[hf] += __shfl_xor_sync(0xffffffffu, ip[hf], 1);
+        ip[hf] += __shfl_xor_sync(0xffffffffu, ip[hf], 2);
+      }
+      if (t4 == 0) {
+        sm.inter[ch][j0 + gq] = ip[0];
+        sm.inter[ch][j0 + gq + 8] = ip[1];
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // the partial sums in a fixed order: row blocks, column halves, warps
+      for (int i = lane; i < kQ; i += 32) {
+        sm.rsum[0][i] = ((sm.rsum[0][i] + sm.rsum[1][i]) + sm.rsum[2][i])
+                        + sm.rsum[3][i];
+        sm.dw[0][i] += sm.dw[1][i];
+        sm.inter[0][i] += sm.inter[1][i];
+      }
+      __syncwarp();
+      HeadSums s{sm.rsum[0], sm.csum, sm.dw[0], sm.inter[0], sm.cum, sm.dts,
+                 sm.wts, sm.total, 0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < kBwdThreads / 32; ++w) {
+        s.es += sm.red[0][w];
+        s.dd += sm.red[1][w];
+      }
+      head_tail(s, A[h], lane, at.rows, at.row0, H, h,
+                static_cast<size_t>(at.bc) * H + h, ddt, dA_part, dD_part);
+    }
+    // the next head's x and dy have landed (its E_c and dS_c may fly)
+    cp_async_wait<1>();
+    __syncthreads();
+  }
+  // the intra-chunk dB [j][n of the half] += sum_{i >= j} dM^T_ji C_in,
+  // dM^T rounded once into A fragments
+  uint32_t da[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float4 a0 = sm.dmt[rb][2 * kk][lane], a1 = sm.dmt[rb][2 * kk + 1][lane];
+    da[kk][0] = pack_bf16(a0.x, a0.y);
+    da[kk][1] = pack_bf16(a0.z, a0.w);
+    da[kk][2] = pack_bf16(a1.x, a1.y);
+    da[kk][3] = pack_bf16(a1.z, a1.w);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk < rb) continue;
+#pragma unroll
+    for (int np = 0; np < kNH / 2; ++np) {
+      uint32_t cf[4];
+      ldsm_x4_trans(cf, smem_u32(&sm.Cs[swz<N>(
+                            kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                            ch * kNH + np * 2 + (lane >> 4))]));
+      mma_bf16(dbacc[2 * np], da[kk], cf[0], cf[1]);
+      mma_bf16(dbacc[2 * np + 1], da[kk], cf[2], cf[3]);
+    }
+  }
+  // the intra-chunk dC [i][n of the half] += sum_{j <= i} dM_ij B_jn: dM^T
+  // through shared memory (in x's tile), read back transposed
+  bf16* dms = sm.Xs[0];
+  if (ch == 0)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + gq + 8 * (q & 1);
+        const int i = kk * 16 + 2 * t4 + 8 * (q >> 1);
+        *reinterpret_cast<uint32_t*>(&dms[swz<kXLdB>(j, i >> 3) + (i & 7)]) =
+            da[kk][q];
+      }
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk > rb) continue;   // j <= i
+    uint32_t am[4];
+    ldsm_x4_trans(am, smem_u32(&dms[swz<kXLdB>(
+                          kk * 16 + (lane & 7) + 8 * (lane >> 4),
+                          2 * rb + ((lane >> 3) & 1))]));
+#pragma unroll
+    for (int np = 0; np < kNH / 2; ++np) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, smem_u32(&sm.Bs[swz<N>(
+                            kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                            ch * kNH + np * 2 + (lane >> 4))]));
+      mma_bf16(dcacc[2 * np], am, bf[0], bf[1]);
+      mma_bf16(dcacc[2 * np + 1], am, bf[2], bf[3]);
+    }
+  }
+  // the slice's dB and dC rows: final (k = 1) or its fp32 partial
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = j0 + gq + 8 * hf;
+    if (r >= at.rows) continue;
+    const size_t row = (at.row0 + r) * G + g;
+#pragma unroll
+    for (int nt = 0; nt < kNH; ++nt) {
+      const int n = ch * (N / 2) + nt * 8 + 2 * t4;
+      if (splits == 1) {
+        *reinterpret_cast<uint32_t*>(dB + row * N + n) =
+            pack_bf16(dbacc[nt][2 * hf], dbacc[nt][2 * hf + 1]);
+        *reinterpret_cast<uint32_t*>(dC + row * N + n) =
+            pack_bf16(dcacc[nt][2 * hf], dcacc[nt][2 * hf + 1]);
+      } else {
+        const size_t o = (row * splits + slice) * N + n;
+        *reinterpret_cast<float2*>(dBp + o) =
+            make_float2(dbacc[nt][2 * hf], dbacc[nt][2 * hf + 1]);
+        *reinterpret_cast<float2*>(dCp + o) =
+            make_float2(dcacc[nt][2 * hf], dcacc[nt][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// fp32: 8 x 8 register tiles over padded rows. A quarter (64 threads, q =
+// tid / 64) takes a 64 x 64 product: thread (ty, tx) = (lq / 8, lq % 8)
+// owns rows ty + 8a and columns tx + 8b (4 tx .. 4 tx + 3 and 32 more
+// where B is read as vectors). A team (128 threads: quarters 0-1 and 2-3)
+// takes a 64 x N product: at N = 128 thread (lt / 16, lt % 16) owns rows
+// ty + 8a, columns 4 tx .. 4 tx + 3 and 64 more; at N = 64 each of its
+// quarters owns the whole 64 x 64 over half of K. Team 0 gathers the slice's dB,
+// team 1 its dC, across the heads: in registers at N = 128, in shared
+// memory at 64 (the two quarters adding in order).
+template <int P, int N>
+struct BwdChunkSmemF {
+  float Cs[kQ * (N + 4)];     // [i][n]
+  float Bs[kQ * (N + 4)];     // [j][n]
+  float Xs[kQ * (P + 4)];     // [j][p]
+  float dYs[kQ * (P + 4)];    // [i][p]
+  float ESs[P * (N + 4)];     // E_c [p][n], then dS_c
+  float CBT[kQ * (kQ + 1)];   // (C B^T)^T [j][i]
+  float MT[kQ * (kQ + 1)];    // M^T [j][i] masked; later a dx partial
+  float DMT[kQ * (kQ + 1)];   // the heads' dM^T [j][i]
+  float DX[kQ * (P + 4)];     // dt_j (M^T dy)_j + D dy_j
+  float part[4][kQ * 17];     // csum, rsum, dw, inter partials by thread
+  // at N = 64 the slice's dB and dC sums (at 128 they stay in registers)
+  float DBs[N == 64 ? kQ * (kQ + 1) : 1];
+  float DCs[N == 64 ? kQ * (kQ + 1) : 1];
+  float cum[kQ], dts[kQ], wts[kQ], ecum[kQ];
+  float red[2][kBwdThreads / 32];
+  float total;
+};
+
+// sum over the first n of row r's partials (rows of 17), in order
+__device__ __forceinline__ float row_sum(const float* part, int r, int n) {
+  float s = 0.f;
+  for (int q = 0; q < n; ++q) s += part[r * 17 + q];
   return s;
 }
 
-// One chunk's gradients (see the note above); grid (H, B * nC).
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(kBwdThreads)
-    ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ A, const T* __restrict__ Bm,
-                  const T* __restrict__ Cm, const float* __restrict__ D,
-                  const T* __restrict__ dy, const float* __restrict__ states,
-                  const float* __restrict__ dstates, T* __restrict__ dx,
-                  float* __restrict__ ddt, float* __restrict__ dBh,
-                  float* __restrict__ dCh, float* __restrict__ dA_part,
-                  float* __restrict__ dD_part, int T_, int H, int G,
-                  int nC) {
-  static_assert(P == kQ && N % 16 == 0, "thread tiles");
-  constexpr int LP = P + 1, LN = N + 1, LQ = kQ + 1, kNB = N / 16;
+template <int P, int N>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_bwd_chunk_fma(const float* __restrict__ x,
+                      const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ Cm,
+                      const float* __restrict__ D,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ states,
+                      const float* __restrict__ dstates,
+                      float* __restrict__ dx, float* __restrict__ ddt,
+                      float* __restrict__ dB, float* __restrict__ dC,
+                      float* __restrict__ dBp, float* __restrict__ dCp,
+                      float* __restrict__ dA_part,
+                      float* __restrict__ dD_part, int T_, int H, int G,
+                      int nC, int splits) {
+  static_assert(P == 64 && (N == 64 || N == 128) && kQ == 64, "tiles");
+  // rows padded by 4 floats: 16-byte aligned for the vector reads, and
+  // the 8 rows a warp reads at one column fall in distinct banks
+  constexpr int LN = N + 4, LP = P + 4, LQ = kQ + 1;
+  // the products' k loops unrolled but at N = 128, where a thread holds
+  // its slice sums beside another tile in 255 registers
+  constexpr bool kUnroll = N != 128;
   extern __shared__ float4 smem4[];
-  auto& sm = *reinterpret_cast<BwdChunkSmem<P, N>*>(smem4);
-  const BwdPos at(T_, H, G, nC);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
-  stage_rows<T, kQ, P, LP>(sm.Xs, at.rows, [&](int r) {
-    return x + ((at.row0 + r) * H + at.h) * P;
+  auto& sm = *reinterpret_cast<BwdChunkSmemF<P, N>*>(smem4);
+  griddep_launch_dependents();
+  const BwdPos at(T_, nC);
+  const int hg = H / G, hs = hg / splits;
+  const int g = blockIdx.x / splits, slice = blockIdx.x % splits;
+  const int h0 = g * hg + slice * hs;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quarter = tid / 64, lq = tid % 64, qy = lq / 8, qx = lq % 8;
+  const int team = tid / 128, lt = tid % 128;
+  // a team's tile: rows ty + 8a, columns 4 tx .. 4 tx + 3 and N / 2
+  // more; at N = 64 over the K half thalf
+  const int ty = N == 128 ? lt / 16 : qy, tx = N == 128 ? lt % 16 : qx;
+  const int thalf = N == 128 ? 0 : lt / 64;
+  auto col = [&](int b) { return 4 * tx + (b & 3) + (b >> 2) * (N / 2); };
+  const float* br = Bm + (at.row0 * G + g) * N;
+  const float* cr = Cm + (at.row0 * G + g) * N;
+  stage_rows<float, kQ, N, LN, kBwdThreads>(sm.Bs, at.rows, tid, [&](int r) {
+    return br + static_cast<size_t>(r) * G * N;
   });
-  stage_rows<T, kQ, P, LP>(sm.dYs, at.rows, [&](int r) {
-    return dy + ((at.row0 + r) * H + at.h) * P;
+  stage_rows<float, kQ, N, LN, kBwdThreads>(sm.Cs, at.rows, tid, [&](int r) {
+    return cr + static_cast<size_t>(r) * G * N;
   });
-  stage_rows<T, kQ, N, LN>(sm.Bs, at.rows, [&](int r) {
-    return Bm + ((at.row0 + r) * G + at.g) * N;
-  });
-  stage_rows<T, kQ, N, LN>(sm.Cs, at.rows, [&](int r) {
-    return Cm + ((at.row0 + r) * G + at.g) * N;
-  });
-  const size_t st = (static_cast<size_t>(at.bc) * H + at.h) * P * N;
-  // slot 0 of the recomputed states still holds S_0: E_0 = 0
-  stage_rows<float, P, N, LN>(sm.Es, at.c > 0 ? P : 0,
-                              [&](int r) { return states + st + r * N; });
-  stage_rows<float, P, N, LN>(sm.dSs, P,
-                              [&](int r) { return dstates + st + r * N; });
-  if (tid < 32) {
-    const float total = chunk_cumsum(dt + at.row0 * H + at.h, H, at.rows,
-                                     A[at.h], tid, sm.cum, sm.dts, sm.wts);
-    sm.ecum[2 * tid] = expf(sm.cum[2 * tid]);
-    sm.ecum[2 * tid + 1] = expf(sm.cum[2 * tid + 1]);
-    if (tid == 0) sm.total = total;
-  }
   __syncthreads();
-
-  // 1. C B^T and dy x^T over (i = ty + 16a, j = tx + 16b): the masked
-  // scores and dM, and the row and column sums of t_ij = dscores_ij M_ij
-  // (M_ij = C_i.B_j L_ij): dcum_i += sum_j t_ij dt_j, ddt_j += sum_i t_ij
+  // (C B^T)^T [j][i] = B_j . C_i, once: each quarter over a quarter of
+  // the n, added in quarter order
   {
-    float cb[4][4] = {}, ds[4][4] = {};
-#pragma unroll 4
-    for (int k = 0; k < N; ++k) {
-      float av[4], bv[4];
+    float acc[8][8];
+    zero(acc);
+    const int k0 = quarter * (N / 4);
+    fma_tile<N / 4, kUnroll>(acc,
+                    [&](int a, int k) { return sm.Bs[(qy + 8 * a) * LN + k0 + k]; },
+                    [&](int b, int k) { return sm.Cs[(qx + 8 * b) * LN + k0 + k]; });
+    for (int q = 0; q < 4; ++q) {
+      if (quarter == q)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.Cs[(ty + 16 * a) * LN + k];
+        for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = sm.Bs[(tx + 16 * b) * LN + k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) cb[a][b] = fmaf(av[a], bv[b], cb[a][b]);
+          for (int b = 0; b < 8; ++b) {
+            float* c = &sm.CBT[(qy + 8 * a) * LQ + qx + 8 * b];
+            *c = q == 0 ? acc[a][b] : *c + acc[a][b];
+          }
+      __syncthreads();
     }
-#pragma unroll 4
-    for (int k = 0; k < P; ++k) {
-      float av[4], bv[4];
+  }
+  for (int e = tid; e < kQ * LQ; e += kBwdThreads) {
+    sm.DMT[e] = 0.f;
+    if constexpr (N == 64) sm.DBs[e] = sm.DCs[e] = 0.f;
+  }
+  // the slice's dB (team 0) or dC (team 1): at N = 128 in registers; at
+  // 64 in shared memory, where a team's two quarters (each over half of
+  // every product's K) add their tiles in quarter order (a thread holding
+  // its sums and another product's tile would spill there)
+  float acc_g[8][8];
+  zero(acc_g);
+  auto gather = [&](const float (&v)[8][8]) {   // N = 64 only
+    {
+      float* tile = team ? sm.DCs : sm.DBs;
+      for (int q = 0; q < 2; ++q) {
+        if (thalf == q)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.dYs[(ty + 16 * a) * LP + k];
+          for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = sm.Xs[(tx + 16 * b) * LP + k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) ds[a][b] = fmaf(av[a], bv[b], ds[a][b]);
+            for (int b = 0; b < 8; ++b)
+              tile[(ty + 8 * a) * LQ + col(b)] += v[a][b];
+        team_sync(team);
+      }
     }
-    float rpart[4] = {}, cpart[4] = {};
+  };
+  for (int hi = 0; hi < hs; ++hi) {
+    const int h = h0 + hi;
+    const float* xr = x + (at.row0 * H + h) * P;
+    const float* gr = dy + (at.row0 * H + h) * P;
+    stage_rows<float, kQ, P, LP, kBwdThreads>(sm.Xs, at.rows, tid, [&](int r) {
+      return xr + static_cast<size_t>(r) * H * P;
+    });
+    stage_rows<float, kQ, P, LP, kBwdThreads>(sm.dYs, at.rows, tid, [&](int r) {
+      return gr + static_cast<size_t>(r) * H * P;
+    });
+    if (warp == 0) {
+      const float* dr = dt + at.row0 * H + h;
+      const int i0 = 2 * lane;
+      const float total = chunk_scalars(
+          i0 < at.rows ? dr[static_cast<size_t>(i0) * H] : 0.f,
+          i0 + 1 < at.rows ? dr[static_cast<size_t>(i0 + 1) * H] : 0.f,
+          A[h], lane, sm.cum, sm.dts, sm.wts, sm.ecum);
+      if (lane == 0) sm.total = total;
+    }
+    __syncthreads();
+    // M^T [j][i] = (C B^T)^T exp(cum_i - cum_j) for i >= j, else 0
+    for (int e = tid; e < kQ * kQ; e += kBwdThreads) {
+      const int j = e / kQ, i = e % kQ;
+      sm.MT[j * LQ + i] =
+          i >= j ? sm.CBT[j * LQ + i] * expf(sm.cum[i] - sm.cum[j]) : 0.f;
+    }
+    __syncthreads();
+    if (quarter == 0) {
+      // dscores^T [j][i] = x_j . dy_i; dM^T gathered; t = dscores M:
+      // csum_j = sum_i t, rsum_i = sum_j t dt_j
+      float acc[8][8];
+      zero(acc);
+      fma_tile<P, kUnroll>(acc, [&](int a, int k) { return sm.Xs[(qy + 8 * a) * LP + k]; },
+                  [&](int b, int k) { return sm.dYs[(qx + 8 * b) * LP + k]; });
+      float rp[8] = {};
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
+      for (int a = 0; a < 8; ++a) {
+        const int j = qy + 8 * a;
+        const float dtj = sm.dts[j], cj = sm.cum[j];
+        float cp = 0.f;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = tx + 16 * b;
-        float s = 0.f, gm = 0.f;
-        // the exponent only where j <= i (above, it can overflow)
-        if (j <= i) {
-          const float l = expf(sm.cum[i] - sm.cum[j]);
-          const float m = cb[a][b] * l, dtj = sm.dts[j];
-          const float t = ds[a][b] * m;
-          s = m * dtj;
-          gm = ds[a][b] * l * dtj;
-          rpart[a] = fmaf(t, dtj, rpart[a]);
-          cpart[b] += t;
+        for (int b = 0; b < 8; ++b) {
+          const int i = qx + 8 * b;
+          if (i >= j) {
+            const float l = expf(sm.cum[i] - cj);
+            const float t = acc[a][b] * sm.MT[j * LQ + i];
+            sm.DMT[j * LQ + i] = fmaf(acc[a][b] * l, dtj, sm.DMT[j * LQ + i]);
+            cp += t;
+            rp[b] = fmaf(t, dtj, rp[b]);
+          }
         }
-        sm.Ms[i * LQ + j] = s;
-        sm.Gs[i * LQ + j] = gm;
+        sm.part[0][j * 17 + qx] = cp;
+      }
+#pragma unroll
+      for (int b = 0; b < 8; ++b) sm.part[1][(qx + 8 * b) * 17 + qy] = rp[b];
+    } else if (quarter == 1) {
+      // DX [j][p] = dt_j sum_{i >= j} M^T_ji dy_ip + D dy_jp
+      float acc[8][8];
+      zero(acc);
+      fma_tile_v<kQ, 32, kUnroll>(
+          acc, [&](int a, int k) { return sm.MT[(qy + 8 * a) * LQ + k]; },
+          [&](int k) { return &sm.dYs[k * LP]; }, 4 * qx);
+      const float dskip = D[h];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int j = qy + 8 * a;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const int p = 4 * qx + (b & 3) + (b >> 2) * 32;
+          sm.DX[j * LP + p] = fmaf(sm.dts[j], acc[a][b],
+                                   dskip * sm.dYs[j * LP + p]);
+        }
+      }
+    } else {
+      // team 1: E_c (grid 2 has finished), then dC's inter-chunk term
+      // [i][n] = exp(cum_i) sum_p dy_ip E_pn and its dot with C_i
+      griddep_wait();
+      const float* es = states + (static_cast<size_t>(at.bc) * H + h) * P * N;
+      // a quarter of the rows at a time: fewer loads in registers beside
+      // the slice's sums
+#pragma unroll
+      for (int r0 = 0; r0 < P; r0 += P / 4)
+        stage_rows<float, P / 4, N, LN, 128>(
+            sm.ESs + r0 * LN, P / 4, lt,
+            [&](int r) { return es + static_cast<size_t>(r0 + r) * N; });
+      team_sync(1);
+      float acc[8][8];
+      zero(acc);
+      const int k0 = thalf * (P / 2);
+      fma_tile_v<N == 128 ? P : P / 2, N / 2, kUnroll>(
+          acc, [&](int a, int k) { return sm.dYs[(ty + 8 * a) * LP + k0 + k]; },
+          [&](int k) { return &sm.ESs[(k0 + k) * LN]; }, 4 * tx);
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int i = ty + 8 * a;
+        const float ei = sm.ecum[i];
+        float ip = 0.f;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const float v = ei * acc[a][b];
+          if constexpr (N == 128) acc_g[a][b] += v;
+          else acc[a][b] = v;
+          ip = fmaf(sm.Cs[i * LN + col(b)], v, ip);
+        }
+        sm.part[3][i * 17 + tx + 8 * thalf] = ip;
+      }
+      if constexpr (N == 64) gather(acc);
+    }
+    __syncthreads();
+    // dS_c over E_c in place, <E_c, dS_c> and <dy, x> in fp32
+    griddep_wait();
+    {
+      const float4* s4 = reinterpret_cast<const float4*>(
+          dstates + (static_cast<size_t>(at.bc) * H + h) * P * N);
+      float es = 0.f, dd = 0.f;
+      // four loads in flight before the first is used
+      constexpr int kPer = P * N / 4 / kBwdThreads, kBatch = 4;
+#pragma unroll
+      for (int q0 = 0; q0 < kPer; q0 += kBatch) {
+        float4 sv[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q)
+          sv[q] = s4[tid + (q0 + q) * kBwdThreads];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int k = tid + (q0 + q) * kBwdThreads;
+        const int p = k / (N / 4), n = (k % (N / 4)) * 4;
+          float* row = &sm.ESs[p * LN + n];
+          es = fmaf(row[0], sv[q].x, fmaf(row[1], sv[q].y, fmaf(
+              row[2], sv[q].z, fmaf(row[3], sv[q].w, es))));
+          row[0] = sv[q].x;
+          row[1] = sv[q].y;
+          row[2] = sv[q].z;
+          row[3] = sv[q].w;
+        }
+      }
+      for (int k = tid; k < kQ * P; k += kBwdThreads)
+        dd = fmaf(sm.Xs[(k / P) * LP + k % P], sm.dYs[(k / P) * LP + k % P],
+                  dd);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        es += __shfl_xor_sync(0xffffffffu, es, off);
+        dd += __shfl_xor_sync(0xffffffffu, dd, off);
+      }
+      if (lane == 0) {
+        sm.red[0][warp] = es;
+        sm.red[1][warp] = dd;
       }
     }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) sm.part[0][(ty + 16 * a) * 17 + tx] = rpart[a];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) sm.part[1][(tx + 16 * b) * 17 + ty] = cpart[b];
-  }
-  __syncthreads();
-  if (tid < kQ) {
-    sm.rsum[tid] = row_of_partials(sm.part[0], tid);
-    sm.csum[tid] = row_of_partials(sm.part[1], tid);
-  }
-  __syncthreads();
-
-  // 2. dx over (j = ty + 16a, p = tx + 16b): scores^T dy, and dS_c B_j,
-  // whose product with x_j is dw_j
-  {
-    float acc[4][4] = {}, sb[4][4] = {};
-#pragma unroll 4
-    for (int i = 0; i < kQ; ++i) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.Ms[i * LQ + ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = sm.dYs[i * LP + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-#pragma unroll 4
-    for (int n = 0; n < N; ++n) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.Bs[(ty + 16 * a) * LN + n];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = sm.dSs[(tx + 16 * b) * LN + n];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) sb[a][b] = fmaf(av[a], bv[b], sb[a][b]);
-    }
-    const float dskip = D[at.h];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int j = ty + 16 * a;
-      const float wj = sm.wts[j];
-      float dwp = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int p = tx + 16 * b;
-        dwp = fmaf(sm.Xs[j * LP + p], sb[a][b], dwp);
-        if (j < at.rows)
-          dx[((at.row0 + j) * H + at.h) * P + p] = from_float<T>(
-              acc[a][b] + wj * sb[a][b] + dskip * sm.dYs[j * LP + p]);
+    __syncthreads();
+    if (team == 0) {
+      // dB's chunk-state term [j][n] = sum_p (w_j x_jp) dS_pn, into the
+      // slice's sums
+      const int k0 = thalf * (P / 2);
+      auto wx = [&](int a, int k) {
+        return sm.wts[ty + 8 * a] * sm.Xs[(ty + 8 * a) * LP + k0 + k];
+      };
+      auto ds = [&](int k) { return &sm.ESs[(k0 + k) * LN]; };
+      if constexpr (N == 128) {
+        fma_tile_v<P, N / 2, kUnroll>(acc_g, wx, ds, 4 * tx);
+      } else {
+        float acc[8][8];
+        zero(acc);
+        fma_tile_v<P / 2, N / 2, kUnroll>(acc, wx, ds, 4 * tx);
+        gather(acc);
       }
-      sm.part[0][j * 17 + tx] = dwp;
-    }
-  }
-  __syncthreads();
-  if (tid < kQ) sm.dw[tid] = row_of_partials(sm.part[0], tid);
-  __syncthreads();
-
-  // 3. dB over (j = ty + 16a, n = tx + 16b): w_j (x_j^T dS_c) + dM^T C;
-  // then dC over (i, n): exp(cum_i) (dy_i^T E_c) + dM B, whose first term
-  // with C_i is dy_i . y_inter_i
-  float* dBrow = dBh + (at.row0 * H + at.h) * N;
-  float* dCrow = dCh + (at.row0 * H + at.h) * N;
-  {
-    float acc[4][kNB] = {};
-#pragma unroll 4
-    for (int p = 0; p < P; ++p) {
-      float av[4], bv[kNB];
+    } else {
+      // dx's chunk-state term [j][p] = sum_n B_jn dS_pn, quarter 2 over
+      // the first half of n and 3 over the second, added through MT's
+      // tile; then dx out and dw_j = x_j . (dS_c B_j)
+      float acc[8][8];
+      zero(acc);
+      const int k0 = (quarter - 2) * (N / 2);
+      fma_tile<N / 2, kUnroll>(acc,
+                      [&](int a, int k) { return sm.Bs[(qy + 8 * a) * LN + k0 + k]; },
+                      [&](int b, int k) { return sm.ESs[(qx + 8 * b) * LN + k0 + k]; });
+      if (quarter == 3)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.Xs[(ty + 16 * a) * LP + p];
+        for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int b = 0; b < kNB; ++b) bv[b] = sm.dSs[p * LN + tx + 16 * b];
+          for (int b = 0; b < 8; ++b)
+            sm.MT[(qy + 8 * a) * LQ + qx + 8 * b] = acc[a][b];
+      team_sync(1);
+      if (quarter == 2) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 8; ++a) {
+          const int j = qy + 8 * a;
+          const float wj = sm.wts[j];
+          float dwp = 0.f;
 #pragma unroll
-        for (int b = 0; b < kNB; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < kNB; ++b) acc[a][b] *= sm.wts[ty + 16 * a];
-#pragma unroll 4
-    for (int i = 0; i < kQ; ++i) {
-      float av[4], bv[kNB];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.Gs[i * LQ + ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < kNB; ++b) bv[b] = sm.Cs[i * LN + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < kNB; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int j = ty + 16 * a;
-      if (j >= at.rows) continue;
-#pragma unroll
-      for (int b = 0; b < kNB; ++b)
-        dBrow[static_cast<size_t>(j) * H * N + tx + 16 * b] = acc[a][b];
-    }
-  }
-  {
-    float acc[4][kNB] = {};
-#pragma unroll 4
-    for (int p = 0; p < P; ++p) {
-      float av[4], bv[kNB];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.dYs[(ty + 16 * a) * LP + p];
-#pragma unroll
-      for (int b = 0; b < kNB; ++b) bv[b] = sm.Es[p * LN + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < kNB; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      const float e = sm.ecum[i];
-      float ip = 0.f;
-#pragma unroll
-      for (int b = 0; b < kNB; ++b) {
-        acc[a][b] *= e;
-        ip = fmaf(sm.Cs[i * LN + tx + 16 * b], acc[a][b], ip);
+          for (int b = 0; b < 8; ++b) {
+            const int p = qx + 8 * b;
+            const float sb = acc[a][b] + sm.MT[j * LQ + p];
+            dwp = fmaf(sm.Xs[j * LP + p], sb, dwp);
+            if (j < at.rows)
+              dx[((at.row0 + j) * H + h) * P + p] =
+                  fmaf(wj, sb, sm.DX[j * LP + p]);
+          }
+          sm.part[2][j * 17 + qx] = dwp;
+        }
       }
-      sm.part[0][i * 17 + tx] = ip;
     }
-#pragma unroll 4
-    for (int j = 0; j < kQ; ++j) {
-      float av[4], bv[kNB];
+    __syncthreads();
+    if (warp == 0) {
+      HeadSums s{nullptr, nullptr, nullptr, nullptr, sm.cum, sm.dts, sm.wts,
+                 sm.total, 0.f, 0.f};
+      float* sums = sm.MT;        // four rows of kQ: rsum, csum, dw, inter
+      for (int i = lane; i < kQ; i += 32) {
+        sums[i] = row_sum(sm.part[1], i, 8);
+        sums[kQ + i] = row_sum(sm.part[0], i, 8);
+        sums[2 * kQ + i] = row_sum(sm.part[2], i, 8);
+        sums[3 * kQ + i] = row_sum(sm.part[3], i, 16);
+      }
+      __syncwarp();
+      s.rsum = sums;
+      s.csum = sums + kQ;
+      s.dw = sums + 2 * kQ;
+      s.inter = sums + 3 * kQ;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sm.Gs[(ty + 16 * a) * LQ + j];
-#pragma unroll
-      for (int b = 0; b < kNB; ++b) bv[b] = sm.Bs[j * LN + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < kNB; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+      for (int w = 0; w < kBwdThreads / 32; ++w) {
+        s.es += sm.red[0][w];
+        s.dd += sm.red[1][w];
+      }
+      head_tail(s, A[h], lane, at.rows, at.row0, H, h,
+                static_cast<size_t>(at.bc) * H + h, ddt, dA_part, dD_part);
     }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      if (i >= at.rows) continue;
-#pragma unroll
-      for (int b = 0; b < kNB; ++b)
-        dCrow[static_cast<size_t>(i) * H * N + tx + 16 * b] = acc[a][b];
-    }
+    __syncthreads();
   }
-  // <E_c, dS_c> and <dy, x> over the chunk, each thread over fixed
-  // elements, then the warps in order
+  // the intra-chunk terms, once: team 0 dB [j][n] += sum_{i >= j} dM^T_ji
+  // C_in, team 1 dC [i][n] += sum_{j <= i} dM^T_ji B_jn
   {
-    float es = 0.f, dd = 0.f;
-    for (int e = tid; e < P * N; e += kBwdThreads) {
-      const int at_e = (e / N) * LN + e % N;
-      es = fmaf(sm.Es[at_e], sm.dSs[at_e], es);
-    }
-    for (int e = tid; e < kQ * P; e += kBwdThreads) {
-      const int at_e = (e / P) * LP + e % P;
-      dd = fmaf(sm.dYs[at_e], sm.Xs[at_e], dd);
-    }
+    const int k0 = thalf * (kQ / 2);
+    constexpr int kK = N == 128 ? kQ : kQ / 2;
+    float acc[8][8];
+    zero(acc);
+    float (&into)[8][8] = N == 128 ? acc_g : acc;
+    if (team == 0)
+      fma_tile_v<kK, N / 2, kUnroll>(
+          into, [&](int a, int k) { return sm.DMT[(ty + 8 * a) * LQ + k0 + k]; },
+          [&](int k) { return &sm.Cs[(k0 + k) * LN]; }, 4 * tx);
+    else
+      fma_tile_v<kK, N / 2, kUnroll>(
+          into, [&](int a, int k) { return sm.DMT[(k0 + k) * LQ + ty + 8 * a]; },
+          [&](int k) { return &sm.Bs[(k0 + k) * LN]; }, 4 * tx);
+    if constexpr (N == 64) {
+      gather(acc);
+      const float* tile = team ? sm.DCs : sm.DBs;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      es += __shfl_xor_sync(0xffffffffu, es, off);
-      dd += __shfl_xor_sync(0xffffffffu, dd, off);
-    }
-    if (lane == 0) {
-      sm.red[0][warp] = es;
-      sm.red[1][warp] = dd;
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          acc_g[a][b] = tile[(ty + 8 * a) * LQ + col(b)];
+      if (thalf == 1) return;   // the first quarter of each team stores
     }
   }
-  __syncthreads();
-  if (tid < kQ) sm.inter[tid] = row_of_partials(sm.part[0], tid);
-  __syncthreads();
-
-  // 4. one warp, two rows a lane: dcum, dtotal on the last row, the
-  // reverse cumsum into da, ddt, and the chunk's dA and dD terms
-  if (warp == 0) {
-    float es = 0.f, dd = 0.f;
+  float* out = splits == 1 ? (team ? dC : dB) : (team ? dCp : dBp);
 #pragma unroll
-    for (int w = 0; w < kBwdThreads / 32; ++w) {
-      es += sm.red[0][w];
-      dd += sm.red[1][w];
-    }
-    const int i0 = 2 * lane, i1 = i0 + 1;
-    float dcum[2], wdw = 0.f;
+  for (int a = 0; a < 8; ++a) {
+    const int r = ty + 8 * a;
+    if (r >= at.rows) continue;
+    const size_t row = ((at.row0 + r) * G + g) * (splits == 1 ? 1 : splits)
+                       + (splits == 1 ? 0 : slice);
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int i = i0 + k;
-      const float dwi = sm.dw[i] * sm.wts[i];
-      wdw += dwi;
-      dcum[k] = sm.rsum[i] + sm.inter[i] - sm.dts[i] * sm.csum[i] - dwi;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      wdw += __shfl_xor_sync(0xffffffffu, wdw, off);
-    const float total = sm.total;
-    if (i1 == kQ - 1) dcum[1] += wdw + expf(total) * es;
-    // da_i = sum over rows r >= i of dcum_r
-    float incl = dcum[0] + dcum[1];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_down_sync(0xffffffffu, incl, off);
-      if (lane + off < 32) incl += o;
-    }
-    float after = __shfl_down_sync(0xffffffffu, incl, 1);
-    if (lane == 31) after = 0.f;
-    const float da[2] = {after + dcum[1] + dcum[0], after + dcum[1]};
-    const float a = A[at.h];
-    float da_dt = 0.f;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int i = i0 + k;
-      da_dt = fmaf(da[k], sm.dts[i], da_dt);
-      if (i < at.rows)
-        ddt[(at.row0 + i) * H + at.h] =
-            sm.csum[i] + sm.dw[i] * expf(total - sm.cum[i]) + a * da[k];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      da_dt += __shfl_xor_sync(0xffffffffu, da_dt, off);
-    if (lane == 0) {
-      dA_part[static_cast<size_t>(at.bc) * H + at.h] = da_dt;
-      dD_part[static_cast<size_t>(at.bc) * H + at.h] = dd;
-    }
+    for (int b = 0; b < 8; ++b) out[row * N + col(b)] = acc_g[a][b];
   }
 }
 
-// dB, dC (B, T, G, N) in x's dtype: each the sum of its group's heads'
-// rows of dBh / dCh (B, T, H, N), heads in order
+// ------------------------------------------------------------- 3. sums
+// Blocks below `sum_blocks`: dB and dC (B, T, G, N) in x's dtype, each the
+// sum of its k head-slice partials (B, T, G, k, N), in slice order; the
+// rest: dA[h], dD[h], the sums over (batch, chunk) of the chunks' terms.
 template <typename T>
 __global__ void __launch_bounds__(256)
-    ssd_bwd_group_sum(const float* __restrict__ dBh,
-                      const float* __restrict__ dCh, T* __restrict__ dB,
-                      T* __restrict__ dC, size_t n_out, int H, int G, int N) {
-  const int per = H / G;
-  for (size_t o = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       o < n_out; o += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int n = static_cast<int>(o % N);
-    const size_t rest = o / N;
-    const int g = static_cast<int>(rest % G);
-    const size_t base = ((rest / G) * H + static_cast<size_t>(g) * per) * N
-                        + n;
-    float sb = 0.f, sc = 0.f;
-    for (int k = 0; k < per; ++k) {
-      sb += dBh[base + static_cast<size_t>(k) * N];
-      sc += dCh[base + static_cast<size_t>(k) * N];
+    ssd_bwd_sums(const float* __restrict__ dBp, const float* __restrict__ dCp,
+                 T* __restrict__ dB, T* __restrict__ dC, size_t n_out,
+                 int splits, int N, const float* __restrict__ dA_part,
+                 const float* __restrict__ dD_part, float* __restrict__ dA,
+                 float* __restrict__ dD, int n_bc, int H, int sum_blocks) {
+  griddep_wait();
+  if (static_cast<int>(blockIdx.x) < sum_blocks) {
+    for (size_t o = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+         o < n_out; o += static_cast<size_t>(sum_blocks) * blockDim.x) {
+      const size_t base = (o / N) * splits * N + o % N;
+      float sb = 0.f, sc = 0.f;
+      for (int k = 0; k < splits; ++k) {
+        sb += dBp[base + static_cast<size_t>(k) * N];
+        sc += dCp[base + static_cast<size_t>(k) * N];
+      }
+      dB[o] = from_float<T>(sb);
+      dC[o] = from_float<T>(sc);
     }
-    dB[o] = from_float<T>(sb);
-    dC[o] = from_float<T>(sc);
+    return;
   }
-}
-
-// dA[h], dD[h]: the sum over (batch, chunk) of the chunks' terms, in order
-__global__ void __launch_bounds__(64)
-    ssd_bwd_head_sum(const float* __restrict__ dA_part,
-                     const float* __restrict__ dD_part,
-                     float* __restrict__ dA, float* __restrict__ dD, int n_bc,
-                     int H) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  const int h = (blockIdx.x - sum_blocks) * blockDim.x + threadIdx.x;
   if (h >= H) return;
   float sa = 0.f, sd = 0.f;
   for (int k = 0; k < n_bc; ++k) {
@@ -1225,102 +2151,99 @@ __global__ void __launch_bounds__(64)
   dD[h] = sd;
 }
 
-// scratch (fp32): the recomputed states (B, nC, H, P, N), the state
-// gradients (B, nC, H, P, N), the decays, dA and dD terms (B, nC, H) each,
-// then dBh and dCh (B, T, H, N) each
+// scratch (fp32): the entering states (B, nC, H, P, N), the state
+// gradients (B, nC, H, P, N), the dA and dD terms (B, nC, H) each, then,
+// with splits > 1, the head-slice partials of dB and dC (B, T, G,
+// splits, N) each
 template <typename T, int P, int N>
 int launch_bwd(const void* x, const float* dt, const float* A,
                const void* Bm, const void* Cm, const float* D,
-               const void* dy, void* dx, float* ddt, float* dA, void* dB,
-               void* dC, float* dD, float* scratch, int B, int T_, int H,
-               int G, cudaStream_t s) {
+               const void* dy, const float* dfinal, void* dx, float* ddt,
+               float* dA, void* dB, void* dC, float* dD, float* scratch,
+               int B, int T_, int H, int G, int splits, cudaStream_t s) {
   const int nC = (T_ + kQ - 1) / kQ;
   if (static_cast<long long>(B) * nC > 65535 || H > 65535 ||
-      static_cast<long long>(B) * H > 65535)
+      static_cast<long long>(B) * H > 65535 || splits <= 0 ||
+      (H / G) % splits != 0)
     return kBadArgument;
   const size_t n_state = static_cast<size_t>(B) * nC * H * P * N;
   const size_t n_bch = static_cast<size_t>(B) * nC * H;
   float* states = scratch;
   float* dstates = states + n_state;
-  float* decay = dstates + n_state;
-  float* dA_part = decay + n_bch;
+  float* dA_part = dstates + n_state;
   float* dD_part = dA_part + n_bch;
-  float* dBh = dD_part + n_bch;
-  float* dCh = dBh + static_cast<size_t>(B) * T_ * H * N;
+  float* dBp = dD_part + n_bch;
+  float* dCp = dBp + static_cast<size_t>(B) * T_ * G * splits * N;
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const auto* xt = static_cast<const T*>(x);
   const auto* bt = static_cast<const T*>(Bm);
   const auto* ct = static_cast<const T*>(Cm);
   const auto* gt = static_cast<const T*>(dy);
+  const size_t n_out = static_cast<size_t>(B) * T_ * G * N;
+  const int sum_blocks =
+      splits > 1
+          ? static_cast<int>(std::min<size_t>((n_out + 255) / 256, 4096))
+          : 0;
+  const int head_blocks = (H + 255) / 256;
   cudaError_t rc = cudaSuccess;
-  if (nC > 0) {
+  if (nC > 0 && B > 0) {
+    using PS = PassShape<T, P, N>;
+    constexpr int kPassBytes = static_cast<int>(sizeof(BwdPassSmem<T, P, N>));
+    constexpr int kChunkBytes = static_cast<int>(
+        kBf16 ? sizeof(BwdChunkSmemB<N>) : sizeof(BwdChunkSmemF<P, N>));
     // once per instantiation (and process): allow more than 48 KB
-    constexpr int kStateBytes = static_cast<int>(sizeof(BwdStateSmem<P, N>));
-    constexpr int kChunkBytes = static_cast<int>(sizeof(BwdChunkSmem<P, N>));
     static const cudaError_t a1 = cudaFuncSetAttribute(
-        ssd_bwd_state_grad<T, P, N>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kStateBytes);
-    static const cudaError_t a2 = cudaFuncSetAttribute(
-        ssd_bwd_chunk<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kChunkBytes);
+        ssd_bwd_pass<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kPassBytes);
     if (a1 != cudaSuccess) return static_cast<int>(a1);
-    if (a2 != cudaSuccess) return static_cast<int>(a2);
-    // the forward's states entering each chunk, again
-    const dim3 fgrid(P / kPS, H, B * nC);
+    ssd_bwd_pass<T, P, N><<<dim3(P / PS::kPS, B * H), PS::kThreads,
+                            kPassBytes, s>>>(xt, dt, A, bt, ct, gt, dfinal,
+                                             states, dstates, T_, H, G, nC);
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    auto run_chunk = [&](auto kernel) {
+      static const cudaError_t a2 = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kChunkBytes);
+      if (a2 != cudaSuccess) return a2;
+      return launch_dependent(
+          kernel, dim3(G * splits, B * nC), dim3(kBwdThreads), kChunkBytes, s,
+          xt, dt, A, bt, ct, D, gt, static_cast<const float*>(states),
+          static_cast<const float*>(dstates), static_cast<T*>(dx), ddt,
+          static_cast<T*>(dB), static_cast<T*>(dC), dBp, dCp, dA_part,
+          dD_part, T_, H, G, nC, splits);
+    };
     if constexpr (kBf16)
-      ssd_chunk_state_mma<P, N><<<fgrid, kThreads, 0, s>>>(
-          xt, dt, A, bt, states, decay, T_, H, G, nC);
+      rc = run_chunk(ssd_bwd_chunk_mma<P, N>);
     else
-      ssd_chunk_state_fma<P, N><<<fgrid, kThreads, 0, s>>>(
-          xt, dt, A, bt, states, decay, T_, H, G, nC);
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    rc = launch_dependent(ssd_state_pass<P, N>,
-                          dim3(P * N / 4 / kPassThreads, B * H),
-                          dim3(kPassThreads), 0, s, states,
-                          static_cast<const float*>(decay),
-                          static_cast<float*>(nullptr), H, nC);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    const dim3 grid(H, B * nC);
-    ssd_bwd_state_grad<T, P, N><<<grid, kBwdThreads, kStateBytes, s>>>(
-        gt, dt, A, ct, dstates, T_, H, G, nC);
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    ssd_bwd_state_pass<P, N><<<dim3(P * N / 4 / kPassThreads, B * H),
-                               kPassThreads, 0, s>>>(dstates, decay, H, nC);
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    ssd_bwd_chunk<T, P, N><<<grid, kBwdThreads, kChunkBytes, s>>>(
-        xt, dt, A, bt, ct, D, gt, states, dstates, static_cast<T*>(dx), ddt,
-        dBh, dCh, dA_part, dD_part, T_, H, G, nC);
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    const size_t n_out = static_cast<size_t>(B) * T_ * G * N;
-    const int blocks = static_cast<int>(
-        std::min<size_t>((n_out + 255) / 256, 8192));
-    ssd_bwd_group_sum<T><<<blocks, 256, 0, s>>>(
-        dBh, dCh, static_cast<T*>(dB), static_cast<T*>(dC), n_out, H, G, N);
-    rc = cudaGetLastError();
+      rc = run_chunk(ssd_bwd_chunk_fma<P, N>);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   // with no chunk, dA and dD are zeros
-  ssd_bwd_head_sum<<<(H + 63) / 64, 64, 0, s>>>(dA_part, dD_part, dA, dD,
-                                                B * nC, H);
-  return static_cast<int>(cudaGetLastError());
+  rc = launch_dependent(ssd_bwd_sums<T>, dim3(sum_blocks + head_blocks),
+                        dim3(256), 0, s, static_cast<const float*>(dBp),
+                        static_cast<const float*>(dCp), static_cast<T*>(dB),
+                        static_cast<T*>(dC), n_out, splits, N,
+                        static_cast<const float*>(dA_part),
+                        static_cast<const float*>(dD_part), dA, dD,
+                        nC > 0 ? B * nC : 0, H, sum_blocks);
+  return static_cast<int>(rc);
 }
 
 template <typename T>
 int dispatch_bwd(const void* x, const float* dt, const float* A,
                  const void* Bm, const void* Cm, const float* D,
-                 const void* dy, void* dx, float* ddt, float* dA, void* dB,
-                 void* dC, float* dD, float* scratch, int B, int T_, int H,
-                 int G, int P, int N, cudaStream_t s) {
+                 const void* dy, const float* dfinal, void* dx, float* ddt,
+                 float* dA, void* dB, void* dC, float* dD, float* scratch,
+                 int B, int T_, int H, int G, int P, int N, int splits,
+                 cudaStream_t s) {
   if (P == 64 && N == 128)
-    return launch_bwd<T, 64, 128>(x, dt, A, Bm, Cm, D, dy, dx, ddt, dA, dB,
-                                  dC, dD, scratch, B, T_, H, G, s);
+    return launch_bwd<T, 64, 128>(x, dt, A, Bm, Cm, D, dy, dfinal, dx, ddt,
+                                  dA, dB, dC, dD, scratch, B, T_, H, G,
+                                  splits, s);
   if (P == 64 && N == 64)
-    return launch_bwd<T, 64, 64>(x, dt, A, Bm, Cm, D, dy, dx, ddt, dA, dB,
-                                 dC, dD, scratch, B, T_, H, G, s);
+    return launch_bwd<T, 64, 64>(x, dt, A, Bm, Cm, D, dy, dfinal, dx, ddt,
+                                 dA, dB, dC, dD, scratch, B, T_, H, G,
+                                 splits, s);
   return kBadArgument;
 }
 
@@ -1371,17 +2294,21 @@ extern "C" int repro_ssd_scan(int dtype, const void* x, const void* dt,
   return kBadArgument;
 }
 
-// The gradient of repro_ssd_scan's y (the final state carries none): x,
-// dy, dx: (B, T, H, P); dt, ddt: (B, T, H) fp32; A, D, dA, dD: (H,) fp32;
-// Bm, Cm, dB, dC: (B, T, G, N) of x's dtype; scratch: fp32 of
-// B * nC * H * (2 * P * N + 3) + 2 * B * T * H * N floats, its contents on
-// entry unused. All contiguous, x, dy, B and C 16-byte aligned; H % G ==
-// 0; (P, N) is (64, 128) or (64, 64).
+// The gradient of repro_ssd_scan's y for dy and of its final state for
+// dfinal ((B, H, P, N) fp32, or null: no gradient there): x, dy, dx:
+// (B, T, H, P); dt, ddt: (B, T, H) fp32; A, D, dA, dD: (H,) fp32; Bm, Cm,
+// dB, dC: (B, T, G, N) of x's dtype; splits: the head-slices k a group's
+// heads are cut into (it divides H / G; kernels/ssd_scan.py
+// `backward_head_splits`); scratch: fp32 of B * nC * H * (2 * P * N + 3)
+// floats, and 2 * B * T * G * splits * N more when splits > 1, its
+// contents on entry unused. All contiguous, x, dy, B, C and dfinal
+// 16-byte aligned; H % G == 0; (P, N) is (64, 128) or (64, 64).
 extern "C" int repro_ssd_scan_backward(
     int dtype, const void* x, const void* dt, const void* A, const void* Bm,
-    const void* Cm, const void* D, const void* dy, void* dx, void* ddt,
-    void* dA, void* dB, void* dC, void* dD, void* scratch, int B, int T_,
-    int H, int G, int P, int N, void* stream) {
+    const void* Cm, const void* D, const void* dy, const void* dfinal,
+    void* dx, void* ddt, void* dA, void* dB, void* dC, void* dD,
+    void* scratch, int B, int T_, int H, int G, int P, int N, int splits,
+    void* stream) {
   using namespace repro;
   if (H <= 0) return 0;
   if (B < 0 || T_ < 0 || G <= 0 || H % G != 0) return kBadArgument;
@@ -1389,16 +2316,17 @@ extern "C" int repro_ssd_scan_backward(
   const auto* dtf = static_cast<const float*>(dt);
   const auto* Af = static_cast<const float*>(A);
   const auto* Df = static_cast<const float*>(D);
+  const auto* dff = static_cast<const float*>(dfinal);
   auto* ddtf = static_cast<float*>(ddt);
   auto* dAf = static_cast<float*>(dA);
   auto* dDf = static_cast<float*>(dD);
   auto* sc = static_cast<float*>(scratch);
   if (dtype == kFloat32)
-    return dispatch_bwd<float>(x, dtf, Af, Bm, Cm, Df, dy, dx, ddtf, dAf, dB,
-                               dC, dDf, sc, B, T_, H, G, P, N, s);
+    return dispatch_bwd<float>(x, dtf, Af, Bm, Cm, Df, dy, dff, dx, ddtf, dAf,
+                               dB, dC, dDf, sc, B, T_, H, G, P, N, splits, s);
   if (dtype == kBFloat16)
-    return dispatch_bwd<__nv_bfloat16>(x, dtf, Af, Bm, Cm, Df, dy, dx, ddtf,
-                                       dAf, dB, dC, dDf, sc, B, T_, H, G, P,
-                                       N, s);
+    return dispatch_bwd<__nv_bfloat16>(x, dtf, Af, Bm, Cm, Df, dy, dff, dx,
+                                       ddtf, dAf, dB, dC, dDf, sc, B, T_, H,
+                                       G, P, N, splits, s);
   return kBadArgument;
 }

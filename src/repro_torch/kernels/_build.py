@@ -28,14 +28,17 @@ LIB_NAME = "librepro_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
+#: SMs of an H100: the grid plans' default when no card is asked
+H100_SMS = 132
+
 #: dtype codes of csrc/common.cuh
 DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_rmsnorm": [_I, _P, _P, _P, _I, _I, _F, _P],
-    "repro_rmsnorm_backward": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                               _P],
+    "repro_rmsnorm_backward": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _F, _P],
     "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _P],
     "repro_flash_attention_backward": [_I] + [_P] * 11 + [_I] * 10
@@ -44,7 +47,7 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _P],
-    "repro_ssd_scan_backward": [_I] + [_P] * 14 + [_I] * 6 + [_P],
+    "repro_ssd_scan_backward": [_I] + [_P] * 15 + [_I] * 7 + [_P],
 }
 
 #: where the CUDA toolkit is looked for when neither CUDA_HOME nor PATH

@@ -24,12 +24,36 @@ from repro_torch.kernels import _build, _shards
 LAUNCHES = 0
 #: backward kernel calls (two grids each: the rows, then the dscale sum)
 BACKWARD_LAUNCHES = 0
-#: the widest row the backward kernel takes: one warp's fp32 row of
-#: dscale sums in a block's 227 KB of shared memory (a block holds up to
-#: four such rows, fewer for rows wider than 14,528)
-MAX_BACKWARD_D = 232448 // 4
-#: blocks of the backward's first grid at most (two an SM of an H100)
-BACKWARD_BLOCKS = 264
+#: columns a thread of the backward owns at most (its row in registers)
+BACKWARD_COLS = 32
+#: threads of a backward block at most, and so of a row's team
+BACKWARD_MAX_THREADS = 512
+#: the widest row the backward kernel takes: a team of 512 threads of 32
+#: columns each
+MAX_BACKWARD_D = BACKWARD_MAX_THREADS * BACKWARD_COLS
+#: threads of a backward block at least (several teams a block when rows
+#: are narrow)
+BACKWARD_MIN_THREADS = 256
+
+
+def backward_plan(rows: int, d: int, itemsize: int,
+                  sms: int = _build.H100_SMS) -> Tuple[int, int, int]:
+    """``(tpr, threads, blocks)`` of the backward kernel: ``tpr`` threads a
+    row, the fewest warps that hold the row at ``BACKWARD_COLS`` columns a
+    thread (a warp up to 1,024 columns); ``threads`` a block, as many
+    teams as fit ``BACKWARD_MIN_THREADS`` (one team when wider); and
+    ``blocks``, one wave of the card (two blocks an SM of 256 threads, one
+    of more), each over a contiguous range of ``ceil(rows / blocks)``
+    rows, none empty."""
+    vec = 16 // itemsize
+    nvec = -(-d // vec)
+    tpr = 32 * -(-nvec // (32 * (BACKWARD_COLS // vec)))
+    threads = tpr * max(1, BACKWARD_MIN_THREADS // tpr)
+    teams = threads // tpr
+    per_sm = max(1, 2 * BACKWARD_MIN_THREADS // threads)
+    blocks = max(1, min(-(-rows // teams), per_sm * sms))
+    per_block = -(-rows // blocks)
+    return tpr, threads, -(-rows // per_block)
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -107,12 +131,14 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
     if rows == 0:
         return dx, dscale.zero_()
-    blocks = min(-(-rows // 4), BACKWARD_BLOCKS)
+    tpr, threads, blocks = backward_plan(
+        rows, d, x.element_size(),
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     rc = _build.lib().repro_rmsnorm_backward(
         code, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        dscale.data_ptr(), partial.data_ptr(), blocks, rows, d, float(eps),
-        _build.stream_handle(x))
+        dscale.data_ptr(), partial.data_ptr(), blocks, threads, tpr, rows, d,
+        float(eps), _build.stream_handle(x))
     _build.check(rc, "rmsnorm_backward")
     BACKWARD_LAUNCHES += 1
     return dx, dscale

@@ -36,9 +36,9 @@ from repro_torch.kernels import _build, _shards
 
 #: kernel launches in this process (the wrapper's CUDA path only)
 LAUNCHES = 0
-#: backward kernel calls (seven grids each: the forward's chunk states and
-#: state passing again, the state gradients' chunk terms, their reverse
-#: pass, the chunk gradients, the group sums, the (B, T) sums)
+#: backward kernel calls (three grids each: the entering states and the
+#: state gradients, the chunk gradients, the sums over head-slices and
+#: over (batch, chunk))
 BACKWARD_LAUNCHES = 0
 #: the kernel's instantiations: (head_dim P, state_dim N) of mamba2-370m
 #: and zamba2-1.2b, and chunk
@@ -47,6 +47,10 @@ CHUNK = 64
 #: how the bf16 kernel rounds the operands it computes in fp32 before its
 #: tensor-core products (see ``_ssd_chunk_parallel_plain``)
 KERNEL_ROUNDING = {"scores": "once", "xw": "hilo", "entering": "once"}
+#: how the bf16 backward kernel rounds the operands it computes in fp32
+#: before its tensor-core products (see ``ssd_scan_backward_plain``)
+BACKWARD_ROUNDING = {"xw": "once", "dye": "once", "entering": "once",
+                     "dstates": "once", "scores": "once", "dM": "once"}
 
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -184,25 +188,39 @@ def _ssd_chunk_parallel_plain(x: torch.Tensor, dt: torch.Tensor,
 def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
                             A: torch.Tensor, Bm: torch.Tensor,
                             Cm: torch.Tensor, D: torch.Tensor,
-                            dy: torch.Tensor, *, chunk: int = CHUNK
+                            dy: torch.Tensor,
+                            dfinal: Optional[torch.Tensor] = None, *,
+                            chunk: int = CHUNK,
+                            rounding: Optional[dict] = None
                             ) -> Tuple[torch.Tensor, ...]:
     """``(dx, ddt, dA, dB, dC, dD)`` of ``ssd_scan_plain``'s ``y`` for the
-    output gradient ``dy``, in fp32 in the forward's chunk decomposition
-    (the backward kernel's plain version): dx, dB and dC in ``x.dtype``,
-    ddt, dA and dD fp32. The final state is taken to carry no gradient
-    (training never reads it). Per chunk c, with ``E_c`` the state
-    entering it:
+    output gradient ``dy`` and, with ``dfinal``, of its final state
+    ``(B, H, P, N)`` for that gradient (fp32; None: the final state
+    carries none), in fp32 in the forward's chunk decomposition (the
+    backward kernel's plain version): dx, dB and dC in ``x.dtype``, ddt,
+    dA and dD fp32. Per chunk c, with ``E_c`` the state entering it:
 
     1. the output terms: ``dD``, ``dE_c = Σ_i exp(cum_i) dy_i C_iᵀ``,
        ``dC_i += exp(cum_i) E_cᵀ dy_i``, ``dcum_i += dy_i · y_inter_i``;
-    2. the reverse state pass: ``G = 0``; for c from the last chunk down,
-       ``dS_c = G``, ``dtotal_c += exp(total_c) ⟨E_c, G⟩``, ``G = dE_c +
-       exp(total_c) G``;
+    2. the reverse state pass: ``G = dfinal`` (or 0); for c from the last
+       chunk down, ``dS_c = G``, ``dtotal_c += exp(total_c) ⟨E_c, G⟩``,
+       ``G = dE_c + exp(total_c) G``;
     3. the chunk-state terms of ``S_c = Σ_j w_j x_j B_jᵀ``;
-    4. the intra-chunk terms of ``scores_ij = (C_i·B_j) L_ij dt_j``;
+    4. the intra-chunk terms of ``scores_ij = (C_i·B_j) L_ij dt_j``, whose
+       ``dM`` enters dB and dC summed over each group's heads (C and B are
+       the group's);
     5. ``dcum`` (with ``dtotal`` on the chunk's last row) reverse-summed
        into the step sizes' ``da``: ``ddt += da·A``, ``dA = Σ da·dt``;
-    6. dB and dC summed over each group's heads."""
+    6. dB and dC summed over each group's heads.
+
+    ``rounding`` maps the operands the bf16 kernel computes in fp32 and
+    feeds to its tensor-core products (``BACKWARD_ROUNDING``: "xw" and
+    "dye" of the recomputed states and of dE, "entering" and "dstates",
+    the masked "scores", and the group's "dM") to how each is rounded
+    (see ``_round_operand``); the sums that feed dcum, ddt and dA are
+    taken from the products' fp32 results, never from rounded
+    operands."""
+    r = rounding or {}
     B_, T, H, P = x.shape
     G = Bm.shape[2]
     nC = -(-T // chunk)
@@ -215,7 +233,13 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
                           dim=1)
         return t.reshape((B_, nC, chunk) + tuple(t.shape[2:]))
 
+    def group_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
+        """(..., H, ...) at ``dim`` → (..., G, ...): each group's heads."""
+        shape = t.shape[:dim] + (G, H // G) + t.shape[dim + 1:]
+        return t.reshape(shape).sum(dim=dim + 1)
+
     xf, dtf, gy = chunks(x), chunks(dt), chunks(dy)
+    Bg, Cg = chunks(Bm), chunks(Cm)                    # (B, C, Q, G, N)
     Bh, Ch = chunks(_expand_groups(Bm, H)), chunks(_expand_groups(Cm, H))
     N = Bh.shape[-1]
     a = A.float()
@@ -225,7 +249,8 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
     to_end = torch.exp(total[:, :, None, :] - cum)
     w = dtf * to_end
     ecum = torch.exp(cum)
-    S = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", w, xf, Bh)
+    xw = _round_operand(w[..., None] * xf, r.get("xw"))
+    S = torch.einsum("bcqhp,bcqhn->bchpn", xw, Bh)
     state = S.new_zeros((B_, H, P, N))
     entering = []
     for c in range(nC):
@@ -235,18 +260,20 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
 
     # 1. output terms
     dD = (gy * xf).sum(dim=(0, 1, 2, 4))
-    dE = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", ecum, gy, Ch)
-    dC = ecum[..., None] * torch.einsum("bchpn,bcqhp->bcqhn", E, gy)
+    dye = _round_operand(ecum[..., None] * gy, r.get("dye"))
+    dE = torch.einsum("bcqhp,bcqhn->bchpn", dye, Ch)
+    dC = ecum[..., None] * torch.einsum(
+        "bchpn,bcqhp->bcqhn", _round_operand(E, r.get("entering")), gy)
     dcum = (Ch * dC).sum(dim=-1)                       # dy_i · y_inter_i
     # 2. reverse state pass
     dtotal = torch.zeros_like(total)
-    g = S.new_zeros((B_, H, P, N))
+    g = S.new_zeros((B_, H, P, N)) if dfinal is None else dfinal.float()
     dS = [g] * nC
     for c in reversed(range(nC)):
         dS[c] = g
         dtotal[:, c] = decay[:, c] * (E[:, c] * g).sum(dim=(-2, -1))
         g = dE[:, c] + decay[:, c, :, None, None] * g
-    dS = torch.stack(dS, dim=1)
+    dS = _round_operand(torch.stack(dS, dim=1), r.get("dstates"))
     # 3. chunk-state terms
     dSB = torch.einsum("bchpn,bcqhn->bcqhp", dS, Bh)
     dx = w[..., None] * dSB
@@ -261,12 +288,11 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
     ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     L = torch.where(tri, ldiff, ldiff.new_full((), -float("inf"))).exp()
     M = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * L
-    scores = M * dtf[:, :, None, :, :]
+    scores = _round_operand(M * dtf[:, :, None, :, :], r.get("scores"))
     dscores = torch.einsum("bcihp,bcjhp->bcijh", gy, xf)
     dx = dx + torch.einsum("bcijh,bcihp->bcjhp", scores, gy)
-    dM = dscores * L * dtf[:, :, None, :, :]
-    dC = dC + torch.einsum("bcijh,bcjhn->bcihn", dM, Bh)
-    dB = dB + torch.einsum("bcijh,bcihn->bcjhn", dM, Ch)
+    dM = _round_operand(group_sum(dscores * L * dtf[:, :, None, :, :], 4),
+                        r.get("dM"))                   # (B, C, Q, Q, G)
     t = dscores * M
     col = t.sum(dim=2)                                 # over i: (B, C, Q, H)
     ddt = ddt + col
@@ -282,10 +308,10 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
     def rows(t: torch.Tensor) -> torch.Tensor:
         return t.reshape((B_, nC * chunk) + tuple(t.shape[3:]))[:, :T]
 
-    dB = rows(dB).reshape(B_, T, G, H // G, N).sum(dim=3)
-    dC = rows(dC).reshape(B_, T, G, H // G, N).sum(dim=3)
-    return (rows(dx).to(x.dtype), rows(ddt), dA, dB.to(x.dtype),
-            dC.to(x.dtype), dD)
+    dB = group_sum(dB, 3) + torch.einsum("bcijg,bcign->bcjgn", dM, Cg)
+    dC = group_sum(dC, 3) + torch.einsum("bcijg,bcjgn->bcign", dM, Bg)
+    return (rows(dx).to(x.dtype), rows(ddt), dA, rows(dB).to(x.dtype),
+            rows(dC).to(x.dtype), dD)
 
 
 def scratch_floats(B: int, T: int, H: int, P: int, N: int) -> int:
@@ -294,14 +320,29 @@ def scratch_floats(B: int, T: int, H: int, P: int, N: int) -> int:
     return B * -(-T // CHUNK) * H * (P * N + 1)
 
 
-def backward_scratch_floats(B: int, T: int, H: int, P: int, N: int) -> int:
-    """fp32 scratch of one backward call: the forward's (entering states
-    and decays, recomputed), the state gradients (B, nC, H, P, N), each
-    head's dB and dC rows (B, T, H, N) before the group sums, and the
-    per-chunk dA and dD terms (B, nC, H) each."""
+def backward_head_splits(B: int, T: int, H: int, G: int,
+                         sms: int = _build.H100_SMS) -> int:
+    """k, the head-slices each group's heads are cut into for the backward
+    kernel's chunk grid (one block a (group, slice, batch, chunk)): the
+    smallest divisor of ``H // G`` whose ``G * k * B * nC`` blocks make two
+    waves of ``sms``, or every head a slice of its own when none does."""
+    per = H // G
+    blocks = G * B * -(-T // CHUNK)
+    for k in range(1, per + 1):
+        if per % k == 0 and k * blocks >= 2 * sms:
+            return k
+    return per
+
+
+def backward_scratch_floats(B: int, T: int, H: int, G: int, P: int, N: int,
+                            splits: int) -> int:
+    """fp32 scratch of one backward call: the recomputed entering states
+    and the state gradients (B, nC, H, P, N) each, the per-chunk dA and dD
+    terms (B, nC, H) each, and, when a group is cut into ``splits`` > 1
+    head-slices, each slice's dB and dC rows (B, T, G, splits, N) each."""
     nC = -(-T // CHUNK)
-    return scratch_floats(B, T, H, P, N) + B * nC * H * (P * N + 2) \
-        + 2 * B * T * H * N
+    return B * nC * H * (2 * P * N + 2) \
+        + (2 * B * T * G * splits * N if splits > 1 else 0)
 
 
 def _check(x, dt, A, Bm, Cm, D, chunk: int) -> int:
@@ -355,11 +396,14 @@ def _launch(x, dt, A, Bm, Cm, D, code: int, return_state: bool) -> Out:
 
 def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
-                      dy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                      dy: torch.Tensor,
+                      dfinal: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel: ``(dx, ddt, dA, dB, dC, dD)`` for CUDA tensors
-    (``dy`` of x's shape and dtype), as ``ssd_scan_backward_plain``
-    computes them. It recomputes the entering states with the forward's
-    first two grids rather than keeping them from the forward."""
+    (``dy`` of x's shape and dtype; ``dfinal``, the final state's gradient,
+    fp32 (B, H, P, N) or None), as ``ssd_scan_backward_plain`` computes
+    them. It recomputes the entering states rather than keeping them from
+    the forward."""
     global BACKWARD_LAUNCHES
     code = _check(x, dt, A, Bm, Cm, D, CHUNK)
     _build.require_cuda("ssd_scan_backward", x, dy)
@@ -369,16 +413,27 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{x.dtype} (or is not 16-byte aligned)")
     B_, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
+    if dfinal is not None:
+        _build.require_cuda("ssd_scan_backward", x, dfinal)
+        if tuple(dfinal.shape) != (B_, H, P, N) \
+                or dfinal.dtype != torch.float32 or dfinal.data_ptr() % 16:
+            raise ValueError(f"ssd_scan_backward: dfinal must be fp32 "
+                             f"{(B_, H, P, N)}, 16-byte aligned")
+    splits = backward_head_splits(
+        B_, T, H, G,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
     ddt = torch.empty_like(dt)
     dA, dD = torch.empty_like(A), torch.empty_like(D)
-    scratch = torch.empty(backward_scratch_floats(B_, T, H, P, N),
-                          dtype=torch.float32, device=x.device)
+    scratch = torch.empty(
+        backward_scratch_floats(B_, T, H, G, P, N, splits),
+        dtype=torch.float32, device=x.device)
     rc = _build.lib().repro_ssd_scan_backward(
         code, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        Cm.data_ptr(), D.data_ptr(), dy.data_ptr(),
+        dfinal.data_ptr() if dfinal is not None else None, dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dD.data_ptr(), scratch.data_ptr(), B_, T, H, G, P, N,
+        dD.data_ptr(), scratch.data_ptr(), B_, T, H, G, P, N, splits,
         _build.stream_handle(x))
     _build.check(rc, "ssd_scan_backward")
     BACKWARD_LAUNCHES += 1
@@ -386,17 +441,23 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 class _SSDFunction(torch.autograd.Function):
-    """The forward kernel, differentiated by the backward kernel."""
+    """The forward kernel, differentiated by the backward kernel (through
+    the final state too when it is returned)."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, D, code):
+    def forward(ctx, x, dt, A, Bm, Cm, D, code, return_state):
         ctx.save_for_backward(x, dt, A, Bm, Cm, D)
-        return _launch(x, dt, A, Bm, Cm, D, code, return_state=False)
+        ctx.set_materialize_grads(False)
+        return _launch(x, dt, A, Bm, Cm, D, code, return_state)
 
     @staticmethod
-    def backward(ctx, dy):
-        return ssd_scan_backward(*ctx.saved_tensors,
-                                 dy.contiguous()) + (None,)
+    def backward(ctx, dy, dfinal=None):
+        # saved_tensors read once: checkpointing (remat) allows one unpack
+        saved = ctx.saved_tensors
+        dy = torch.zeros_like(saved[0]) if dy is None else dy.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.float().contiguous()
+        return ssd_scan_backward(*saved, dy, dfinal) + (None, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -406,9 +467,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CUDA tensors launch the kernel: three grids per call (chunk states,
     state passing, chunk scan; see ``_ssd_chunk_parallel_plain``), counted
     as one launch. With grad enabled and an input that requires grad, a
-    CUDA call goes through ``_SSDFunction`` (the backward kernel
-    differentiates it); one that also asks for the final state raises, as
-    no training path reads that state."""
+    CUDA call goes through ``_SSDFunction``: the backward kernel
+    differentiates y and, with ``return_state``, the final state."""
     if _shards.any_dtensor(x, dt, A, Bm, Cm, D):
         return _ssd_shards(x, dt, A, Bm, Cm, D, chunk=chunk,
                            return_state=return_state)
@@ -418,11 +478,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     code = _check(x, dt, A, Bm, Cm, D, chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, Bm, Cm, D)):
-        if return_state:
-            raise NotImplementedError(
-                "ssd_scan: no gradient through the final state: only "
-                "prefill asks for it, and prefill takes no gradient")
-        return _SSDFunction.apply(x, dt, A, Bm, Cm, D, code)
+        return _SSDFunction.apply(x, dt, A, Bm, Cm, D, code, return_state)
     return _launch(x, dt, A, Bm, Cm, D, code, return_state)
 
 

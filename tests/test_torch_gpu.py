@@ -557,9 +557,16 @@ def _grad_tol(dtype, plain):
     return TOL[dtype] * max(1.0, float(plain.float().abs().max()))
 
 
+# every config's width (768 to llama3's 16,384) at one row, 7 and 8193
+CONFIG_WIDTHS = (768, 1024, 1280, 2048, 3840, 4096, 5120, 6144, 7168, 12288,
+                 16384)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d", [(8192, 768),     # paper_demo's step
-                                    (7, 768), (33, 1280), (100, 4096)])
+                                    (7, 768), (33, 1280), (100, 4096)]
+                         + [(rows, d) for d in CONFIG_WIDTHS
+                            for rows in (1, 7, 8193)])
 def test_rmsnorm_backward_kernel(cuda, dtype, rows, d):
     x = _randn(cuda, (rows, d), dtype)
     scale = 1 + 0.1 * torch.randn((d,), generator=cuda, device="cuda")
@@ -669,21 +676,35 @@ def test_autograd_takes_the_kernels_only_when_a_gradient_is_wanted(cuda):
 
 def test_autograd_refuses_a_gradient_no_kernel_gives(cuda):
     """No fallback: what no backward kernel computes raises at the forward
-    and launches nothing: the SSD scan's final state with grad (only
-    prefill asks for it), and a head_dim with no kernel."""
-    f0, s0 = fa.LAUNCHES, ssd.LAUNCHES
-    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, 1, 64, 4, 64, 1, 128,
-                                      torch.float32)
-    with pytest.raises(NotImplementedError, match="final state"):
-        ssd.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, D, return_state=True)
+    and launches nothing (a head_dim with no kernel). The SSD scan's final
+    state with grad now has one: ``_SSDFunction`` returns y and the final
+    state, and the backward kernel takes both gradients (``dfinal``), as
+    autograd of the plain version does."""
+    f0, s0, b0 = fa.LAUNCHES, ssd.LAUNCHES, ssd.BACKWARD_LAUNCHES
+    args = _ssd_inputs(cuda, 2, 100, 4, 64, 1, 128, torch.float32)
+    watched = [t.clone().requires_grad_() for t in args]
+    y, final = ssd.ssd_scan(*watched, return_state=True)
+    assert ssd.LAUNCHES == s0 + 1
+    dy = _randn(cuda, y.shape, torch.float32)
+    dfinal = _randn(cuda, final.shape, torch.float32)
+    got = torch.autograd.grad((y, final), watched, (dy, dfinal))
+    assert ssd.BACKWARD_LAUNCHES == b0 + 1
+    plain = [t.clone().requires_grad_() for t in args]
+    py, pf = ssd.ssd_scan_plain(*plain, return_state=True)
+    want = torch.autograd.grad((py, pf), plain, (dy, dfinal))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= _grad_tol(torch.float32, w)
+    # the final state's gradient alone (y unused)
+    y, final = ssd.ssd_scan(*watched, return_state=True)
+    got = torch.autograd.grad(final, watched, dfinal)
+    want = ssd.ssd_scan_backward_plain(*args, torch.zeros_like(dy), dfinal)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= _grad_tol(torch.float32, w)
     q = _randn(cuda, (1, 64, 8, 96), torch.bfloat16).requires_grad_()
     k = _randn(cuda, (1, 64, 2, 96), torch.bfloat16)
     with pytest.raises(ValueError, match="D in"):
         fa.attention(q, k, k)
-    assert (fa.LAUNCHES, ssd.LAUNCHES) == (f0, s0)
-    with torch.no_grad():                    # serving: the forward runs
-        ssd.ssd_scan(x, dt, A, Bm, Cm, D, return_state=True)
-    assert ssd.LAUNCHES == s0 + 1
+    assert fa.LAUNCHES == f0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -694,19 +715,30 @@ def test_autograd_refuses_a_gradient_no_kernel_gives(cuda):
     (1, 7, 4, 1, 128),       # shorter than one chunk
     (2, 1024, 64, 1, 64),    # zamba2-1.2b's
     (1, 64, 64, 1, 64),      # one chunk
+    # either side of the head-split rule's boundary (264 chunks fill two
+    # waves of 132 SMs): 260 chunks split the group's 4 heads in two
+    # slices, 264 take one
+    (4, 4160, 4, 1, 128),
+    (4, 4224, 4, 1, 128),
+    (4, 4160, 4, 1, 64),
+    (2, 700, 8, 2, 64),      # groups, split, N 64 and a tail
 ])
-def test_ssd_scan_backward_kernel(cuda, dtype, B, T, H, G, N):
+@pytest.mark.parametrize("with_dfinal", [False, True])
+def test_ssd_scan_backward_kernel(cuda, dtype, B, T, H, G, N, with_dfinal):
     """The SSD backward kernel against the plain backward in fp32 on the
-    same (dtype-valued) inputs: each gradient within the tolerance of its
-    largest magnitude, the same bits on a second call (no atomics)."""
+    same (dtype-valued) inputs, with and without the final state's
+    gradient: each gradient within the tolerance of its largest
+    magnitude, the same bits on a second call (no atomics)."""
     args = _ssd_inputs(cuda, B, T, H, 64, G, N, dtype)
     dy = _randn(cuda, (B, T, H, 64), dtype)
+    dfinal = _randn(cuda, (B, H, 64, N), torch.float32) \
+        if with_dfinal else None
     n0 = ssd.BACKWARD_LAUNCHES
-    got = ssd.ssd_scan_backward(*args, dy)
+    got = ssd.ssd_scan_backward(*args, dy, dfinal)
     assert ssd.BACKWARD_LAUNCHES == n0 + 1
     x, dt, A, Bm, Cm, D = args
     want = ssd.ssd_scan_backward_plain(x.float(), dt, A, Bm.float(),
-                                       Cm.float(), D, dy.float())
+                                       Cm.float(), D, dy.float(), dfinal)
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
         assert g.shape == w.shape, name
         assert g.dtype == (dtype if name in ("dx", "dB", "dC")
@@ -714,7 +746,7 @@ def test_ssd_scan_backward_kernel(cuda, dtype, B, T, H, G, N):
         assert torch.isfinite(g).all(), name
         assert float((g.float() - w).abs().max()) <= _grad_tol(dtype, w), \
             name
-    again = ssd.ssd_scan_backward(*args, dy)
+    again = ssd.ssd_scan_backward(*args, dy, dfinal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -735,6 +767,27 @@ def test_ssd_scan_autograd_takes_the_backward_kernel(cuda):
     with torch.no_grad():
         ssd.ssd_scan(*watched)
     assert (ssd.LAUNCHES, ssd.BACKWARD_LAUNCHES) == (n0 + 2, b0 + 1)
+
+
+def test_ssd_scan_autograd_under_checkpoint(cuda):
+    """Under non-reentrant activation checkpointing (a train step's remat)
+    the backward unpacks each saved tensor once: the gradients, through
+    the final state too, equal those without checkpointing."""
+    from torch.utils.checkpoint import checkpoint
+    args = _ssd_inputs(cuda, 1, 130, 4, 64, 1, 128, torch.float32)
+    dy = _randn(cuda, (1, 130, 4, 64), torch.float32)
+    dfinal = _randn(cuda, (1, 4, 64, 128), torch.float32)
+
+    def loss(*t):
+        y, final = ssd.ssd_scan(*t, return_state=True)
+        return (y * dy).sum() + (final * dfinal).sum()
+
+    watched = [t.clone().requires_grad_() for t in args]
+    got = torch.autograd.grad(checkpoint(loss, *watched, use_reentrant=False),
+                              watched)
+    want = torch.autograd.grad(loss(*watched), watched)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -89,6 +89,59 @@ def test_ssd_backward_plain_matches_jax_vjp_of_ssd_chunked(case):
     _assert_close_to_max([g.numpy() for g in got], want, case)
 
 
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_backward_plain_with_dfinal_matches_jax_vjp_of_ssd_chunked(case):
+    """Cotangents on both of ``ssd_chunked``'s outputs, y and the final
+    state: the plain backward's ``dfinal`` starts its reverse state pass."""
+    B, T, H, P, G, N, chunk = SSD_CASES[case]
+    args, dy = _ssd_inputs(B, T, H, P, G, N, seed=len(case) + 20)
+    dfinal = np.random.default_rng(len(case)).standard_normal(
+        (B, H, P, N)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jssd_ref.ssd_chunked(*a, chunk=chunk),
+                     *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dfinal)))
+    got = ssd.ssd_scan_backward_plain(
+        *(torch.from_numpy(a) for a in args), torch.from_numpy(dy),
+        torch.from_numpy(dfinal), chunk=chunk)
+    _assert_close_to_max([g.numpy() for g in got], want, case)
+
+
+# (B, T, H, G, N) at the kernel's head_dim 64 and chunk: one group and a
+# tail, two groups, mamba2's state at 8 heads
+ROUNDING_CASES = {"g1_tail": (1, 200, 4, 1, 128),
+                  "g2_tail": (2, 130, 4, 2, 64),
+                  "h8": (1, 256, 8, 1, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(ROUNDING_CASES))
+def test_ssd_backward_bf16_rounding_stays_within_bf16_tolerance(case):
+    """The bf16 backward kernel rounds each operand it computes in fp32
+    once before its tensor-core products (``BACKWARD_ROUNDING``): on
+    bf16-valued inputs, with dx, dB and dC cast to bf16 as the kernel
+    writes them, every gradient stays within bf16's 2e-2 of max(1, its
+    largest magnitude) of the fp32 plain backward, with a dfinal too."""
+    B, T, H, G, N = ROUNDING_CASES[case]
+    assert set(ssd.BACKWARD_ROUNDING) == {"xw", "dye", "entering",
+                                          "dstates", "scores", "dM"}
+    args, dy = _ssd_inputs(B, T, H, 64, G, N, seed=T)
+    bf = [torch.from_numpy(a) for a in args]
+    for i in (0, 3, 4):                      # x, B and C as bf16 values
+        bf[i] = bf[i].to(torch.bfloat16).float()
+    gy = torch.from_numpy(dy).to(torch.bfloat16).float()
+    dfinal = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        (B, H, 64, N)).astype(np.float32))
+    for df in (None, dfinal):
+        want = ssd.ssd_scan_backward_plain(*bf, gy, df)
+        got = ssd.ssd_scan_backward_plain(*bf, gy, df,
+                                          rounding=ssd.BACKWARD_ROUNDING)
+        for name, g, w in zip(NAMES, got, want):
+            if name in ("dx", "dB", "dC"):
+                g = g.to(torch.bfloat16).float()
+            err = float((g - w).abs().max())
+            assert err <= 2e-2 * max(1.0, float(w.abs().max())), \
+                f"{case} {name} dfinal={df is not None}: {err:.3g}"
+
+
 def test_ssd_backward_plain_of_a_tail_matches_jax_vjp_of_the_recurrence():
     """T = 50 over chunks of 16: the last chunk padded with dt = 0 rows
     (``ssd_chunked`` takes no tail, so the exact per-step recurrence is
@@ -132,13 +185,55 @@ def test_ssd_scan_on_the_cpu_is_differentiated_by_autograd():
 
 
 def test_ssd_backward_scratch_is_sized_from_the_shapes():
-    """The backward kernel's scratch: the forward's, the state gradients,
-    the per-chunk dA and dD terms, and each head's dB and dC rows."""
+    """The backward kernel's scratch: the entering states and the state
+    gradients, the chunk's dA and dD terms, and each head-slice's dB and
+    dC rows only when a group is split; nothing a head."""
     B, T, H, P, N = 3, 130, 4, 64, 128
     nC = 3
-    assert ssd.backward_scratch_floats(B, T, H, P, N) == \
-        ssd.scratch_floats(B, T, H, P, N) + B * nC * H * (P * N + 2) \
-        + 2 * B * T * H * N
+    assert ssd.backward_scratch_floats(B, T, H, 1, P, N, 1) == \
+        B * nC * H * (2 * P * N + 2)
+    assert ssd.backward_scratch_floats(B, T, H, 2, P, N, 2) == \
+        B * nC * H * (2 * P * N + 2) + 2 * B * T * 2 * 2 * N
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((8, 1024, 32, 1), 4),     # mamba2's training step: 128 chunks
+    ((2, 1024, 64, 1), 16),    # zamba2's: 32 chunks
+    ((8, 4096, 32, 1), 1),     # 512 chunks fill two waves unsplit
+    ((4, 4160, 4, 1), 2),      # 260 chunks: one short of two waves
+    ((4, 4224, 4, 1), 1),      # 264: exactly two waves
+    ((1, 7, 4, 1), 4),         # never two waves: every head its own
+    ((2, 100, 8, 2), 4),       # per group
+])
+def test_ssd_backward_head_split_rule(shape, k):
+    """The head-slices of the backward's chunk grid: the smallest divisor
+    of a group's heads that gives two waves of an H100's 132 SMs."""
+    B, T, H, G = shape
+    assert ssd.backward_head_splits(B, T, H, G) == k
+    blocks = G * B * -(-T // ssd.CHUNK)
+    assert (H // G) % k == 0
+    assert k * blocks >= 2 * 132 or k == H // G
+    assert all((H // G) % s or s * blocks < 2 * 132 for s in range(1, k))
+
+
+@pytest.mark.parametrize("d,itemsize,tpr,threads", [
+    (768, 4, 32, 256), (1024, 4, 32, 256), (1280, 4, 64, 256),
+    (3840, 4, 128, 256), (5120, 4, 160, 160), (12288, 4, 384, 384),
+    (16384, 4, 512, 512), (768, 2, 32, 256), (1280, 2, 64, 256),
+    (16384, 2, 512, 512),
+])
+def test_rmsnorm_backward_plan_holds_a_row_in_registers(d, itemsize, tpr,
+                                                        threads):
+    """The rmsnorm backward's threads a row from D: the fewest warps that
+    hold the row at 32 columns a thread; teams fill 256 threads a block;
+    the grid is one wave of contiguous row ranges, none empty."""
+    assert rms.backward_plan(8192, d, itemsize)[:2] == (tpr, threads)
+    assert tpr * rms.BACKWARD_COLS >= d and tpr <= rms.MAX_BACKWARD_D // 32
+    for rows in (1, 7, 8192, 8193):
+        _, _, blocks = rms.backward_plan(rows, d, itemsize)
+        per = -(-rows // blocks)
+        assert (blocks - 1) * per < rows <= blocks * per
+        assert blocks <= 132 * max(1, 512 // threads)
 
 
 def test_rmsnorm_backward_plain_at_16384_columns_matches_jax_vjp():
