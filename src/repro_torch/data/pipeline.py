@@ -3,10 +3,13 @@
 arrays, byte-equal to the reference's; the trainer uploads them).
 
 The paper's Listing-2 pattern applied to data loading: each prefetch fill is
-an asynchronous host task; its *continuation* re-posts the next fill (like
-re-posting a receive), keeping ``depth`` batches in flight without a
-dedicated coordinator loop. The trainer never blocks on I/O unless the
-buffer is empty, and progress happens on whatever thread touches the engine.
+an asynchronous host task whose *continuation* delivers its batch, without a
+dedicated coordinator loop. Fills are bounded by consumption: taking a batch
+posts the next fill (like re-posting a receive once a message is consumed),
+so at most ``depth`` batches are made ahead of the trainer and fill threads
+never race it for the interpreter. The trainer never blocks on I/O unless the
+buffer is empty (the time it waits is the tracer's ``data.wait`` span), and
+progress happens on whatever thread touches the engine.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import numpy as np
 
 from repro_torch.core import Engine, HostTaskOp, Status
 from repro_torch.models.common import AUDIO, VLM, ModelConfig
+from repro_torch.obs import events as _obs_events
+from repro_torch.obs import tracer as _obs
 
 
 class SyntheticTokenSource:
@@ -72,10 +77,14 @@ class SyntheticTokenSource:
 
 
 class PrefetchPipeline:
-    """Double-buffered (depth-N) prefetch built on continuations."""
+    """Double-buffered (depth-N) prefetch built on continuations: batch
+    ``i`` is made once batch ``i - depth`` has been taken. ``start`` is the
+    first batch's index (a restart skips the batches already trained on);
+    ``max_batches`` bounds the indices."""
 
     def __init__(self, source: SyntheticTokenSource, engine: Engine, *,
-                 depth: int = 2, max_batches: Optional[int] = None) -> None:
+                 depth: int = 2, max_batches: Optional[int] = None,
+                 start: int = 0) -> None:
         self.source = source
         self.engine = engine
         self.depth = depth
@@ -89,21 +98,19 @@ class PrefetchPipeline:
         # concurrency, but training must consume batch i at step i for
         # reproducible restarts
         self._ready: Dict[int, Any] = {}
-        self._next_deliver = 0
+        self._next_deliver = start
         self._cv = threading.Condition()
-        self._post_lock = threading.Lock()
-        self._posted = 0
+        self._posted = start
         self.stats = {"fills": 0, "get_waits": 0}
         for _ in range(depth):
             self._post_fill()
 
     def _post_fill(self) -> None:
-        # continuations may re-post concurrently from executor threads
-        with self._post_lock:
-            if self.max_batches is not None and self._posted >= self.max_batches:
-                return
-            index = self._posted
-            self._posted += 1
+        # called by the consumer only (construction, then get_next)
+        if self.max_batches is not None and self._posted >= self.max_batches:
+            return
+        index = self._posted
+        self._posted += 1
         fut = self._pool.submit(self.source.make_batch, index)
         op = HostTaskOp(fut)
         flag = self.engine.continue_when(op, self._on_fill, index,
@@ -117,18 +124,22 @@ class PrefetchPipeline:
             raise status.error
         with self._cv:
             self._ready[index] = status.payload
+            self.stats["fills"] += 1
             self._cv.notify_all()
-        self.stats["fills"] += 1
-        self._post_fill()          # re-post from the continuation body
 
     def get_next(self, timeout: float = 30.0) -> Dict[str, np.ndarray]:
-        deadline = time.monotonic() + timeout
+        """The next batch in index order; a batch taken posts the fill
+        ``depth`` ahead of it."""
+        t_wait = None
         while True:
             with self._cv:
                 if self._next_deliver in self._ready:
                     batch = self._ready.pop(self._next_deliver)
                     self._next_deliver += 1
-                    return batch
+                    break
+            if t_wait is None:
+                t_wait = time.monotonic()
+                deadline = t_wait + timeout
             self.stats["get_waits"] += 1
             self.engine.tick()      # progress while waiting
             with self._cv:
@@ -137,12 +148,18 @@ class PrefetchPipeline:
                     if remaining <= 0:
                         raise TimeoutError("prefetch pipeline starved")
                     self._cv.wait(timeout=min(remaining, 0.005))
+        if t_wait is not None:
+            tr = _obs.TRACE
+            if tr is not None:
+                tr.evt(_obs_events.DATA_WAIT, self._next_deliver - 1, "data",
+                       ts=t_wait, dur=tr.now() - t_wait)
+        self._post_fill()
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        produced = 0
-        while self.max_batches is None or produced < self.max_batches:
+        while self.max_batches is None or \
+                self._next_deliver < self.max_batches:
             yield self.get_next()
-            produced += 1
 
     def close(self) -> None:
         self._pool.shutdown(wait=False, cancel_futures=True)

@@ -101,14 +101,10 @@ def train(arch: str = "paper_demo", steps: int = 100, global_batch: int = 4,
         print(f"[train] restored committed checkpoint at step {start_step}")
 
     source = SyntheticTokenSource(cfg, global_batch, seq_len, seed=seed)
-    # bounded at the run's batches: the pipeline re-posts a fill from each
-    # fill's continuation, and unbounded it keeps two threads busy making
-    # batches no step takes, against the eager step for the interpreter
-    pipeline = PrefetchPipeline(source, engine, depth=2, max_batches=steps)
-    # skip batches already consumed before the restart (deterministic
-    # resume): indices are absolute
-    pipeline._posted = start_step
-    pipeline._next_deliver = start_step
+    # indices are absolute: a restart skips the batches already consumed
+    # (deterministic resume); none is made past the run's last step
+    pipeline = PrefetchPipeline(source, engine, depth=2, max_batches=steps,
+                                start=start_step)
 
     metrics_cr = engine.continue_init({"mpi_continue_enqueue_complete": True})
     log_rows = []

@@ -8,6 +8,16 @@ Chrome/Perfetto ``trace_event`` and Prometheus text exporters
 attaches to trace its measured samples and split their latency by cause
 (``obs.recorder``).
 
+Beside the reference's kinds, the port's serve loop and trainer record
+host spans of their own work (``engine.prefill``, ``engine.dispatch``,
+``data.wait``, ``train.dispatch``) and, on a card, ``dev.step`` and
+``dev.prefill``, whose durations are **device** seconds between CUDA
+timing events on the stream, the stream's waits for the host included
+(their ``ts`` is the host's dispatch stamp). The
+tracer's clock is ``time.monotonic``; ``Tracer.to_unix`` maps a stamp onto
+the Unix clock of ``torch.profiler``'s timeline (``baseTimeNanoseconds``
+plus ``ts``), so host spans can be set against the device's activity.
+
 Usage::
 
     from repro_torch import obs

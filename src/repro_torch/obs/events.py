@@ -18,6 +18,16 @@ Two families:
   across the disagg transport, decode-step completion, token delivery,
   and the router's shadow-replay link (``req.link`` lets the exporter
   merge a shadow's events onto the original request's track).
+
+Beside them, spans of the serve loop and the trainer that say what the
+host was doing (``engine.*``, ``data.wait``, ``train.dispatch``: host
+seconds), and ``dev.*``, whose ``ts`` is the host's dispatch stamp and
+whose ``dur`` is **device** seconds: the device clock between a pair of
+CUDA timing events around the work on its stream (recorded only while
+tracing, and only on a card). That is the work's span on the stream, so
+it holds the stream's waits for the host too: none inside a graph
+replay, many in an eager prefill the host enqueues slower than the card
+runs it. ``Tracer.to_unix`` puts a stamp on ``torch.profiler``'s clock.
 """
 from __future__ import annotations
 
@@ -46,6 +56,17 @@ REQ_DELIVER = "req.deliver"        # tokens published to the request
 REQ_FINISH = "req.finish"          # terminal state reached
 REQ_LINK = "req.link"              # rid = shadow id, meta = original id
 REQ_REPLAY = "req.replay"          # failover: requeued for replay
+
+# serve loop (host spans; rid = -1, or the request id for a prefill)
+ENGINE_PREFILL = "engine.prefill"  # span: a placement's enqueue; meta=plen
+ENGINE_DISPATCH = "engine.dispatch"  # span: a decode/verify step's enqueue
+# device time (ts = host dispatch stamp, dur = DEVICE seconds)
+DEV_STEP = "dev.step"              # a decode/verify graph replay; meta=live
+DEV_PREFILL = "dev.prefill"        # a prefill on the stream; meta=plen
+
+# trainer (host spans, rid = -1)
+DATA_WAIT = "data.wait"            # span: get_next waited for its batch
+TRAIN_DISPATCH = "train.dispatch"  # span: a train step's enqueue
 
 #: lifecycle-edge histogram names, in causal order. ``complete_to_run``
 #: is the paper's notification latency (op complete -> callback ran).

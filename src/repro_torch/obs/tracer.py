@@ -18,6 +18,12 @@ Sampling is deterministic by id (Knuth multiplicative hash), so every
 component traces the *same* subset of requests/continuations and
 timelines stay complete under sampling.
 
+The clock is ``time.monotonic`` (the ``Request`` stamps share it).
+``torch.profiler``'s timeline is on the Unix clock (a document's
+``baseTimeNanoseconds`` plus each event's ``ts``), so a session samples
+``time.time() - time.monotonic()`` when it starts and when it stops, and
+``Tracer.to_unix`` maps a stamp onto that timeline.
+
 Enable programmatically (``obs.start(sample=...)``) or via the
 environment: ``REPRO_TRACE=1`` (optionally ``REPRO_TRACE_SAMPLE=0.25``,
 ``REPRO_TRACE_CAPACITY=65536``) arms tracing at import time, which is
@@ -40,6 +46,20 @@ from repro_torch.obs.hist import Histogram
 DEFAULT_CAPACITY = 1 << 16
 
 
+def unix_offset() -> float:
+    """``time.time() - time.monotonic()``, the Unix clock read between two
+    reads of the monotonic one; of five tries, the one whose two reads lie
+    closest (a thread preempted between them errs by up to half the gap)."""
+    best = None
+    for _ in range(5):
+        m0 = time.monotonic()
+        u = time.time()
+        m1 = time.monotonic()
+        if best is None or m1 - m0 < best[0]:
+            best = (m1 - m0, u - 0.5 * (m0 + m1))
+    return best[1]
+
+
 class Tracer:
     """One tracing session: buffers, histograms, clock, sampling."""
 
@@ -57,6 +77,10 @@ class Tracer:
         self._hist: Dict[Tuple[str, str], Histogram] = {}
         self._hist_lock = threading.Lock()
         self.t0 = self.clock()
+        #: the Unix clock's offset from the tracer's at ``start``, and at
+        #: ``stop`` (None until then)
+        self.unix_offset_s = unix_offset()
+        self.unix_offset_stop_s: Optional[float] = None
 
     # ------------------------------------------------------------ recording
     def now(self) -> float:
@@ -85,6 +109,16 @@ class Tracer:
         if ts is None:
             ts = self.clock()
         self._buf().record((ts, dur, kind, rid, src, meta))
+
+    def to_unix(self, ts: float) -> float:
+        """A stamp of this tracer in Unix seconds, the clock of
+        ``torch.profiler``'s timeline (by the offset sampled at start;
+        ``unix_offset_stop_s`` less it is the drift over the session)."""
+        return ts + self.unix_offset_s
+
+    def close(self) -> None:
+        """Sample the clocks' offset at the session's end (``stop``)."""
+        self.unix_offset_stop_s = unix_offset()
 
     # ------------------------------------------------- lifecycle histograms
     def observe(self, edge: str, pkey: str, seconds: float) -> None:
@@ -157,7 +191,9 @@ def stop() -> Optional[Tracer]:
     global TRACE
     with _state_lock:
         tr, TRACE = TRACE, None
-        return tr
+    if tr is not None:
+        tr.close()
+    return tr
 
 
 def active() -> Optional[Tracer]:

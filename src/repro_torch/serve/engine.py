@@ -69,7 +69,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, List, Optional, Sequence, Set, Tuple, Union
+from typing import (Any, List, NamedTuple, Optional, Sequence, Set, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -115,6 +116,15 @@ def _step_flags(priority: int) -> ContinueFlags:
         if len(_PRIO_FLAGS) < _PRIO_FLAGS_MAX:
             _PRIO_FLAGS[priority] = flags
     return flags
+
+
+class _DeviceTiming(NamedTuple):
+    """A pair of CUDA timing events around work on the stream, with the
+    host's dispatch stamp and the ``meta`` of the ``dev.*`` event."""
+    ts: float
+    meta: Any
+    start: Any
+    end: Any
 
 
 class ServeEngine:
@@ -292,6 +302,9 @@ class ServeEngine:
         # complete; what the drafter matches against
         self._ctx: List[Optional[List[int]]] = [None] * S
         self._inflight = 0                    # dispatched, not-yet-complete steps
+        # (start, end) CUDA timing events free for reuse; filled only
+        # while tracing on a card, by the ``dev.*`` continuations
+        self._timing_pool: List[Tuple[Any, Any]] = []
         self._stalled_at: Optional[int] = None  # pages_in_use at last deferral
         self._retired: List[Request] = []
         self._lock = threading.Lock()         # guards _retired for readers
@@ -444,47 +457,78 @@ class ServeEngine:
         prompt_np = np.asarray(req.prompt, np.int32).reshape(1, -1)
         plen = prompt_np.shape[1]
         tr = _obs.TRACE
-        t0 = None
-        if tr is not None and tr.want(req.req_id):
-            t0 = tr.now()
-            tr.evt(_obs_events.REQ_ADMIT, req.req_id, "engine",
-                   ts=req.arrival_time, dur=t0 - req.arrival_time)
-        if req.max_new_tokens == 1:
-            # single-token request: prefill answers it outright; it never
-            # occupies a decode slot nor any pages
+        t0 = dev = None
+        if tr is not None:
+            t_place = tr.now()
+            if tr.want(req.req_id):
+                t0 = t_place
+                tr.evt(_obs_events.REQ_ADMIT, req.req_id, "engine",
+                       ts=req.arrival_time, dur=t0 - req.arrival_time)
+            dev = self._timing_events(t_place, plen)
+        # single-token request: prefill answers it outright; it never
+        # occupies a decode slot nor any pages
+        retire_now = req.max_new_tokens == 1
+        slot = None
+        if retire_now:
             logits, _ = make_prefill_step(self.cfg, plen)(
                 self.params, {"tokens": self._upload(prompt_np)})
             first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            first_host = self._download(first)
-            req.push_device_token(first_host[0])
-            self.stats["prefills"] += 1
-            self.engine.continue_when(
-                TensorOp(first, payload=first_host), self._on_prefill_done,
-                (req, True, None, first_host, t0), cr=self.cr_steps,
-                flags=_step_flags(req.priority))
-            return True
-
-        if self.paged:
+        elif self.paged:
             first = self._prefill_paged(req, prompt_np)
             if first is None:
+                if dev is not None:
+                    self._timing_pool.append((dev.start, dev.end))
                 return False
             slot = free.pop(0)
         else:
             slot = free.pop(0)
             first = self._prefill_dense(slot, prompt_np)
+        if dev is not None:
+            dev.end.record()
         first_host = self._download(first)
         req.push_device_token(first_host[0])
         self.stats["prefills"] += 1
-        # the drafter's host context: the prompt now, the first token in
-        # the prefill continuation, each accepted run in a verify's
-        ctx = np.asarray(req.prompt, np.int32).reshape(-1).tolist() \
-            if self.speculate else None
-        self._seat_slot(slot, req, first, plen, ctx)
+        if not retire_now:
+            # the drafter's host context: the prompt now, the first token
+            # in the prefill continuation, each accepted run in a verify's
+            ctx = np.asarray(req.prompt, np.int32).reshape(-1).tolist() \
+                if self.speculate else None
+            self._seat_slot(slot, req, first, plen, ctx)
         self.engine.continue_when(
             TensorOp(first, payload=first_host), self._on_prefill_done,
-            (req, False, slot, first_host, t0), cr=self.cr_steps,
+            (req, retire_now, slot, first_host, t0, dev), cr=self.cr_steps,
             flags=_step_flags(req.priority))
+        if tr is not None:
+            tr.evt(_obs_events.ENGINE_PREFILL, req.req_id, "engine",
+                   ts=t_place, dur=tr.now() - t_place, meta=plen)
         return True
+
+    def _timing_events(self, ts: float, meta: Any
+                       ) -> Optional[_DeviceTiming]:
+        """While tracing, on a card: a pair of CUDA timing events whose
+        start is recorded on the stream now and whose ``end`` the caller
+        records after the work; None on the CPU. Pairs come from
+        ``_timing_pool`` where one is free, so once the pool holds as many
+        as are in flight, no event is made inside a timed interval."""
+        if self.device.type != "cuda":
+            return None
+        try:
+            start, end = self._timing_pool.pop()
+        except IndexError:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return _DeviceTiming(ts, meta, start, end)
+
+    def _device_span(self, kind: str, rid: int, dev: _DeviceTiming) -> None:
+        """A ``dev.*`` event from a pair of ``_timing_events`` the work's
+        continuation found complete: ``dur`` is the device clock's seconds
+        between them. The pair goes back to the pool."""
+        tr = _obs.TRACE
+        if tr is not None:
+            tr.evt(kind, rid, "engine", ts=dev.ts,
+                   dur=dev.start.elapsed_time(dev.end) * 1e-3, meta=dev.meta)
+        self._timing_pool.append((dev.start, dev.end))
 
     def _seat_slot(self, slot: int, req: Request, token0: torch.Tensor,
                    plen: int, ctx: Optional[List[int]] = None) -> None:
@@ -605,7 +649,9 @@ class ServeEngine:
             self._tables_dirty = False
 
     def _on_prefill_done(self, statuses, meta) -> None:
-        req, retire_now, slot, first_host, t0 = meta
+        req, retire_now, slot, first_host, t0, dev = meta
+        if dev is not None:
+            self._device_span(_obs_events.DEV_PREFILL, req.req_id, dev)
         if t0 is not None:
             tr = _obs.TRACE
             if tr is not None:
@@ -644,13 +690,18 @@ class ServeEngine:
                 live.remove((i, r))
 
     def _dispatch_step(self) -> bool:
-        t_host = time.perf_counter()
+        t_host = time.monotonic()
         if self.speculate:
             dispatched = self._dispatch_verify()
         else:
             dispatched = self._dispatch_decode()
         if dispatched:
-            self.stats["dispatch_s"] += time.perf_counter() - t_host
+            t_end = time.monotonic()
+            self.stats["dispatch_s"] += t_end - t_host
+            tr = _obs.TRACE
+            if tr is not None:
+                tr.evt(_obs_events.ENGINE_DISPATCH, -1, "engine", ts=t_host,
+                       dur=t_end - t_host)
         return dispatched
 
     def _dispatch_decode(self) -> bool:
@@ -673,7 +724,12 @@ class ServeEngine:
             self._upload(self._pos, out=self._meta[:S])
         # dense mode: every slot steps, as under the reference's vmap; an
         # idle slot's rows are garbage until a prefill overwrites them
+        tr = _obs.TRACE
+        dev = self._timing_events(tr.now(), len(live)) \
+            if tr is not None else None
         nxt = self._decode_graph()
+        if dev is not None:
+            dev.end.record()
         host = self._download(nxt)
         stepped: List[Tuple[int, Request, bool]] = []
         prio = 0
@@ -690,10 +746,9 @@ class ServeEngine:
         self.stats["slot_steps"] += len(live)
         self.stats["padded_steps"] += S - len(live)
         self.stats["max_active"] = max(self.stats["max_active"], len(live))
-        tr = _obs.TRACE
         t0 = tr.now() if tr is not None else None
         self.engine.continue_when(TensorOp(nxt, payload=host),
-                                  self._on_step_done, (stepped, host, t0),
+                                  self._on_step_done, (stepped, host, t0, dev),
                                   cr=self.cr_steps, flags=_step_flags(prio))
         return True
 
@@ -702,8 +757,10 @@ class ServeEngine:
         finished on the device: deliver each slot's token, then retire
         slots that finished — by budget, stop sequence or deadline —
         releasing their pages in this same continuation."""
-        stepped, host, t0 = meta
+        stepped, host, t0, dev = meta
         self._inflight -= 1
+        if dev is not None:
+            self._device_span(_obs_events.DEV_STEP, -1, dev)
         arr = host.numpy()
         now = time.monotonic()
         tr = _obs.TRACE
@@ -777,7 +834,12 @@ class ServeEngine:
                                                    int(self._pos[i]), W)
         self._upload(meta, out=self._meta)
         self._refresh_tables()
+        tr = _obs.TRACE
+        dev = self._timing_events(tr.now(), len(live)) \
+            if tr is not None else None
         emitted, accepts = self._verify_graph()
+        if dev is not None:
+            dev.end.record()
         emitted_host = self._download(emitted)
         accepts_host = self._download(accepts)
         self._verifying.update(i for i, _ in live)
@@ -788,11 +850,10 @@ class ServeEngine:
         self.stats["padded_steps"] += S - len(live)
         self.stats["draft_proposed"] += int(n_drafts.sum())
         self.stats["max_active"] = max(self.stats["max_active"], len(live))
-        tr = _obs.TRACE
         t0 = tr.now() if tr is not None else None
         self.engine.continue_when(
             TensorOp(emitted, payload=emitted_host), self._on_verify_done,
-            (live, emitted_host, accepts_host, n_drafts, t0),
+            (live, emitted_host, accepts_host, n_drafts, t0, dev),
             cr=self.cr_steps,
             flags=_step_flags(max(r.priority for _, r in live)))
         return True
@@ -801,8 +862,10 @@ class ServeEngine:
         """Accept bookkeeping once the verify step and its host copies are
         complete: each slot advances by its accepted run plus one token; a
         slot whose run meets its budget retires here, mid-verify."""
-        live, emitted_host, accepts_host, n_drafts, t0 = meta
+        live, emitted_host, accepts_host, n_drafts, t0, dev = meta
         self._inflight -= 1
+        if dev is not None:
+            self._device_span(_obs_events.DEV_STEP, -1, dev)
         emitted = emitted_host.numpy()
         accepts = accepts_host.numpy()
         now = time.monotonic()

@@ -24,6 +24,8 @@ import torch
 
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import AUDIO, ModelConfig
+from repro_torch.obs import events as _obs_events
+from repro_torch.obs import tracer as _obs
 from repro_torch.optim import (OptConfig, adamw_init, adamw_update,
                                clip_by_global_norm, constant, opt_state_specs)
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
@@ -66,7 +68,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     ``grad_spec_tree``: logical-axis tree (= param specs). When given,
     per-microbatch gradients are constrained to the weight sharding, which
     lowers the data-parallel sync as reduce-scatters instead of full
-    all-reduces (the reference's §Perf optimization)."""
+    all-reduces (the reference's §Perf optimization).
+
+    While tracing, each call is a ``train.dispatch`` span: the host's time
+    to enqueue the forward, backward and update."""
     loss_fn = loss_fn or default_loss_fn(cfg)
     lr_schedule = lr_schedule or constant(opt_cfg.lr)
 
@@ -116,4 +121,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return new_state, metrics
 
-    return train_step
+    def traced_step(state, batch):
+        tr = _obs.TRACE
+        if tr is None:
+            return train_step(state, batch)
+        t0 = tr.now()
+        out = train_step(state, batch)
+        tr.evt(_obs_events.TRAIN_DISPATCH, -1, "train", ts=t0,
+               dur=tr.now() - t0)
+        return out
+
+    return traced_step

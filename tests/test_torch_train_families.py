@@ -258,6 +258,30 @@ def test_rmsnorm_backward_plain_at_16384_columns_matches_jax_vjp():
 LAUNCH_CELLS = {"mamba2_370m": (2, 32, 4), "whisper_large_v3": (2, 32, 4)}
 
 
+@pytest.fixture
+def _reference_prefetch_closes(monkeypatch):
+    """The reference's ``PrefetchPipeline`` re-posts a fill from each
+    fill's continuation, and ``close`` cancels a queued fill while holding
+    the pool's shutdown lock: the cancelled fill's continuation runs there
+    and re-posts, waiting on that same lock for ever. A closed pipeline
+    posts nothing here, so the launcher's teardown cannot hang; what it
+    trains is unchanged."""
+    from repro.data import pipeline as jpipeline
+    cls = jpipeline.PrefetchPipeline
+    post, close = cls._post_fill, cls.close
+
+    def post_unless_closed(self):
+        if not getattr(self, "_closed", False):
+            post(self)
+
+    def close_first(self):
+        self._closed = True
+        close(self)
+    monkeypatch.setattr(cls, "_post_fill", post_unless_closed)
+    monkeypatch.setattr(cls, "close", close_first)
+
+
+@pytest.mark.usefixtures("_reference_prefetch_closes")
 @pytest.mark.parametrize("arch", sorted(LAUNCH_CELLS))
 def test_cpu_launcher_starts_at_the_jax_launchers_loss_and_falls(tmp_path,
                                                                  arch):
