@@ -33,14 +33,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Sq = Sk = 1500 (whisper's encoder) and with one row a clip against
    1500 keys at B = 8 (its cross-attention at a decode step), flash
    causal at head_dim 128 over 48/8 heads at Sq 1536 (internvl2's
-   prefill of 1024 patches and 512 tokens);
+   prefill of 1024 patches and 512 tokens); and the dense decode's route
+   (the paged kernel on a dense cache viewed as pages in place) against
+   the grouped einsums it replaced and SDPA at zamba2's (8 slots of 4096
+   positions, and the zamba2-longctx cell's 32), whisper's, internvl2's
+   and the unfused paged path's decode steps;
 3g. graph edges — a paged decode call and an SSD scan captured into a
    CUDA graph: how many of its edges kept programmatic dependent launch,
    and its replay bit-equal to the eager calls;
 4. fp32 identity — ``paper_demo`` at full width in fp32 served by the
    engine (paged kernel, decode step replayed as a CUDA graph) must emit
-   the tokens of the port's ``greedy_generate`` oracle (dense decode, no
-   paged kernel, eager) up to the first near tie; then the same with
+   the tokens of the port's ``greedy_generate`` oracle (dense decode,
+   eager) up to the first near tie; then the same with
    ``speculate=4`` on repetitive prompts (the verify step's graph; drafts
    must be accepted), and a ``ServeClient`` whose loop thread replays the
    graphs captured on this thread must stream the engine's tokens;
@@ -195,8 +199,9 @@ every pool must end with no page in use.
    decode and verify captured as step graphs): 23a fp32, phase 4's
    requests plain and with ``speculate=4``, tokens equal to phase 4's
    fused engine and to greedy up to the first near tie; 23b bf16, phase
-   5's workload as the path ``paper_demo_unfused`` (no paged-kernel
-   launch), beside phase 5's fused numbers of the same call; 23c its
+   5's workload as the path ``paper_demo_unfused`` (the dense decode's
+   paged kernel on the gathered view in place of the fused kernel on the
+   pool), beside phase 5's fused numbers of the same call; 23c its
    card-bound loop, as 5b;
 24. the bench on the card (``repro_torch.bench``), bf16 ``paper_demo`` at
    full width: a 48-request Poisson trace of phase 5's length ranges
@@ -457,18 +462,30 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # ----------------------------------------------------------------- kernels
 def check_rmsnorm(dtype, rows, D, gen, dev):
+    """rmsnorm at one shape against its plain version. A bf16 case's error
+    is taken against the plain version run in fp32 on the same inputs, as
+    ``check_flash``'s is (ROADMAP C.10): the kernel and the bf16 plain
+    version round one fp32 result to bf16 each, and where it sits on a
+    rounding boundary they differ by one ulp, 2^-5 past an output of 4,
+    more than the bf16 tolerance. ``low`` logs the kernel against the bf16
+    plain version, and that version against the fp32 one."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as K
     x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
     scale = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev))
     out = K.rmsnorm(x, scale)
     ref = K.rmsnorm_plain(x, scale)
+    low = None
+    if dtype is not torch.float32:
+        exact = K.rmsnorm_plain(x.float(), scale)
+        low = dict(err_bf16=max_err(out, ref), plain_err=max_err(ref, exact))
+        ref = exact
     err = max_err(out, ref)
     item = x.element_size()
     scale_lib = scale.to(dtype)
     kernel = lambda: K.rmsnorm(x, scale)                       # noqa: E731
     library = lambda: F.rms_norm(x, (D,), scale_lib, 1e-5)     # noqa: E731
-    return dict(err=err, ms=median_ms(kernel),
+    return dict(err=err, low=low, ms=median_ms(kernel),
                 plain_ms=median_ms(lambda: K.rmsnorm_plain(x, scale)),
                 library_ms=median_ms(library),
                 device=(device_ms(kernel)[0], device_ms(library)[0]),
@@ -754,6 +771,80 @@ def check_paged(kind, dtype, gen, dev, **heads):
                     q, kn, vn, kp_p, vp_p, tab, pos, nv, page_size=16)),
                 library_ms=None, bound=bound_ms(n_bytes, flops, dtype),
                 shape=shape, head_dim=q.shape[-1])
+
+
+def check_dense_paged(dtype, gen, dev, B, L, KV, G, hd, positions=None):
+    """Dense decode at one shape, the way ``attention.decode_attention``
+    runs it: the paged kernel over a ``(B, L, KV, hd)`` cache viewed as
+    pages in place (``attention.dense_pages``), one new row a slot, every
+    slot at its position (default: spread over the cache, the last slot
+    idle at 0). Against the grouped einsums of ``attention._grouped`` with
+    its ``_write_rows``, the plain version and the path the route replaced:
+    the caches bit-equal after one call each, the outputs (a bf16 case's
+    against ``_grouped`` in fp32 on the same inputs, as ``check_flash``
+    does). SDPA over the cache laid out (B, KV, L, hd) beforehand, with a
+    boolean mask of each slot's positions, is the library yardstick. The
+    bound: the K/V rows the slots hold and the new rows, q and the output,
+    and the splits' fp32 partials written and read, at HBM's rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as K
+    from repro_torch.models import attention
+    from repro_torch.models.common import ModelConfig
+    H = KV * G
+    cfg = ModelConfig(n_heads=H, n_kv_heads=KV, head_dim=hd, head_pad_to=1,
+                      dtype=dtype, param_dtype=dtype)
+    if positions is None:
+        positions = [int(p) for p in np.linspace(L // 4, L - 1, B - 1)] + [0]
+    pos = torch.as_tensor(positions, device=dev)
+    pages = attention.dense_pages(cfg, B, L, pos, 1, dev)
+    ps = pages.page_size
+    q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dtype)
+    kn = torch.randn((B, 1, KV, hd), generator=gen, device=dev).to(dtype)
+    vn = torch.randn((B, 1, KV, hd), generator=gen, device=dev).to(dtype)
+    cache = {n: torch.randn((B, L, KV, hd), generator=gen,
+                            device=dev).to(dtype) for n in ("k", "v")}
+    plain_cache = {n: t.clone() for n, t in cache.items()}
+    pools = [cache[n].view(B * L // ps, ps, KV, hd) for n in ("k", "v")]
+    idx = pages.tables, pages.positions, pages.n_valid
+    kernel = lambda: K.paged_attention(  # noqa: E731
+        q, kn, vn, *pools, *idx, page_size=ps, scale=hd ** -0.5)[0]
+    valid = torch.arange(L, device=dev)[None, None, :] <= pos[:, None, None]
+
+    def plain():
+        attention._write_rows(plain_cache, kn, vn, pos[:, None] % L)
+        return attention._grouped(q, plain_cache["k"], plain_cache["v"],
+                                  valid, cfg)
+    out, ref = kernel(), plain()
+    pools_exact = all(torch.equal(cache[n], plain_cache[n])
+                      for n in ("k", "v"))
+    low = None
+    if dtype is not torch.float32:
+        exact = attention._grouped(
+            q.float(), plain_cache["k"].float(), plain_cache["v"].float(),
+            valid, dataclasses.replace(cfg, dtype=torch.float32))
+        low = dict(err_bf16=max_err(out, ref), plain_err=max_err(ref, exact))
+        ref = exact
+    err = max_err(out, ref)
+    del out, ref
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (cache[n].transpose(1, 2).contiguous() for n in ("k", "v"))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=valid[:, None], enable_gqa=True)
+    item = q.element_size()
+    held = sum(p + 1 for p in positions)
+    n_split = -(-L // K.SPLIT_LEN)
+    n_bytes = (2 * held * KV * hd + 2 * q.numel() + 2 * kn.numel()) * item \
+        + 2 * n_split * B * H * (hd + 2) * 4
+    runs = 10 if B * L >= 1 << 16 else TIMED_RUNS
+    shape = (f"dense B={B} L={L} ps={ps} KV={KV} G={G} hd={hd} positions "
+             f"{min(positions[:-1])}..{max(positions)}, slot {B - 1} at "
+             f"{positions[-1]}")
+    return dict(err=err, low=low, pools_exact=pools_exact,
+                ms=median_ms(kernel, runs=runs),
+                plain_ms=median_ms(plain, runs=runs),
+                library_ms=median_ms(library, runs=runs),
+                bound=bound_ms(n_bytes, 4 * H * hd * held, dtype),
+                shape=shape, head_dim=hd)
 
 
 def busy_ms(fn, runs: int = 5, by_name: bool = False):
@@ -1192,6 +1283,33 @@ def phase_kernels(dev, label):
             ("flash_attention", vp, check_flash(dtype, gen, dev,
                                                 B=vl["batch"], **fv)),
             ("flash_attention", None, check_flash(dtype, gen, dev, **fv))]
+        # the dense decode, the paged kernel on a dense cache viewed as
+        # pages in place: zamba2's sites (20b's 8 slots of 4096 positions
+        # at its prompts' lengths, and the zamba2-longctx cell's 32 slots
+        # at 1023-4095), the unfused paged path's gathered view (23b:
+        # paper_demo's 8 slots of 1024), whisper's decoder (21b: its
+        # self-attention over max_target_len) and internvl2 (22b: past
+        # the prompt)
+        zh = dict(KV=z["KV"], G=z["H"] // z["KV"], hd=z["hd"])
+        cases += [
+            ("paged_attention", zp, check_dense_paged(
+                dtype, gen, dev, B=8, L=ZAMBA_CACHE,
+                positions=[64, 300, 777, 1024, 1500, 2048, 2100, 0], **zh)),
+            ("paged_attention", None, check_dense_paged(
+                dtype, gen, dev, B=32, L=4096,
+                positions=[int(p) for p in np.linspace(1023, 4095, 31)]
+                + [0], **zh)),
+            ("paged_attention", "paper_demo_unfused", check_dense_paged(
+                dtype, gen, dev, B=8, L=1024, KV=4, G=3, hd=64)),
+            ("paged_attention", wp, check_dense_paged(
+                dtype, gen, dev, B=w["clips"], L=wcfg.max_target_len,
+                KV=w["KV"], G=w["H"] // w["KV"], hd=w["hd"],
+                positions=list(range(1, 64, 9)) + [0])),
+            ("paged_attention", vp, check_dense_paged(
+                dtype, gen, dev, B=vl["batch"], L=vl["rows"] + VLM_NEW,
+                KV=vl["KV"], G=vl["H"] // vl["KV"], hd=vl["hd"],
+                positions=[vl["rows"] + 9, vl["rows"] + 20,
+                           vl["rows"] + 31, 0]))]
         for name, path, r in cases:
             tol = TOL[dtype]
             ok = r.get("err_y", r["err"]) <= tol \
@@ -2635,9 +2753,10 @@ def phase_unfused(dev, ident, bf16, fused_d, label):
     copied back, captured as step graphs like the fused steps. 23a fp32:
     phase 4's requests, plain and with ``speculate=4``, must emit phase 4's
     fused tokens and greedy's up to the first near tie; 23b bf16: phase
-    5's workload as the path ``paper_demo_unfused`` (no paged-kernel
-    launch), beside phase 5's fused numbers of this call; 23c its
-    card-bound loop. Returns 23b's launches."""
+    5's workload as the path ``paper_demo_unfused`` (the paged kernel on
+    the gathered view, as the dense decode runs it), beside phase 5's
+    fused numbers of this call; 23c its card-bound loop. Returns 23b's
+    launches."""
     from repro_torch.serve import Request
     t_phase = time.perf_counter()
     cfg, params = ident["cfg"], ident["params"]
@@ -2673,7 +2792,7 @@ def phase_unfused(dev, ident, bf16, fused_d, label):
     work = serve_workload(bcfg, np.random.default_rng(2))
     launches, host_ms, d = family_serve("23b", bcfg, bparams, dev, work,
                                        unfused_engine, label)
-    if launches["paged_attention"] != 0 or d["prefix_hits"] <= 0:
+    if d["prefix_hits"] <= 0:
         raise AssertionError(f"23b: {launches}, prefix_hits "
                              f"{d['prefix_hits']}")
     log(f"phase 23b: unfused / fused paper_demo on {label}, this call: "
@@ -2984,8 +3103,8 @@ def tree_numel(tree) -> int:
 def step_bytes(eng) -> int:
     """The least bytes a decode step moves: every weight read once (of an
     untied embedding table only the slots' rows, left out), and in dense
-    mode the whole per-slot cache, which the step reads whatever the
-    positions."""
+    mode the whole per-slot cache, which the step whose card time
+    ``family_serve`` takes reads: its slots sit near the cache's end."""
     emb = eng.params["embed"]["tokens"]
     n = tree_bytes(eng.params)
     if not eng.cfg.tied_embeddings:
@@ -3008,6 +3127,7 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     suffix_steps, prefix_hits, and its tokens/s, TTFT p50/p99 s and card
     ms a step)."""
     from repro_torch.core import TensorOp
+    from repro_torch.kernels import paged_attention
     from repro_torch.models.common import HYBRID, SSM
     from repro_torch.serve import Request, RequestState
     if not sync_detector_works(dev):
@@ -3049,9 +3169,9 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     else:
         S = eng.max_batch
         if eng._dense_kv:
-            # the dense decode reads a slot's whole cache whatever its
-            # position: every slot past danube's window (its whole ring
-            # valid), or zamba2's near the end of its cache
+            # the card's time where a step reads a slot's whole cache:
+            # every slot past danube's window (its whole ring valid), or
+            # zamba2's near the end of its cache
             L = eng._cache["k"].shape[2]
             i = torch.arange(S, device=dev) * 100
             eng._meta[:S].copy_(i + 4096 if cfg.window else L - 1 - i)
@@ -3105,10 +3225,15 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
         raise AssertionError(f"{tag}: {m}; {replays} replays for "
                              f"{steps} steps")
     cold = prefills - d["suffix_steps"]
+    # the paged kernel at every attention layer of a step: fused, or the
+    # dense decode (dense mode, the unfused steps' gathered view) where
+    # the head_dim has an instantiation and no window makes a ring
+    paged = eng.fused or (attn_layers and not cfg.window and
+                          cfg.resolved_head_dim in paged_attention.HEAD_DIMS)
     want = {"rmsnorm": norms * (prefills + steps),
             "flash_attention": attn_layers * cold,
-            "paged_attention": L * (steps + d["suffix_steps"])
-            if eng.fused else 0,
+            "paged_attention": attn_layers * (steps + d["suffix_steps"])
+            if paged else 0,
             "ssd_scan": L * prefills if ssm else 0,
             **dict.fromkeys(BACKWARD_NAMES, 0)}   # serving: no gradient
     if launches != want:
@@ -3649,7 +3774,8 @@ def whisper_serve(dev, label):
     launches = read_counts()
     want = {"rmsnorm": 2 * cfg.n_enc_layers + 1 + (3 * cfg.n_dec_layers + 1)
             * (2 + n), "flash_attention": cfg.n_enc_layers
-            + cfg.n_dec_layers * (2 + n), "paged_attention": 0,
+            + cfg.n_dec_layers * (2 + n),
+            "paged_attention": cfg.n_dec_layers * (2 + n),
             "ssd_scan": 0, **dict.fromkeys(BACKWARD_NAMES, 0)}
     eager = greedy_eager(lambda t, p: decode(params, eager_state, t, p)[0],
                          first, 1, n)
@@ -3667,12 +3793,16 @@ def whisper_serve(dev, label):
     busy = busy_ms(eager_step, by_name=True)
     # the least bytes a step moves: the decoder's weights, the tied
     # embedding (the logits read all of it) and the final norm once, the
-    # cross-KV and the whole self-KV cache (the dense decode reads it
-    # whatever the position); the prefill's operations: the frontend, the
-    # encoder's and the cross-KV projections' products, the encoder's
-    # attention over every (frame, frame) pair
+    # cross-KV and the self-KV rows the timed replay holds (positions 0 ..
+    # WHISPER_TOKENS: the dense decode reads a row's held positions only);
+    # the prefill's operations: the frontend, the encoder's and the
+    # cross-KV projections' products, the encoder's attention over every
+    # (frame, frame) pair
+    self_kv = tree_bytes(state["self"]) * (WHISPER_TOKENS + 1) \
+        // cfg.max_target_len
     step_bytes_ = tree_bytes(params["decoder"]) + tree_bytes(params["embed"]) \
-        + tree_bytes(params["dec_norm"]) + tree_bytes(state)
+        + tree_bytes(params["dec_norm"]) + tree_bytes(state["cross"]) \
+        + self_kv
     d, hd = cfg.d_model, cfg.resolved_head_dim
     enc_w = tree_numel(params["encoder"])
     cross_w = 2 * d * cfg.padded_kv_heads * hd * cfg.n_dec_layers
@@ -3694,8 +3824,8 @@ def whisper_serve(dev, label):
         f"replay, median of 20) against a bytes bound of {step_bound:.3f} ms "
         f"({step_bytes_ / 1e9:.2f} GB: decoder weights, embedding, cross-KV "
         f"{tree_bytes(state['cross']) / 1e9:.2f} GB, self-KV "
-        f"{tree_bytes(state['self']) / 1e9:.2f} GB at "
-        f"{cfg.max_target_len}); {B * WHISPER_TOKENS} tokens in "
+        f"{self_kv / 1e9:.2f} GB of the {WHISPER_TOKENS + 1} positions held "
+        f"of {cfg.max_target_len}); {B * WHISPER_TOKENS} tokens in "
         f"{prefill_ms / 1e3 + decode_s:.3f} s = {tokens_s:.1f} tokens/s; "
         f"replayed tokens equal to the eager loop's ({B}x{n}); "
         f"{peak_note(start)}")
@@ -3831,7 +3961,7 @@ def vlm_serve(dev, label):
     launches = read_counts()
     L = cfg.n_layers
     want = {"rmsnorm": (2 * L + 1) * (2 + n), "flash_attention": L,
-            "paged_attention": 0, "ssd_scan": 0,
+            "paged_attention": L * (1 + n), "ssd_scan": 0,
             **dict.fromkeys(BACKWARD_NAMES, 0)}
     if launches != want:
         raise AssertionError(f"22b: launches {launches}, one prefill, the "

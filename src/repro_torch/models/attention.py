@@ -7,10 +7,14 @@ Counterpart of ``repro/models/attention.py`` (``head_mask``,
 ``precompute_cross_kv`` and ``cross_attention``). Weights keep the
 reference's layouts: ``wq`` ``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``,
 ``wo`` ``(H, hd, d)``. Prefill attention is the flash kernel; paged decode
-the paged kernel; dense decode is grouped PyTorch matmuls, as the
-reference computes it with einsums outside any Pallas kernel.
-Cross-attention runs the flash kernel non-causally against the encoder's
-keys, at every query length (``Sq = 1`` at each decode step).
+the paged kernel. Dense decode is the paged kernel too, reading the dense
+cache in place as a pool whose row ``b`` owns pages ``b·T .. b·T + T - 1``
+(``dense_pages``); where it cannot, it is grouped PyTorch matmuls, as the
+reference computes it with einsums outside any Pallas kernel: the
+sliding-window ring, q under a mesh (a DTensor), and head_dims the paged
+kernel has no instantiation for. Cross-attention runs the flash kernel
+non-causally against the encoder's keys, at every query length (``Sq = 1``
+at each decode step).
 
 Under a mesh (``repro_torch.sharding``) the reference's ``constrain`` and
 ``gathered`` sites place the activations; the flash kernel then runs on
@@ -25,7 +29,7 @@ port rolls them into place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -285,15 +289,55 @@ def _write(c: torch.Tensor, new: torch.Tensor, slots: torch.Tensor) -> None:
     _write(c.to_local(), new.to_local(), slots.to_local())
 
 
+class DensePages(NamedTuple):
+    """A dense cache ``(B, L, KV, hd)`` read as the paged kernel's pool
+    ``(B·T, page_size, KV, hd)``, ``T = L / page_size``: row ``b``'s table
+    names its own pages ``b·T .. b·T + T - 1`` in order, so the kernel
+    reads each row's positions in place and writes its new rows itself."""
+    tables: torch.Tensor       # (B, T) int32
+    positions: torch.Tensor    # (B,) int32: each row's first new position
+    n_valid: torch.Tensor      # (B,) int32: S1 for every row
+    page_size: int
+
+
+def dense_pages(cfg: ModelConfig, batch: int, L: int, pos: Any, S1: int,
+                device: torch.device) -> Optional[DensePages]:
+    """The page index of a dense cache of ``L`` positions for a decode of
+    ``S1`` tokens a row at ``pos`` (as ``decode_attention`` takes it), or
+    None where the decode keeps ``_grouped``: a sliding-window ring, whose
+    slots are not causal by position, or a head_dim the paged kernel has
+    no instantiation for. A step builds it once for all its sites.
+
+    The page size is the largest power of two dividing ``L``, at most the
+    kernel's split of ``SPLIT_LEN`` positions, whose table entries the
+    kernel stages beside the split. Nothing is read back on the host, so
+    the index is built inside a captured step graph too."""
+    if cfg.window or cfg.resolved_head_dim not in paged_kernel.HEAD_DIMS:
+        return None
+    ps = min(L & -L, paged_kernel.SPLIT_LEN)
+    T = L // ps
+    return DensePages(
+        tables=torch.arange(batch * T, dtype=torch.int32,
+                            device=device).view(batch, T),
+        positions=row_positions(pos, batch, device).to(torch.int32),
+        n_valid=torch.full((batch,), S1, dtype=torch.int32, device=device),
+        page_size=ps)
+
+
 def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
                      cache: Dict[str, torch.Tensor], pos: Any,
-                     rope: Optional[Rope] = None
+                     rope: Optional[Rope] = None,
+                     pages: Optional[DensePages] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode ``S1`` new tokens per row, row ``b`` at absolute positions
     ``pos[b] .. pos[b]+S1-1`` (``pos`` an int or a ``(B,)`` tensor), against
-    a dense cache (B, L, KV, hd), written in place. Grouped-einsum GQA (the
-    cache is never repeated to the q-head count), fp32 softmax with the
-    ``-1e30`` mask.
+    a dense cache (B, L, KV, hd), written in place; ``pages`` may pass
+    ``dense_pages`` of the same call, built once by a step of many sites.
+
+    Where ``dense_pages`` gives an index and q's heads are whole on this
+    process (no DTensor), the paged kernel reads the cache in place and
+    writes the new rows. Otherwise: grouped-einsum GQA (the cache is never
+    repeated to the q-head count), fp32 softmax with the ``-1e30`` mask.
 
     With a sliding window the cache is a ring (reference
     ``decode_attention``, one token per row): the new key goes to slot
@@ -311,6 +355,10 @@ def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
     if rope is None:
         rope = _rope(cfg, qpos)
     q, k, v = _project_qkv(params, x, cfg, rope)
+    if pages is None:
+        pages = dense_pages(cfg, B, L, pos, S1, dev)
+    if pages is not None and not is_dtensor(q):
+        return _paged_in_place(params, q, k, v, cache, pages, cfg), cache
     # the remainder wraps the ring and keeps any other write in bounds
     slots = qpos % L
     _write_rows(cache, k, v, slots)
@@ -331,6 +379,28 @@ def decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
     else:
         o = _grouped(q, ck, cv, valid, cfg)
     return _out_proj(params, o, cfg), cache
+
+
+def _paged_in_place(params, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    pages: DensePages, cfg: ModelConfig) -> torch.Tensor:
+    """The paged kernel over the cache viewed as its pool: it writes the
+    new rows ``k``/``v (B, S1, KV, hd)`` and attends each row's positions
+    up to its own. ``.view`` raises on a cache it cannot view in place,
+    where ``.reshape`` would copy and the writes would go to the copy.
+
+    The engine steps an idle slot at position 0 and a draining one past
+    its request's end, which may pass ``L``; the kernel clamps a write's
+    table entry to the row's last, so with these tables every write stays
+    in the row's own pages, as ``qpos % L`` keeps ``_grouped``'s there."""
+    B, L, KV, hd = cache["k"].shape
+    ps = pages.page_size
+    k_pool = cache["k"].view(B * L // ps, ps, KV, hd)
+    v_pool = cache["v"].view(B * L // ps, ps, KV, hd)
+    o, _, _ = paged_kernel.paged_attention(
+        q, k, v, k_pool, v_pool, pages.tables, pages.positions,
+        pages.n_valid, page_size=ps, scale=cfg.resolved_head_dim ** -0.5)
+    return _out_proj(params, o.to(cfg.dtype), cfg)
 
 
 def _grouped(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

@@ -15,8 +15,9 @@ reference's weights over unchanged.
 The encoder's attention is the flash kernel, non-causal over the frames;
 the cross-attention is the flash kernel against the encoder's keys at
 every query length (one row a decode step); the decoder's self-attention
-in a decode step is ``attention.decode_attention`` (grouped einsums, as the
-reference computes it outside any Pallas kernel). The decode state is the
+in a decode step is ``attention.decode_attention`` (the paged kernel
+reading the self-attention cache in place, where the reference computes
+it with einsums outside any Pallas kernel). The decode state is the
 reference's layer-stacked layout, ``{"cross": {"k", "v": (L, B, T_enc,
 KVp, hd)}, "self": {"k", "v": (L, B, max_len, KVp, hd)}}``; a decode step
 writes the self-attention cache in place. ``param_specs`` is the
@@ -221,10 +222,14 @@ def encdec_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
     (B, S1, V), state)``."""
     x = _embed_dec(params, token, cfg, pos0=pos)
     views = layers if layers is not None else layer_views(params, "decoder")
+    B, S1 = token.shape
+    pages = attn_mod.dense_pages(cfg, B, state["self"]["k"].shape[2], pos,
+                                 S1, x.device)
     for i, lp in enumerate(views):
         h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
         a, _ = attn_mod.decode_attention(lp["self_attn"], h, cfg,
-                                         _layer(state["self"], i), pos)
+                                         _layer(state["self"], i), pos,
+                                         pages=pages)
         x = x + a
         h = rmsnorm(lp["norm_x"], x, cfg.norm_eps)
         x = x + attn_mod.cross_attention(lp["cross_attn"], h,

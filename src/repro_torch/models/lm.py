@@ -204,10 +204,10 @@ def _block_prefill(lp, x, cache, cfg: ModelConfig, rope):
     return _mlp_residual(lp, x, h, a, cfg), cache
 
 
-def _block_decode(lp, x, cache, pos, cfg: ModelConfig, rope):
+def _block_decode(lp, x, cache, pos, cfg: ModelConfig, rope, pages):
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     a, cache = attn_mod.decode_attention(lp["attn"], h, cfg, cache, pos,
-                                         rope)
+                                         rope, pages)
     return _mlp_residual(lp, x, h, a, cfg), cache
 
 
@@ -453,21 +453,23 @@ def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return lm_logits(params["embed"], x, cfg), cache
     B, S1 = token.shape
-    attn_mod.check_decode_span(cfg, cache["k"].shape[2], pos, S1)
+    L = cache["k"].shape[2]
+    attn_mod.check_decode_span(cfg, L, pos, S1)
     pos = attn_mod.row_positions(pos, B, x.device)
     rope = _rope(cfg, pos[:, None] + torch.arange(S1, device=x.device))
+    pages = attn_mod.dense_pages(cfg, B, L, pos, S1, x.device)
     if cfg.family == HYBRID:
         x = _apply_hybrid(
             params, x, cfg, views,
             lambda ap, h, site: attn_mod.decode_attention(
                 ap, h, cfg, _layer_cache(cache, site, _KV_LEAVES), pos,
-                rope)[0],
+                rope, pages)[0],
             lambda lp, x, i: _block_ssm_decode(
                 lp, x, _layer_cache(cache, i, _SSM_LEAVES), cfg))
     else:
         for i, lp in enumerate(views):
             x, _ = _block_decode(lp, x, _layer_cache(cache, i), pos, cfg,
-                                 rope)
+                                 rope, pages)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg), cache
 

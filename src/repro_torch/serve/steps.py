@@ -15,12 +15,13 @@ table on device (attend + accept-masked KV write), with ``n_valid`` as the
 write mask: 0 = idle slot, 1 = decode, ``1 + K`` = verify window, the
 real tail length = suffix prefill. The ``make_paged_*`` (unfused) steps
 gather each slot's pages into a contiguous view, run the ordinary
-``lm.lm_decode_step`` against it (the dense einsum attention, no paged
-kernel) and copy the written pages back into the pool. The decode,
-verify and dense-mode steps have fixed shapes, so the engine captures
-them as CUDA graphs (``serve.graphs``); everything they compute, the
-argmax, the verify's accept count and the unfused steps' page indices
-included, stays on the device.
+``lm.lm_decode_step`` against it (the dense decode: the paged kernel on
+the view in place, where the head_dim has an instantiation) and copy the
+written pages back into the pool. The decode, verify and dense-mode
+steps have fixed shapes, so the engine captures them as CUDA graphs
+(``serve.graphs``); everything they compute, the argmax, the verify's
+accept count and the unfused steps' page indices included, stays on the
+device.
 """
 from __future__ import annotations
 

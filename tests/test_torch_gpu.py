@@ -199,6 +199,68 @@ def test_paged_attention_kernel_at_head_dim_128(cuda, dtype, G, W, positions,
     assert torch.equal(kk, kq) and torch.equal(vk, vq)
 
 
+def _zamba2(dtype=torch.bfloat16):
+    from repro_torch.configs import get_config
+    return get_config("zamba2_1p2b", dtype=dtype, param_dtype=dtype)
+
+
+def test_dense_decode_route_at_the_zamba2_longctx_shape(cuda):
+    """zamba2-longctx's attention site: 32 slots on a 4096-position bf16
+    cache, 32/32 heads of 128 at the shared block's width 4096, slots at
+    positions 1023 .. 4095 and one idle at the engine's idle position 0.
+    The route (the paged kernel on the cache in place, one launch) against
+    ``_grouped`` on the card: caches equal bit for bit, outputs within the
+    bf16 tolerance. They differ by rounding: ``_grouped`` rounds the scores
+    and probabilities to bf16 before the softmax and the PV product, the
+    kernel keeps them in fp32 and sums its 64 splits' partials."""
+    from repro_torch.models import attention
+    cfg = _zamba2()
+    B, L, width = 32, 4096, 2 * cfg.d_model
+    KV, hd = cfg.padded_kv_heads, cfg.resolved_head_dim
+    assert (cfg.padded_heads, KV, hd) == (32, 32, 128)
+    params = attention.init_attention(cfg, cuda, "cuda", width=width)
+    x = _randn(cuda, (B, 1, width), torch.bfloat16)
+    pos = torch.linspace(1023, 4095, B - 1).long().tolist() + [0]
+    pos = torch.tensor(pos, device="cuda")
+    cache = {n: _randn(cuda, (B, L, KV, hd), torch.bfloat16)
+             for n in ("k", "v")}
+    ref_cache = {n: t.clone() for n, t in cache.items()}
+    n0 = pa.LAUNCHES
+    out, _ = attention.decode_attention(params, x, cfg, cache, pos)
+    assert pa.LAUNCHES == n0 + 1
+    qpos = pos[:, None]
+    q, k, v = attention._project_qkv(params, x, cfg,
+                                     attention._rope(cfg, qpos))
+    attention._write_rows(ref_cache, k, v, qpos % L)
+    valid = torch.arange(L, device="cuda")[None, None, :] <= qpos[:, :, None]
+    ref = attention._out_proj(
+        params, attention._grouped(q, ref_cache["k"], ref_cache["v"], valid,
+                                   cfg), cfg)
+    assert pa.LAUNCHES == n0 + 1
+    assert torch.equal(cache["k"], ref_cache["k"])
+    assert torch.equal(cache["v"], ref_cache["v"])
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= TOL[torch.bfloat16], err
+
+
+def test_eager_zamba2_decode_step_launches_the_paged_kernel_at_each_site(
+        cuda):
+    """One eager ``lm_decode_step`` of zamba2-1.2b at full width launches
+    the paged kernel once at each of its 7 shared-block sites (a graph
+    replay adds the same count back without a Python call)."""
+    from repro_torch.models import lm
+    cfg = _zamba2()
+    assert cfg.hybrid_sites == 7
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    cache = lm.init_cache(cfg, 4, 256, device="cuda")
+    token = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    pos = torch.tensor([0, 5, 100, 255], device="cuda")
+    n0 = pa.LAUNCHES
+    logits, _ = lm.lm_decode_step(params, token, cfg, cache, pos)
+    assert pa.LAUNCHES == n0 + cfg.hybrid_sites
+    assert bool(torch.isfinite(logits.float()).all())
+
+
 def test_attention_kernels_refuse_uninstantiated_head_dims(cuda):
     """No fallback: a head_dim without an instantiation raises on CUDA
     tensors (96 for both; 120 for the paged kernel, which no paged config

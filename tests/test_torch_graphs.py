@@ -286,15 +286,17 @@ def test_serve_client_replays_from_its_loop_thread_on_card(card):
 def test_unfused_step_graph_equals_the_eager_step_on_card(card, speculate):
     """``fused=False``: a replay of the captured unfused decode (or verify)
     step gives the eager step's outputs and pool on the same inputs, with
-    no paged kernel in it and no host sync (sync debug mode "error"
-    around the replay and a whole serve); the served tokens are greedy's
-    up to the first near tie."""
+    the paged kernel once a layer (the dense decode reading the gathered
+    pages in place) and no host sync (sync debug mode "error" around the
+    replay and a whole serve); the served tokens are greedy's up to the
+    first near tie."""
     cfg, params = _card_model(card)
     eng = ServeEngine(cfg, params, device=card, max_batch=4, page_size=16,
                       max_seq_len=128, speculate=speculate, fused=False)
     graph = eng._verify_graph if speculate else eng._decode_graph
     assert graph.graph is not None and not eng.fused
     assert dict((m.__name__, n) for m, n in graph.launches) == {
+        paged_attention.__name__: cfg.n_layers,
         rmsnorm.__name__: 2 * cfg.n_layers + 1}
     # a live-looking step on the static buffers: four slots at mixed
     # positions over disjoint pages, drafts and write tables for verify
@@ -361,7 +363,8 @@ def test_unfused_step_graph_equals_the_eager_step_on_card(card, speculate):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert graph.replays == eng.stats["steps"] > 0
-    assert paged_attention.LAUNCHES == 0
+    assert paged_attention.LAUNCHES == cfg.n_layers * (
+        eng.stats["steps"] + eng.stats["suffix_steps"])
     assert eng.metrics()["pages_in_use"] == 0
     for p, r in zip(prompts, reqs):
         want = greedy_generate(cfg, params, p[None], 24, 128,
