@@ -1,51 +1,34 @@
-"""Bytes a dense-mode decode step needs: every weight read once, the
-SSM and conv state of each live slot read once and written once, and (a
-hybrid) the KV positions each live slot holds read once and its new row
+"""Bytes a dense-mode decode step needs: every weight read once, each
+live slot's recurrent state (SSM and conv) read once and written once,
+and the KV positions each live slot holds read once and its new row
 written once. Positions held, not the cache's length: a step that reads
-the empty rest of its cache does more than it needs."""
+the empty rest of its cache does more than it needs. Each family's module
+(``families/<family>.py``) gives the three terms for its layers."""
 from __future__ import annotations
 
 from typing import Any, Mapping
 
-from perfbench.counts.model import leaves, sites
+from perfbench import families
 
-_SIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
+#: bytes an element of each type a configuration file may state
+SIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
 
 
 def weight_bytes(m: Mapping[str, Any], dtype: str) -> int:
-    """The weights a step reads: the token rows of the (tied) table, every
-    layer and the shared block; the fp32 leaves (A_log, D, dt_bias, norm
-    scales) at 4 bytes."""
-    s, d, L = m["ssm"], m["d_model"], m["n_layers"]
-    di = s["expand"] * d
-    H = di // s["head_dim"]
-    lv = leaves(m)
-    fp32 = L * (3 * H + di + d) + d
-    n = m["vocab_size"] * d + lv["layers"] + lv["final_norm"] - fp32
-    if m["family"] == "hybrid":
-        w = 2 * d
-        fp32 += 2 * w
-        n += lv["shared"] + lv["proj"] - 2 * w
-    return n * _SIZE[dtype] + fp32 * 4
+    """The weights a step reads: the token rows of the table and every
+    layer, each leaf in its own type."""
+    return families.of(m).weight_bytes(m, dtype)
 
 
 def state_bytes(m: Mapping[str, Any], dtype: str) -> int:
-    """One slot's SSM state (fp32) and conv state (the activations' type),
-    over all layers."""
-    s, d = m["ssm"], m["d_model"]
-    di = s["expand"] * d
-    H, N, G = di // s["head_dim"], s["state_dim"], s["n_groups"]
-    per = 4 * H * s["head_dim"] * N \
-        + _SIZE[dtype] * (s["conv_width"] - 1) * (di + 2 * G * N)
-    return m["n_layers"] * per
+    """One slot's recurrent state over all layers (0 without any)."""
+    return families.of(m).state_bytes(m, dtype)
 
 
 def kv_row_bytes(m: Mapping[str, Any], dtype: str) -> int:
-    """One position's K and V over every shared-block site (0 without
+    """One position's K and V over every attention layer (0 without
     attention)."""
-    if m["family"] != "hybrid":
-        return 0
-    return sites(m) * 2 * m["n_kv_heads"] * m["head_dim"] * _SIZE[dtype]
+    return families.of(m).kv_row_bytes(m, dtype)
 
 
 def step_bytes(m: Mapping[str, Any], dtype: str, live_slots: int,

@@ -1,6 +1,6 @@
 """The run of one cell: the device, the program's configuration as the
-file states it, the module of the cell's path (``serve_cell`` or
-``train_cell``), and the result line's object."""
+file states it (held to its family's sizes), the module of the cell's
+path (``serve_cell`` or ``train_cell``), and the result line's object."""
 from __future__ import annotations
 
 import sys
@@ -8,7 +8,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 
-from perfbench import spec
+from perfbench import families, spec
 
 #: the types a configuration file may state
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -29,27 +29,14 @@ def device_for(chips: int, check: bool = True) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def model_sizes(cfg: Any) -> Dict[str, Any]:
-    """The sizes of a ``repro_torch`` configuration, keyed as a
-    configuration file's ``model`` section."""
-    s = cfg.ssm
-    return {"family": cfg.family, "n_layers": cfg.n_layers,
-            "d_model": cfg.d_model, "vocab_size": cfg.vocab_size,
-            "padded_vocab": cfg.padded_vocab, "norm_eps": cfg.norm_eps,
-            "ssm": {"state_dim": s.state_dim, "head_dim": s.head_dim,
-                    "expand": s.expand, "conv_width": s.conv_width,
-                    "n_groups": s.n_groups, "chunk_size": s.chunk_size},
-            "hybrid_attn_every": cfg.hybrid_attn_every,
-            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-            "rope_theta": cfg.rope_theta}
-
-
 def program_config(conf: Mapping[str, Any], path: str) -> Any:
     """The ``repro_torch`` configuration the file names, in the type its
-    ``path`` section states; refused where a size differs from the
-    file's."""
+    ``path`` section states; refused where the file's family has no module
+    (``families/<family>.py``), and where the file states a size that the
+    family does not report or that differs from the program's."""
     from repro_torch.configs import get_config
+    model = conf["model"]
+    family = families.of(model)
     prog = conf["program"]
     dt = DTYPES[conf[path]["dtype"]]
     kw = dict(prog.get("overrides", {}))
@@ -57,9 +44,13 @@ def program_config(conf: Mapping[str, Any], path: str) -> Any:
         kw["remat"] = conf["train"]["remat"]
     cfg = get_config(prog["name"], reduced=bool(prog.get("reduced")),
                      dtype=dt, param_dtype=dt, **kw)
-    have = model_sizes(cfg)
-    for key, want in conf["model"].items():
-        if key in have and have[key] != want:
+    have = family.sizes(cfg)
+    for key, want in model.items():
+        if key not in have:
+            raise SystemExit(f"configuration {conf['name']}: the file states "
+                             f"{key!r}, which family {model['family']!r} "
+                             f"does not report")
+        if have[key] != want:
             raise SystemExit(f"configuration {conf['name']}: the program's "
                              f"{key} is {have[key]!r}, the file says "
                              f"{want!r}")

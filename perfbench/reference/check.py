@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from perfbench.reference.model import Model, forward_logits
+from perfbench.reference.model import build, forward_logits
 
 Sample = Tuple[np.ndarray, Sequence[int]]
 
@@ -29,8 +29,8 @@ def widest_gaps(model: Mapping[str, Any], params: Dict[str, Any],
     """``{"served": widest gap of the served tokens}``, and with
     ``control`` also ``{"control": widest gap of the fp8 model's first
     choices}``, over ``samples`` of (prompt, served tokens)."""
-    ref = Model(model, "fp32")
-    low = Model(model, "fp8") if control else None
+    ref = build(model, "fp32")
+    low = build(model, "fp8") if control else None
     out = {"served": 0.0}
     if control:
         out["control"] = 0.0

@@ -1,19 +1,17 @@
-"""Plain PyTorch forward of the benchmark's models, in fp32: Mamba-2
-(arXiv:2405.21060) and Zamba2 (arXiv:2411.15242), as the configuration
-files under ``perfbench/configs`` state them.
+"""Plain PyTorch pieces of the benchmark's models, in fp32, and the base
+of each family's plain model (``families/<family>.py``'s ``Model``).
 
 No kernel, cache or batching of the program: the SSD is the chunked
-closed form of the Mamba-2 paper (its "minimal" listing: quadratic within a
-chunk, a scan of chunk states between chunks), the causal conv a sum of
-shifted products, attention a masked softmax of full scores. It reads the
-weights the benchmark made, in the program's layout (layer-stacked
-leaves), and upcasts each to fp32 where it is used; it imports nothing of
-the program.
-
-Departures from the published models, shared with the program under test:
-no biases anywhere (Mamba-2's conv and projections, Zamba2's attention),
-the LoRA adapters of Zamba2's shared block left out, and each shared-block
-site with its own output projector of width ``2 d -> d``.
+closed form of the Mamba-2 paper (arXiv:2405.21060, its "minimal" listing:
+quadratic within a chunk, a scan of chunk states between chunks), the
+causal conv a sum of shifted products, attention a masked softmax of full
+scores, the MLP SwiGLU. A family's ``Model`` composes these pieces into
+``hidden``, layer by layer as its configuration file states; the
+embedding, the tied logits over the real vocabulary and the next-token
+loss are shared here. It reads the weights the benchmark made, in the
+program's layout (layer-stacked leaves), and upcasts each to fp32 where it
+is used; it imports nothing of the program. ``build`` gives the model of
+a configuration file's ``model`` section.
 
 ``precision`` selects how each weight product is computed: ``"fp32"`` (the
 reference), ``"tf32"`` (fp32 operands on TF32 tensor cores) or ``"fp8"``
@@ -28,6 +26,8 @@ from typing import Any, Dict, Mapping
 
 import torch
 import torch.nn.functional as F
+
+from perfbench import families
 
 Params = Dict[str, Any]
 _FP8_MAX = 448.0
@@ -53,7 +53,8 @@ def _fp8(t: torch.Tensor) -> torch.Tensor:
 
 
 class Model:
-    """The fp32 model of one configuration file's ``model`` section."""
+    """The pieces of the fp32 models and what every family shares; a
+    family's ``Model`` subclasses it and gives ``hidden``."""
 
     def __init__(self, model: Mapping[str, Any],
                  precision: str = "fp32") -> None:
@@ -101,12 +102,11 @@ class Model:
                                      device=a.device))
         return s.masked_fill(~keep, float("-inf"))
 
-    def ssd(self, x, dt, A, Bm, Cm, D) -> torch.Tensor:
+    def ssd(self, x, dt, A, Bm, Cm, D, Q: int) -> torch.Tensor:
         """The SSD recurrence h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T,
-        y_t = h_t C_t + D x_t, from a zero state, in chunks.
+        y_t = h_t C_t + D x_t, from a zero state, in chunks of ``Q``.
         x (B, T, H, P), dt (B, T, H), A (H,), Bm/Cm (B, T, H, N)."""
         Bsz, T, H, P = x.shape
-        Q = self.m["ssm"]["chunk_size"]
         pad = (-T) % Q
         if pad:
             # dt = 0 on the padding: no input, no decay, nothing read back
@@ -132,8 +132,11 @@ class Model:
         y = y.reshape(Bsz, c * Q, H, P)[:, :T]
         return y + x[:, :T] * D.float()[:, None]
 
-    def ssm_block(self, p: Params, h: torch.Tensor) -> torch.Tensor:
-        s = self.m["ssm"]
+    def ssm_block(self, p: Params, h: torch.Tensor,
+                  s: Mapping[str, Any]) -> torch.Tensor:
+        """A Mamba-2 mixer of the SSM sizes ``s`` (a configuration file's
+        ``ssm`` group): the projections, the causal conv, the SSD, the
+        gated norm and the output projection; no biases."""
         Bsz, T, d = h.shape
         di = s["expand"] * d
         P, N, G = s["head_dim"], s["state_dim"], s["n_groups"]
@@ -149,7 +152,7 @@ class Model:
             return t.reshape(Bsz, T, G, 1, N).expand(
                 Bsz, T, G, H // G, N).reshape(Bsz, T, H, N)
         y = self.ssd(xs.reshape(Bsz, T, H, P), dt, A, heads(Bs), heads(Cs),
-                     p["D"])
+                     p["D"], s["chunk_size"])
         y = y.reshape(Bsz, T, di) * F.silu(z)
         y = y * torch.rsqrt((y * y).mean(-1, keepdim=True)
                             + self.m["norm_eps"]) * p["norm_scale"].float()
@@ -193,41 +196,21 @@ class Model:
 
     # ------------------------------------------------------------- model
     @staticmethod
-    def _layer(tree: Any, i: int) -> Any:
+    def layer_at(tree: Any, i: int) -> Any:
+        """Layer ``i``'s leaves of a layer-stacked tree."""
         if isinstance(tree, dict):
-            return {k: Model._layer(v, i) for k, v in tree.items()}
+            return {k: Model.layer_at(v, i) for k, v in tree.items()}
         return tree[i]
+
+    def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens.long(), params["embed"]["tokens"]).float()
 
     def hidden(self, params: Params, tokens: torch.Tensor,
                layer_fn=None) -> torch.Tensor:
         """The final-normed hidden states ``(B, T, d)`` of ``tokens``.
         ``layer_fn(fn, *args)`` may wrap each layer (the trainer's
-        reference checkpoints them)."""
-        run = layer_fn or (lambda fn, *a: fn(*a))
-        x = F.embedding(tokens.long(), params["embed"]["tokens"]).float()
-        x0 = x
-        every = self.m.get("hybrid_attn_every")
-        site = 0
-        for i in range(self.m["n_layers"]):
-            lp = self._layer(params["layers"], i)
-            if self.m["family"] == "hybrid" and i % every == 0:
-                x = run(self._shared, params["shared"], x, x0, site)
-                site += 1
-            x = run(self._ssm_layer, lp, x)
-        return self.rmsnorm(x, params["final_norm"]["scale"])
-
-    def _ssm_layer(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
-        return x + self.ssm_block(lp["ssm"], self.rmsnorm(
-            x, lp["norm"]["scale"]))
-
-    def _shared(self, sh: Params, x: torch.Tensor, x0: torch.Tensor,
-                site: int) -> torch.Tensor:
-        w_in = torch.cat([x, x0], dim=-1)
-        w_mid = w_in + self.attention(
-            sh["attn"], self.rmsnorm(w_in, sh["norm1"]["scale"]))
-        w_out = w_mid + self.mlp(sh["mlp"], self.rmsnorm(
-            w_mid, sh["norm2"]["scale"]))
-        return x + self.mm(w_out, sh["proj"][site])
+        reference checkpoints them). Each family gives its own."""
+        raise NotImplementedError
 
     def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         """Logits over the real vocabulary (the table's padded rows are no
@@ -243,6 +226,12 @@ class Model:
         lg = self.logits(params, h)
         return F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
                                tokens[:, 1:].reshape(-1).long())
+
+
+def build(model: Mapping[str, Any], precision: str = "fp32") -> Model:
+    """The plain model of a configuration file's ``model`` section: its
+    family's ``Model`` (``families/<family>.py``)."""
+    return families.of(model).Model(model, precision)
 
 
 def forward_logits(model: Model, params: Params, tokens: torch.Tensor,

@@ -1,7 +1,7 @@
 """The plain reference of a train cell's first steps: the fp32 model of
-``reference.model``, its loss and gradients by autograd, global-norm
-clipping and AdamW, written out here (``torch.optim`` applies weight
-decay another way).
+the configuration's family (``reference.model.build``), its loss and
+gradients by autograd, global-norm clipping and AdamW, written out here
+(``torch.optim`` applies weight decay another way).
 
 It starts from the weights the benchmark made (a host copy taken before
 the program's first step) and the same batches, and returns what the
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint
 
-from perfbench.reference.model import Model, tf32
+from perfbench.reference.model import build, tf32
 
 
 def flat(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -59,7 +59,7 @@ def reference_steps(model: Mapping[str, Any], params0: Any,
     """Run ``len(batches)`` train steps from ``params0`` (a tree of host
     tensors); returns ``{"loss": [...], "grad": {leaf: norm},
     "update": {leaf: norm}}``."""
-    ref = Model(model, precision)
+    ref = build(model, precision)
     p0 = {k: v for k, v in flat(params0).items()}
     p = {k: v.to(device=device, dtype=torch.float32) for k, v in p0.items()}
     m = {k: torch.zeros_like(v) for k, v in p.items()}

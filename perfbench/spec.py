@@ -1,17 +1,26 @@
 """What a run reads from the checkout: ``BENCHMARK.json``, the cell's
-file, its configuration's file and the per-layer metrics' readers, each
-found by name.
+file, its configuration's file, the configuration's family module and the
+per-layer metrics' readers, each found by name.
 
 A cell is ``workloads/<cell>.json``: its configuration's name, its path
 (``serve`` or ``train``), the traffic or job, and the output check. A
-configuration is the file ``BENCHMARK.json`` names for it. A per-layer
-metric is ``metrics/<metric>.py``, a module with ``LAYER``, ``UNIT``,
-``SOURCE``, ``MOVES`` and ``read(run) -> float | None``. Which metrics a
-cell reports comes from ``BENCHMARK.json`` alone: an end-to-end metric in
-the cells its ``workloads`` lists (every cell without the key), a
-per-layer metric in the cells its ``workloads`` lists (without the key,
-every cell that reports the metric it moves). So a later cell, config or
-metric is a new file and new entries, and no file here changes.
+configuration is the file ``BENCHMARK.json`` names for it; its ``model``
+section names the program family whose module, ``families/<family>.py``,
+knows the architecture (its sizes, weights, plain reference and counts;
+``families/__init__.py``). A per-layer metric is ``metrics/<metric>.py``,
+a module with ``LAYER``, ``UNIT``, ``SOURCE``, ``MOVES`` and
+``read(run) -> float | None``. Which metrics a cell reports comes from
+``BENCHMARK.json`` alone: an end-to-end metric in the cells its
+``workloads`` lists (every cell without the key), a per-layer metric in
+the cells its ``workloads`` lists (without the key, every cell that
+reports the metric it moves).
+
+So a configuration joins with new files and new entries, and no file here
+changes: its ``configs/<name>.json``; ``families/<family>.py`` if its
+family is new; a ``workloads/<cell>.json`` for each of its cells; its
+entries under ``configs`` and ``workloads`` in ``BENCHMARK.json`` (and its
+cells added to the ``workloads`` lists of the metrics they report); and a
+reader ``metrics/<metric>.py`` for any new per-layer metric.
 """
 from __future__ import annotations
 

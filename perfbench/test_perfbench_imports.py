@@ -1,6 +1,7 @@
 """No module under ``perfbench/`` imports JAX or the JAX package
-(``repro``), and the reference imports nothing of the program: each
-import's top-level name, the part before the first dot, compared whole."""
+(``repro``), and the reference (``reference/``, ``families/``) imports
+nothing of the program: each import's top-level name, the part before the
+first dot, compared whole."""
 import ast
 
 from perfbench import spec
@@ -26,8 +27,10 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for f in sorted((spec.HERE / "reference").rglob("*.py")):
-        assert "repro_torch" not in set(_imports(f)), f
+    # the shared pieces, and each family's module that composes them
+    for d in ("reference", "families"):
+        for f in sorted((spec.HERE / d).rglob("*.py")):
+            assert "repro_torch" not in set(_imports(f)), f
 
 
 def test_the_program_name_is_not_taken_for_the_jax_package():
