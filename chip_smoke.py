@@ -264,7 +264,15 @@ every pool must end with no page in use.
    pending at first poll (>= 90%), the loss falling, peak memory beside
    the dry run's count of the cell on the CPU, one step's card time by
    kernel family; 27c each kernel's launches forward and backward equal
-   to the layers x steps (forwards twice under remat "full").
+   to the layers x steps (forwards twice under remat "full");
+28. ``granite_4_0_h_small`` (moe_hybrid) at published widths, its first 6
+   layers (5 Mamba-2, 1 NoPE attention at scale 1/128, each with its
+   72-expert dropless MoE block), bf16, dense mode: 28b 16 requests of
+   64-3,072 prompt tokens through ``family_serve`` (sync debug mode
+   "error", flash and the SSD scan once a prefill at each layer of their
+   kind, the paged kernel once a captured decode step at the attention
+   layer), and the engine's MoE counters against its steps and prefills;
+   28c the card-bound loop.
 
 Phase 3 also holds the three backward kernels (no TPU counterpart) in
 fp32 and bf16, each output's error over max(1, its largest magnitude):
@@ -282,7 +290,12 @@ against ``ssd_scan_backward_plain`` (no library call) at mamba2's and
 zamba2's training batches, T 1024, at T 509 and 64, and with the final
 state's gradient (B 2, T 1024). Every backward case must also give the
 same bits on a second call; its line gives its share of the bound (and
-the SSD's scratch bytes and head-slices).
+the SSD's scratch bytes and head-slices). Phase 3's last forward cases
+are granite-4.0-h-small's at the granite-longctx cell's shapes
+(``GRANITE_SHAPES``): rmsnorm at 32 rows of 4096, flash causal at 32/8
+heads of 128 over 3,072 rows and the dense decode at 32 slots of 4096
+positions (1023-4095), both at the softmax scale 1/128, the SSD scan at
+128 heads of (64, 128) over 3,072 rows.
 
 Phases 23 and 24 run right after 14, on phase 4's and 13's weights.
 Each phase's weights are freed before the next. Each serve phase sets
@@ -290,8 +303,9 @@ the kernels' launch counts to 0 just before it drives its path and reads
 them just after; a step graph adds its kernels' launches back on every
 replay. The kernels JSON has one entry per kernel and path that ran it
 (phase 5 ``paper_demo``, 23b ``paper_demo_unfused``, 8
-``mamba2_370m``, 15b-22b, 25b ``train``, 26b ``train_sharded`` and 27b's
-four ``train_*`` paths, the only paths of the backward kernels; every
+``mamba2_370m``, 15b-22b, 25b ``train``, 26b ``train_sharded``, 27b's
+four ``train_*`` paths, the only paths of the backward kernels, and 28b
+``granite_4_0_h_small`` at the cell's shapes; every
 serving path must show none of their launches): that path's
 launches beside the phase 3 case at its shape (a decode step's rows for
 rmsnorm and paged, a 512-token prompt for flash and the SSD scan,
@@ -495,11 +509,13 @@ def check_rmsnorm(dtype, rows, D, gen, dev):
 
 
 def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0,
-                causal=True, Sq=None):
+                causal=True, Sq=None, scale=None):
     """Prefill attention at one shape: causal (or windowed) over a prompt
     of ``S``, or non-causal with ``Sq`` query rows against ``S`` keys (an
     encoder, a cross-attention); SDPA as the library yardstick (with the
-    window as a boolean mask). Long prompts take fewer timed runs.
+    window as a boolean mask). ``scale`` is the softmax's scale of q·k
+    (default D^-1/2; granite's is 1/128). Long prompts take fewer timed
+    runs.
 
     A bf16 case's error is taken against the plain version run in fp32 on
     the same (bf16-valued) inputs. The plain version in bf16 rounds the
@@ -517,7 +533,7 @@ def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0,
     q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=scale)
     out = K.attention(q, k, v, **kw)
     ref = K.attention_plain(q, k, v, **kw)
     low = None
@@ -532,10 +548,10 @@ def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0,
         i = torch.arange(S, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
     else:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale)
     item = q.element_size()
     # (query, key) pairs each row attends: its causal past, cut to the
     # window, or every key
@@ -553,7 +569,8 @@ def check_flash(dtype, gen, dev, B=1, S=512, H=12, KV=4, D=64, window=0,
                        f"B={B} Sq={Sq} Sk={S}")
                 + f" H={H} KV={KV} D={D} "
                 + ("causal" if causal else "non-causal")
-                + (f" window={window}" if window else ""),
+                + (f" window={window}" if window else "")
+                + (f" scale={scale:g}" if scale is not None else ""),
                 head_dim=D)
 
 
@@ -773,7 +790,8 @@ def check_paged(kind, dtype, gen, dev, **heads):
                 shape=shape, head_dim=q.shape[-1])
 
 
-def check_dense_paged(dtype, gen, dev, B, L, KV, G, hd, positions=None):
+def check_dense_paged(dtype, gen, dev, B, L, KV, G, hd, positions=None,
+                      scale=None):
     """Dense decode at one shape, the way ``attention.decode_attention``
     runs it: the paged kernel over a ``(B, L, KV, hd)`` cache viewed as
     pages in place (``attention.dense_pages``), one new row a slot, every
@@ -785,14 +803,21 @@ def check_dense_paged(dtype, gen, dev, B, L, KV, G, hd, positions=None):
     does). SDPA over the cache laid out (B, KV, L, hd) beforehand, with a
     boolean mask of each slot's positions, is the library yardstick. The
     bound: the K/V rows the slots hold and the new rows, q and the output,
-    and the splits' fp32 partials written and read, at HBM's rate."""
+    and the splits' fp32 partials written and read, at HBM's rate.
+    ``scale`` is the softmax's scale of q·k (default hd^-1/2); given, the
+    kernel and ``_grouped`` both take it from a moe_hybrid config (the
+    family that carries one, granite's 1/128)."""
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.kernels import paged_attention as K
     from repro_torch.models import attention
     from repro_torch.models.common import ModelConfig
     H = KV * G
-    cfg = ModelConfig(n_heads=H, n_kv_heads=KV, head_dim=hd, head_pad_to=1,
-                      dtype=dtype, param_dtype=dtype)
+    heads = dict(n_heads=H, n_kv_heads=KV, head_dim=hd, head_pad_to=1,
+                 dtype=dtype, param_dtype=dtype)
+    cfg = ModelConfig(**heads) if scale is None else dataclasses.replace(
+        get_config("granite_4_0_h_small"), attention_multiplier=scale,
+        **heads)
     if positions is None:
         positions = [int(p) for p in np.linspace(L // 4, L - 1, B - 1)] + [0]
     pos = torch.as_tensor(positions, device=dev)
@@ -807,7 +832,7 @@ def check_dense_paged(dtype, gen, dev, B, L, KV, G, hd, positions=None):
     pools = [cache[n].view(B * L // ps, ps, KV, hd) for n in ("k", "v")]
     idx = pages.tables, pages.positions, pages.n_valid
     kernel = lambda: K.paged_attention(  # noqa: E731
-        q, kn, vn, *pools, *idx, page_size=ps, scale=hd ** -0.5)[0]
+        q, kn, vn, *pools, *idx, page_size=ps, scale=cfg.attn_scale)[0]
     valid = torch.arange(L, device=dev)[None, None, :] <= pos[:, None, None]
 
     def plain():
@@ -829,7 +854,8 @@ def check_dense_paged(dtype, gen, dev, B, L, KV, G, hd, positions=None):
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (cache[n].transpose(1, 2).contiguous() for n in ("k", "v"))
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=valid[:, None], enable_gqa=True)
+        qt, kt, vt, attn_mask=valid[:, None], enable_gqa=True,
+        scale=cfg.attn_scale)
     item = q.element_size()
     held = sum(p + 1 for p in positions)
     n_split = -(-L // K.SPLIT_LEN)
@@ -838,7 +864,8 @@ def check_dense_paged(dtype, gen, dev, B, L, KV, G, hd, positions=None):
     runs = 10 if B * L >= 1 << 16 else TIMED_RUNS
     shape = (f"dense B={B} L={L} ps={ps} KV={KV} G={G} hd={hd} positions "
              f"{min(positions[:-1])}..{max(positions)}, slot {B - 1} at "
-             f"{positions[-1]}")
+             f"{positions[-1]}"
+             + (f" scale={scale:g}" if scale is not None else ""))
     return dict(err=err, low=low, pools_exact=pools_exact,
                 ms=median_ms(kernel, runs=runs),
                 plain_ms=median_ms(plain, runs=runs),
@@ -997,6 +1024,12 @@ ZAMBA_SHAPES = dict(d=2048, w=4096, H=32, KV=32, hd=128, ssd=(64, 64, 64))
 # a prefill's rows (1024 patches and 512 tokens) and requests a batch
 WHISPER_SHAPES = dict(d=1280, H=32, KV=32, hd=64, frames=1500, clips=8)
 VLM_SHAPES = dict(d=6144, H=48, KV=8, hd=128, rows=1536, batch=4)
+# granite-4.0-h-small (28) as the granite-longctx cell serves it: d_model,
+# q-heads, KV heads, head_dim, the softmax scale (attention_multiplier),
+# the SSD scan's heads, head_dim and state, the slots, each slot's cache
+# and the longest prompt
+GRANITE_SHAPES = dict(d=4096, H=32, KV=8, hd=128, scale=1 / 128,
+                      ssd=(128, 64, 128), slots=32, cache=4096, prompt=3072)
 
 
 # the paths whose decode steps run paper_demo's shapes: paged + fused (5)
@@ -1147,6 +1180,42 @@ def train_family_cases(dtype, gen, dev):
     return cases
 
 
+def granite_cases(dtype, gen, dev):
+    """Phase 3's cases at granite-4.0-h-small's shapes, tagged for phase
+    28's path: rmsnorm at the cell's 32 decode rows of 4096; flash causal
+    at 32/8 heads of 128 with the scale 1/128 over the cell's longest
+    prompt (3,072); the dense decode at the cell's 32 slots of 4096 KV
+    rows (8 heads, G 4) at 1023-4095, scale 1/128; the SSD scan at 128
+    heads of (64, 128) over 3,072 rows. Each with its plain version and
+    library call as the other configs' cases."""
+    g = GRANITE_SHAPES
+    H, P, N = g["ssd"]
+    tag = "granite_4_0_h_small"
+    return [
+        ("rmsnorm", tag, check_rmsnorm(dtype, g["slots"], g["d"], gen, dev)),
+        ("flash_attention", tag, check_flash(
+            dtype, gen, dev, S=g["prompt"], H=g["H"], KV=g["KV"], D=g["hd"],
+            scale=g["scale"])),
+        ("paged_attention", tag, check_dense_paged(
+            dtype, gen, dev, B=g["slots"], L=g["cache"], KV=g["KV"],
+            G=g["H"] // g["KV"], hd=g["hd"],
+            positions=[int(p) for p in np.linspace(1023, g["cache"] - 1,
+                                                   g["slots"] - 1)] + [0],
+            scale=g["scale"])),
+        ("ssd_scan", tag, check_ssd(dtype, 1, g["prompt"], gen, dev, H=H,
+                                    N=N))]
+
+
+def check_granite_shapes() -> None:
+    from repro_torch.configs import get_config
+    g, cfg = GRANITE_SHAPES, get_config("granite_4_0_h_small")
+    if (cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads,
+            cfg.resolved_head_dim, cfg.attn_scale,
+            (cfg.ssm_heads, cfg.ssm.head_dim, cfg.ssm.state_dim)) != (
+            g["d"], g["H"], g["KV"], g["hd"], g["scale"], g["ssd"]):
+        raise AssertionError("GRANITE_SHAPES is not granite-4.0-h-small's")
+
+
 def phase_kernels(dev, label):
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      rmsnorm, ssd_scan)
@@ -1177,6 +1246,7 @@ def phase_kernels(dev, label):
             vcfg.resolved_head_dim, vcfg.n_patches + VLM_PROMPT) != (
             vl["d"], vl["H"], vl["KV"], vl["hd"], vl["rows"]):
         raise AssertionError("VLM_SHAPES is not internvl2-26b's")
+    check_granite_shapes()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     summary, bad = {}, []
@@ -1310,60 +1380,8 @@ def phase_kernels(dev, label):
                 KV=vl["KV"], G=vl["H"] // vl["KV"], hd=vl["hd"],
                 positions=[vl["rows"] + 9, vl["rows"] + 20,
                            vl["rows"] + 31, 0]))]
-        for name, path, r in cases:
-            tol = TOL[dtype]
-            ok = r.get("err_y", r["err"]) <= tol \
-                and r.get("err_state", 0.0) <= STATE_TOL \
-                and r.get("pools_exact", True) and r.get("bit_equal", True)
-            lib = r["library_ms"]
-            log(f"  {name:16s} {str(dtype):15s} {r['shape']}: max_abs_err "
-                + (f"y {r['err_y']:.3g} (tol {tol:g}), final state "
-                   f"{r['err_state']:.3g} (tol {STATE_TOL:g})"
-                   if "err_y" in r else f"{r['err']:.3g} (tol {tol:g})")
-                + (f" vs the plain version in fp32 (vs it in bf16 "
-                   f"{r['low']['err_bf16']:.3g}; the bf16 plain version vs "
-                   f"the fp32 one {r['low']['plain_err']:.3g})"
-                   if r.get("low") else "")
-                + (f" pools_exact={r['pools_exact']}"
-                   if "pools_exact" in r else "")
-                + f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-                + (f", library {lib:.4f} ms (kernel/library "
-                   f"{r['ms'] / lib:.2f}x)" if lib is not None else "")
-                + f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]}"
-                + (f", {r['bound'][0] / r['ms']:.1%} of it"
-                   if name in BACKWARD_NAMES else "") + ")"
-                + (f", scratch {r['scratch_bytes'] / 1e6:.1f} MB, "
-                   f"{r['splits']} head-slice(s) a group, a second call "
-                   f"bit-equal: {r['bit_equal']}"
-                   if "scratch_bytes" in r else "")
-                + (f", a second call bit-equal: {r['bit_equal']}"
-                   if name == "rmsnorm_backward" else "")
-                + (" | device time (torch.profiler, median of "
-                   f"{TIMED_RUNS}): kernel {r['device'][0]:.4f} ms, library "
-                   f"{r['device'][1]:.4f} ms (kernel/library "
-                   f"{r['device'][0] / r['device'][1]:.2f}x)"
-                   if "device" in r else "")
-                + (" | device time by grid: " + ", ".join(
-                    f"{re.search(r'ssd_\w+', n).group(0)} {t:.4f} ms"
-                    for n, t in r["grids"].items()) if "grids" in r else "")
-                + (" | each output's max abs error: " + ", ".join(
-                    f"{n} {e:.3g}" for n, e in r["grads"].items())
-                   + " (the error above is each over max(1, its largest "
-                   "|plain|))" if "grads" in r else "")
-                + (f" | SDPA backward alone {r['sdpa_bwd_ms']:.4f} ms "
-                   f"(kernel/SDPA backward {r['ms'] / r['sdpa_bwd_ms']:.2f}x)"
-                   f", {r['splits']} split(s) of the dK/dV grid, a second "
-                   f"call bit-equal: {r['bit_equal']}"
-                   if "sdpa_bwd_ms" in r else ""))
-            if not ok:
-                bad.append(f"{name} {dtype} {r['shape']}: {r}")
-            # the JSON line reports each path's run in its dtype (bf16 for
-            # serving, fp32 for training) at its shape: a decode step's for
-            # rmsnorm and paged, a prompt's for flash (whisper's: a decode
-            # step's cross-attention) and the SSD scan, the training step's
-            for one in (path if isinstance(path, tuple) else (path,)):
-                if one and (dtype is torch.float32) == (one in FP32_PATHS):
-                    summary[name, one] = r
+        cases += granite_cases(dtype, gen, dev)
+        report_cases(cases, dtype, summary, bad)
     if bad:
         raise AssertionError("kernels that disagree with their plain "
                              "versions:\n" + "\n".join(bad))
@@ -1375,6 +1393,66 @@ def phase_kernels(dev, label):
         "flash_attention_backward": flash_attention.BACKWARD_LAUNCHES,
         "ssd_scan_backward": ssd_scan.BACKWARD_LAUNCHES}))
     return summary
+
+
+def report_cases(cases, dtype, summary, bad) -> None:
+    """Log each of phase 3's ``(kernel, path, result)`` cases in ``dtype``,
+    append those out of tolerance to ``bad``, and file each path's case
+    under ``summary[kernel, path]``."""
+    for name, path, r in cases:
+        tol = TOL[dtype]
+        ok = r.get("err_y", r["err"]) <= tol \
+            and r.get("err_state", 0.0) <= STATE_TOL \
+            and r.get("pools_exact", True) and r.get("bit_equal", True)
+        lib = r["library_ms"]
+        log(f"  {name:16s} {str(dtype):15s} {r['shape']}: max_abs_err "
+            + (f"y {r['err_y']:.3g} (tol {tol:g}), final state "
+               f"{r['err_state']:.3g} (tol {STATE_TOL:g})"
+               if "err_y" in r else f"{r['err']:.3g} (tol {tol:g})")
+            + (f" vs the plain version in fp32 (vs it in bf16 "
+               f"{r['low']['err_bf16']:.3g}; the bf16 plain version vs "
+               f"the fp32 one {r['low']['plain_err']:.3g})"
+               if r.get("low") else "")
+            + (f" pools_exact={r['pools_exact']}"
+               if "pools_exact" in r else "")
+            + f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+            + (f", library {lib:.4f} ms (kernel/library "
+               f"{r['ms'] / lib:.2f}x)" if lib is not None else "")
+            + f", bound {r['bound'][0]:.5f} ms ({r['bound'][1]}"
+            + (f", {r['bound'][0] / r['ms']:.1%} of it"
+               if name in BACKWARD_NAMES else "") + ")"
+            + (f", scratch {r['scratch_bytes'] / 1e6:.1f} MB, "
+               f"{r['splits']} head-slice(s) a group, a second call "
+               f"bit-equal: {r['bit_equal']}"
+               if "scratch_bytes" in r else "")
+            + (f", a second call bit-equal: {r['bit_equal']}"
+               if name == "rmsnorm_backward" else "")
+            + (" | device time (torch.profiler, median of "
+               f"{TIMED_RUNS}): kernel {r['device'][0]:.4f} ms, library "
+               f"{r['device'][1]:.4f} ms (kernel/library "
+               f"{r['device'][0] / r['device'][1]:.2f}x)"
+               if "device" in r else "")
+            + (" | device time by grid: " + ", ".join(
+                f"{re.search(r'ssd_\w+', n).group(0)} {t:.4f} ms"
+                for n, t in r["grids"].items()) if "grids" in r else "")
+            + (" | each output's max abs error: " + ", ".join(
+                f"{n} {e:.3g}" for n, e in r["grads"].items())
+               + " (the error above is each over max(1, its largest "
+               "|plain|))" if "grads" in r else "")
+            + (f" | SDPA backward alone {r['sdpa_bwd_ms']:.4f} ms "
+               f"(kernel/SDPA backward {r['ms'] / r['sdpa_bwd_ms']:.2f}x)"
+               f", {r['splits']} split(s) of the dK/dV grid, a second "
+               f"call bit-equal: {r['bit_equal']}"
+               if "sdpa_bwd_ms" in r else ""))
+        if not ok:
+            bad.append(f"{name} {dtype} {r['shape']}: {r}")
+        # the JSON line reports each path's run in its dtype (bf16 for
+        # serving, fp32 for training) at its shape: a decode step's for
+        # rmsnorm and paged, a prompt's for flash (whisper's: a decode
+        # step's cross-attention) and the SSD scan, the training step's
+        for one in (path if isinstance(path, tuple) else (path,)):
+            if one and (dtype is torch.float32) == (one in FP32_PATHS):
+                summary[name, one] = r
 
 
 def phase_graph_edges(dev):
@@ -2955,10 +3033,16 @@ WIDE_LAYERS = 2        # llama3-405b (126) and command-r-plus (64), phase 17
 
 def family_config(name, dtype, n_layers=None):
     """A ported config at its published widths in ``dtype`` (weights too),
-    its depth cut to ``n_layers`` where given."""
+    its depth cut to ``n_layers`` where given (a moe_hybrid stack to its
+    first ``n_layers`` mixers)."""
     from repro_torch.configs import get_config
     cfg = get_config(name, dtype=dtype, param_dtype=dtype)
-    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+    if not n_layers:
+        return cfg
+    cut = dict(n_layers=n_layers)
+    if cfg.layer_types:
+        cut["layer_types"] = cfg.layer_types[:n_layers]
+    return dataclasses.replace(cfg, **cut)
 
 
 def free_card() -> None:
@@ -3128,7 +3212,7 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     ms a step)."""
     from repro_torch.core import TensorOp
     from repro_torch.kernels import paged_attention
-    from repro_torch.models.common import HYBRID, SSM
+    from repro_torch.models.common import HYBRID, MOE_HYBRID, SSM
     from repro_torch.serve import Request, RequestState
     if not sync_detector_works(dev):
         raise AssertionError("torch.cuda sync debug mode does not flag a "
@@ -3186,6 +3270,11 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
     sites = cfg.hybrid_sites if cfg.family == HYBRID else 0
     norms = (1 if cfg.parallel_block or ssm else 2) * L + 2 * sites + 1
     attn_layers = sites if ssm else L
+    ssd_layers = L if ssm else 0
+    if cfg.family == MOE_HYBRID:
+        # one mixer a layer, of either kind; two norms a layer (mixer, MoE)
+        attn_layers = cfg.n_mixers("attention")
+        ssd_layers = cfg.n_mixers("mamba")
     mode = ("paged + fused" if eng.fused else "paged, unfused") \
         if eng.paged else "dense mode"
     heads = "" if cfg.family == SSM else (
@@ -3234,7 +3323,7 @@ def family_serve(tag, cfg, params, dev, work, make_engine, label,
             "flash_attention": attn_layers * cold,
             "paged_attention": attn_layers * (steps + d["suffix_steps"])
             if paged else 0,
-            "ssd_scan": L * prefills if ssm else 0,
+            "ssd_scan": ssd_layers * prefills,
             **dict.fromkeys(BACKWARD_NAMES, 0)}   # serving: no gradient
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches}, the steps say "
@@ -3550,6 +3639,82 @@ def phase_zamba(dev, label):
     del params
     free_card()
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+GRANITE_LAYERS = 6     # 28's depth: layers 0-4 Mamba-2, layer 5 attends
+
+
+def granite_engine(cfg, params, dev, max_batch=8):
+    """Dense mode (a moe_hybrid has no paged cache): the SSM state of its
+    Mamba-2 layers and its attention layers' KV of the cell's 4096
+    positions a slot, and the MoE counters on the device."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, device=dev, max_batch=max_batch,
+                      max_cache_len=GRANITE_SHAPES["cache"], max_inflight=2)
+    if eng.paged or tuple(eng._cache["k"].shape[:3]) != (
+            cfg.n_mixers("attention"), max_batch, GRANITE_SHAPES["cache"]) \
+            or eng._moe_counts is None:
+        raise AssertionError("granite must be served in dense mode with a "
+                             "KV cache an attention layer and MoE counters")
+    return eng
+
+
+def granite_counters(cfg):
+    """28b's ``extra``: the MoE counters the engine put in ``stats`` (from
+    the device, behind each step) against its steps and prefills: every
+    layer's block once a captured decode step and once a prefill, each
+    step's rows every slot's top-k, the experts hit between one and all a
+    call."""
+    from repro_torch.obs import events
+
+    def check(eng, _card_ms):
+        st, L, m = eng.stats, cfg.n_layers, cfg.moe
+        (dc, dr, dh), (pc, pr, ph) = (
+            [st[n] for n in names] for names in events.MOE_COUNTERS)
+        log(f"  MoE counters (engine stats): decode {dc} calls, {dr} rows, "
+            f"{dh} experts hit ({dr / max(dh, 1):.2f} rows an expert); "
+            f"prefill {pc} calls, {pr} rows, {ph} experts hit; "
+            f"{st['steps']} steps, {st['prefills']} prefills, {L} layers")
+        if (dc, pc, dr) != (L * st["steps"], L * st["prefills"],
+                            dc * eng.max_batch * m.top_k) \
+                or not dc <= dh <= dc * m.n_experts \
+                or not pc <= ph <= pc * m.n_experts or pr % m.top_k:
+            raise AssertionError("28b: the MoE counters disagree with the "
+                                 "engine's steps and prefills")
+    return check
+
+
+def phase_granite(dev, label):
+    """28: granite-4.0-h-small at its published widths cut to its first
+    ``GRANITE_LAYERS`` layers (5 Mamba-2, 1 NoPE attention at 1/128, each
+    with its 72-expert dropless MoE block), bf16 (the card's grouped
+    products take nothing else), dense mode: 16 requests of 64-3,072
+    prompt tokens under sync debug mode "error" (no readback in a step),
+    each kernel's launches as the steps say (flash a prefill and the paged
+    kernel a captured step at the attention layer, the SSD scan a prefill
+    at each Mamba-2 layer), the MoE counters against the steps; then the
+    card-bound loop."""
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    cfg = family_config("granite_4_0_h_small", torch.bfloat16,
+                        GRANITE_LAYERS)
+    if cfg.mixers[-1] != ("attention", 0) or cfg.n_mixers("attention") != 1:
+        raise AssertionError("28: the cut stack must end at its first "
+                             "attention layer")
+    params = lm.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(28)
+    work = [(rng.integers(0, cfg.vocab_size, int(n)),
+             int(rng.integers(32, 129)))
+            for n in rng.integers(64, GRANITE_SHAPES["prompt"] + 1, 16)]
+    launches, host_ms, _ = family_serve("28b", cfg, params, dev, work,
+                                        granite_engine, label,
+                                        extra=granite_counters(cfg))
+    phase_card_bound(cfg, params, dev, host_ms, label,
+                     make_engine=granite_engine, phase="28c")
+    del params
+    free_card()
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -5029,7 +5194,8 @@ def main() -> int:
              "internvl2_26b": timed("22", phase_vlm, dev, label),
              "train": timed("25", phase_train, dev, label),
              "train_sharded": timed("26", phase_shards, dev, label),
-             **timed("27", phase_train_families, dev, label)}
+             **timed("27", phase_train_families, dev, label),
+             "granite_4_0_h_small": timed("28", phase_granite, dev, label)}
     log("each phase's seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; the script so far {time.perf_counter() - T_START:.1f} s")

@@ -6,8 +6,11 @@ Counterpart of ``repro/models/attention.py`` (``head_mask``,
 ``decode_attention``, ``paged_decode_attention``, and the enc-dec's
 ``precompute_cross_kv`` and ``cross_attention``). Weights keep the
 reference's layouts: ``wq`` ``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``,
-``wo`` ``(H, hd, d)``. Prefill attention is the flash kernel; paged decode
-the paged kernel. Dense decode is the paged kernel too, reading the dense
+``wo`` ``(H, hd, d)``. Every softmax scales q·k by ``cfg.attn_scale``
+(head_dim^-1/2, or granite's ``attention_multiplier``); a config without
+rotary positions (``rope_theta`` 0: whisper, granite's NoPE) gets no
+tables. Prefill attention is the flash kernel; paged decode the paged
+kernel. Dense decode is the paged kernel too, reading the dense
 cache in place as a pool whose row ``b`` owns pages ``b·T .. b·T + T - 1``
 (``dense_pages``); where it cannot, it is grouped PyTorch matmuls, as the
 reference computes it with einsums outside any Pallas kernel: the
@@ -195,7 +198,8 @@ def attention_block(params, x: torch.Tensor, cfg: ModelConfig, *,
         rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
     q, k, v = _project_qkv(params, x, cfg, rope)
     k, v = _kv_for_heads(k, v, cfg)
-    o = flash_kernel.attention(q, k, v, causal=causal, window=cfg.window)
+    o = flash_kernel.attention(q, k, v, causal=causal, window=cfg.window,
+                               scale=cfg.attn_scale)
     return _out_proj(params, o, cfg)
 
 
@@ -211,7 +215,8 @@ def prefill_attention(params, x: torch.Tensor, cfg: ModelConfig,
         rope = _rope(cfg, torch.arange(S, device=x.device)[None])
     q, k, v = _project_qkv(params, x, cfg, rope)
     kr, vr = _kv_for_heads(k, v, cfg)
-    o = flash_kernel.attention(q, kr, vr, causal=True, window=cfg.window)
+    o = flash_kernel.attention(q, kr, vr, causal=True, window=cfg.window,
+                               scale=cfg.attn_scale)
     out = _out_proj(params, o, cfg)
     L = cache["k"].shape[1]
     if S >= L:
@@ -399,7 +404,7 @@ def _paged_in_place(params, q: torch.Tensor, k: torch.Tensor,
     v_pool = cache["v"].view(B * L // ps, ps, KV, hd)
     o, _, _ = paged_kernel.paged_attention(
         q, k, v, k_pool, v_pool, pages.tables, pages.positions,
-        pages.n_valid, page_size=ps, scale=cfg.resolved_head_dim ** -0.5)
+        pages.n_valid, page_size=ps, scale=cfg.attn_scale)
     return _out_proj(params, o.to(cfg.dtype), cfg)
 
 
@@ -411,7 +416,7 @@ def _grouped(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     KV = ck.shape[2]
     qg = q.reshape(B, S1, KV, H // KV, -1)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float() \
-        * cfg.resolved_head_dim ** -0.5
+        * cfg.attn_scale
     scores = scores.masked_fill(~valid[:, None, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
     o = torch.einsum("bkgst,btkd->bskgd", probs, cv)
@@ -469,7 +474,7 @@ def paged_decode_attention(params, x: torch.Tensor, cfg: ModelConfig,
     q = constrain(q, "batch", None, "act_heads", None)
     o, k_pages, v_pages = paged_kernel.paged_attention(
         q, k, v, k_pages, v_pages, tables, positions, n_valid,
-        page_size=page_size, scale=cfg.resolved_head_dim ** -0.5)
+        page_size=page_size, scale=cfg.attn_scale)
     return _out_proj(params, o.to(cfg.dtype), cfg), k_pages, v_pages
 
 

@@ -1,9 +1,9 @@
 """Model configuration.
 
 One ``ModelConfig`` covers every assigned family (dense / moe / ssm /
-hybrid / audio enc-dec / vlm). Architecture files in ``repro_torch/configs``
-instantiate it with the exact published dimensions; ``reduced()`` derives
-the CPU smoke-test configuration.
+hybrid / moe_hybrid / audio enc-dec / vlm). Architecture files in
+``repro_torch/configs`` instantiate it with the exact published
+dimensions; ``reduced()`` derives the CPU smoke-test configuration.
 
 The port's copy of the reference ``ModelConfig``: every field and derived
 property is kept so configurations read the same in both packages; dtypes
@@ -24,6 +24,9 @@ DENSE = "dense"
 MOE = "moe"
 SSM = "ssm"
 HYBRID = "hybrid"
+#: granite-4.0-h: a mixer per layer (Mamba-2 or NoPE GQA, ``layer_types``),
+#: each followed by an MoE block
+MOE_HYBRID = "moe_hybrid"
 AUDIO = "audio"   # encoder-decoder, stub audio frontend
 VLM = "vlm"       # decoder LM, stub vision frontend
 
@@ -36,9 +39,11 @@ class MoEConfig:
     shared_d_ff: int = 0        # shared-expert hidden dim (0 = none)
     capacity_factor: float = 1.25
     router_dtype: Any = torch.float32
-    #: "einsum"  = GShard one-hot dispatch (baseline; sharding-friendly,
-    #:            pays one-hot matmul FLOPs)
-    #: "scatter" = sort/scatter dispatch (optimized; no dispatch FLOPs)
+    #: "einsum"   = GShard one-hot dispatch (baseline; sharding-friendly,
+    #:             pays one-hot matmul FLOPs)
+    #: "scatter"  = sort/scatter dispatch (optimized; no dispatch FLOPs)
+    #: "dropless" = every assignment runs: sorted by expert, grouped
+    #:             products over each expert's rows (no capacity)
     dispatch: str = "einsum"
     #: tokens per routing group (GShard G×S grouping); 0 = one seq per group
     group_size: int = 0
@@ -112,6 +117,17 @@ class ModelConfig:
     #: TP degree; padded logits are masked to -inf — standard practice)
     vocab_pad_to: int = 128
 
+    # the moe_hybrid family's settings, declared here once as plain class
+    # attributes (the fields stay the reference's) at the values that leave
+    # every other family as it is; ``MoEHybridConfig`` makes them required
+    # fields
+    layer_types = ()
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    attention_multiplier = None    # None: head_dim^-1/2
+    logits_scaling = 1.0
+    conv_bias = False
+
     # ----------------------------------------------------------- derived
     @property
     def kv_groups(self) -> int:
@@ -122,6 +138,28 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def attn_scale(self) -> float:
+        """The attention softmax's scale of q·k."""
+        if self.attention_multiplier is None:
+            return self.resolved_head_dim ** -0.5
+        return self.attention_multiplier
+
+    @property
+    def mixers(self) -> Tuple[Tuple[str, int], ...]:
+        """A moe_hybrid stack's (kind, index) a layer: its mixer's kind and
+        its place among the layers of that kind (the row of that kind's
+        stacked weights and cache)."""
+        seen = {"mamba": 0, "attention": 0}
+        out = []
+        for kind in self.layer_types:
+            out.append((kind, seen[kind]))
+            seen[kind] += 1
+        return tuple(out)
+
+    def n_mixers(self, kind: str) -> int:
+        return sum(1 for k in self.layer_types if k == kind)
 
     @property
     def padded_heads(self) -> int:
@@ -216,6 +254,18 @@ class ModelConfig:
                       + mlp_params(w, self.d_ff) + 2 * w
                       + self.hybrid_sites * (w * d))
             return emb + self.n_layers * (per + d) + shared
+        if self.family == MOE_HYBRID:
+            s, m = self.ssm, self.moe
+            di, G, N = self.ssm_inner, s.n_groups, s.state_dim
+            mamba = (d * (2 * di + 2 * G * N + self.ssm_heads)
+                     + (s.conv_width + int(self.conv_bias)) * (di + 2 * G * N)
+                     + 3 * self.ssm_heads + di + di * d)
+            moe = (d * m.n_experts + m.n_experts * mlp_params(d, m.d_ff)
+                   + (mlp_params(d, m.shared_d_ff) if m.shared_d_ff else 0))
+            n_attn = self.n_mixers("attention")
+            return (emb + d + self.n_layers * (moe + 2 * d)
+                    + (self.n_layers - n_attn) * mamba
+                    + n_attn * attn_params(d, self.n_heads, self.n_kv_heads))
         if self.family == AUDIO:
             per_enc = attn_params(d, self.n_heads, self.n_kv_heads) \
                 + mlp_params(d, self.d_ff) + 2 * d
@@ -271,6 +321,14 @@ class ModelConfig:
             kw["moe"] = dataclasses.replace(
                 self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
                 d_ff=128, shared_d_ff=128 if self.moe.shared_d_ff else 0)
+        if self.family == MOE_HYBRID:
+            # a whole period: one attention layer among Mamba-2 layers;
+            # enough experts that top-3 routing is uneven
+            kw.update(n_layers=4,
+                      layer_types=("mamba", "mamba", "attention", "mamba"))
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=8, top_k=3, d_ff=64,
+                shared_d_ff=128 if self.moe.shared_d_ff else 0)
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_dim=16, head_dim=16, chunk_size=32)
@@ -280,3 +338,31 @@ class ModelConfig:
         if self.family == VLM:
             kw.update(frontend_dim=64, n_patches=16)
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class MoEHybridConfig(ModelConfig):
+    """A ``moe_hybrid`` stack (granite-4.0-h, model_type
+    ``granitemoehybrid``): each layer is rmsnorm, its mixer (Mamba-2 or
+    GQA attention, as ``layer_types`` says), the residual, rmsnorm, an MoE
+    block (``moe``, with its shared expert), the residual. The fields the
+    reference's ``ModelConfig`` lacks:
+
+    * ``layer_types``: "mamba" or "attention", one a layer;
+    * ``embedding_multiplier``: the token embedding is multiplied by it;
+    * ``residual_multiplier``: each residual branch (mixer, MoE) is;
+    * ``attention_multiplier``: the softmax scale of q·k;
+    * ``logits_scaling``: the logits are divided by it;
+    * ``conv_bias``: the Mamba-2 causal conv has a bias a channel.
+
+    Each is given by the configuration (keyword-only, no default: the
+    neutral values are ``ModelConfig``'s). Attention without positions
+    (NoPE) is ``rope_theta = 0``."""
+
+    family: str = MOE_HYBRID
+    layer_types: Tuple[str, ...]
+    embedding_multiplier: float
+    residual_multiplier: float
+    attention_multiplier: float
+    logits_scaling: float
+    conv_bias: bool

@@ -203,15 +203,19 @@ def embedding_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
+    """The tokens' rows of the table, in ``cfg.dtype``, times
+    ``cfg.embedding_multiplier``."""
     emb = gathered(params["tokens"], None, "tp", gather=cfg.gather_weights)
     x = F.embedding(tokens, emb).to(cfg.dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return constrain(x, "batch", None, None)
 
 
 def lm_logits(params: Dict[str, Any], x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """Vocab-sharded logits over the (padded) vocabulary; the padded tail
-    is masked to ``-1e30``."""
+    """Vocab-sharded logits over the (padded) vocabulary, divided by
+    ``cfg.logits_scaling``; the padded tail is masked to ``-1e30``."""
     if cfg.tied_embeddings:
         emb = gathered(params["tokens"], "vocab", None,
                        gather=cfg.gather_weights)
@@ -220,6 +224,8 @@ def lm_logits(params: Dict[str, Any], x: torch.Tensor,
         head = gathered(params["head"], None, "vocab",
                         gather=cfg.gather_weights)
         logits = x @ head.to(cfg.dtype)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     if cfg.padded_vocab != cfg.vocab_size:
         vpos = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(vpos >= cfg.vocab_size, -1e30)

@@ -1,6 +1,6 @@
-"""Decoder-only language models of the dense, MoE, SSM and hybrid
-families: init, forward, prefill, decode and (dense and MoE) fused paged
-decode.
+"""Decoder-only language models of the dense, MoE, SSM, hybrid and
+moe_hybrid families: init, forward, prefill, decode and (dense and MoE)
+fused paged decode.
 
 Counterpart of ``repro/models/lm.py`` for those families. Parameters are
 a plain dict with the reference's layout: per-layer leaves stacked on a
@@ -15,7 +15,15 @@ Parallel blocks (command-r: attention and MLP share one pre-norm, no
 (``models.moe``) takes the MLP's place. The hybrid (zamba2) runs a shared
 attention block over ``concat(x, x0)`` at width ``2·d_model`` before every
 ``hybrid_attn_every``-th SSM layer, each site through its own output
-projector (``_apply_hybrid``). A VLM (internvl2) is a dense decoder whose
+projector (``_apply_hybrid``). The moe_hybrid family (granite-4.0-h, the
+port's own: the reference has none) changes its mixer by layer: each
+layer is rmsnorm, a Mamba-2 or an attention mixer (``cfg.layer_types``),
+the residual times ``residual_multiplier``, rmsnorm, the MoE block (its
+dispatch dropless), the residual again (``_apply_moe_hybrid``). Its
+mixers' weights are stacks of their own, ``params["ssm"]`` over the
+Mamba-2 layers and ``params["attn"]`` over the attention layers, in layer
+order; ``params["layers"]`` holds each layer's two norms and its MoE. A
+VLM (internvl2) is a dense decoder whose
 ``lm_forward`` and ``lm_prefill`` prepend ``batch["patches"] @
 frontend.proj`` to the token embeddings (``_embed_inputs``); its decode
 steps sit at ``n_patches + S`` onward. The audio enc-dec (whisper) has its
@@ -36,7 +44,8 @@ reference's leaves on the port's always-stacked layout (its
 ``scan_layers=True``). Two places differ from the reference's trees as the
 port's layout does: a hybrid's cache is one flat dict (the reference keeps
 per-layer and per-site lists), and its ``proj`` stacks one projector per
-site (C.7); each leaf keeps the reference's logical axes.
+site (C.7); each leaf keeps the reference's logical axes. The moe_hybrid
+family's trees (no reference) are built from the same leaves' rules.
 """
 from __future__ import annotations
 
@@ -49,8 +58,8 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
-                                       ModelConfig)
+from repro_torch.models.common import (AUDIO, DENSE, HYBRID, MOE,
+                                       MOE_HYBRID, SSM, VLM, ModelConfig)
 from repro_torch.models.layers import (cross_entropy, embed_tokens,
                                        embedding_specs, init_embedding,
                                        init_mlp, init_normal, init_rmsnorm,
@@ -72,7 +81,7 @@ def require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name} is an audio encoder-decoder: its model functions "
             "are repro_torch.models.encdec")
-    if cfg.family not in (DENSE, MOE, SSM, HYBRID, VLM) or (
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID, MOE_HYBRID, VLM) or (
             cfg.frontend_dim and cfg.family != VLM):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported; see ROADMAP")
@@ -101,7 +110,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     L, d = cfg.n_layers, cfg.d_model
     params = {"embed": init_embedding(cfg, gen, dev),
               "final_norm": init_rmsnorm(dev, d)}
-    if cfg.family in (SSM, HYBRID):
+    if cfg.family == MOE_HYBRID:
+        params["layers"] = {"norm1": init_rmsnorm(dev, L, d),
+                            "norm2": init_rmsnorm(dev, L, d),
+                            "moe": moe_mod.init_moe(gen, cfg, L, dev)}
+        params["ssm"] = ssm_mod.init_ssm(gen, cfg, cfg.n_mixers("mamba"),
+                                         dev)
+        params["attn"] = attn_mod.init_attention(
+            cfg, gen, dev, d, (cfg.n_mixers("attention"),))
+    elif cfg.family in (SSM, HYBRID):
         params["layers"] = {"norm": init_rmsnorm(dev, L, d),
                             "ssm": ssm_mod.init_ssm(gen, cfg, L, dev)}
     else:
@@ -134,6 +151,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def _layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.family == MOE_HYBRID:
+        return {"norm1": rmsnorm_specs(), "norm2": rmsnorm_specs(),
+                "moe": moe_mod.moe_specs(cfg)}
     if cfg.family in (SSM, HYBRID):
         return {"norm": rmsnorm_specs(), "ssm": ssm_mod.ssm_specs()}
     p = {"norm1": rmsnorm_specs(), "attn": attn_mod.attention_specs(cfg)}
@@ -152,6 +172,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "layers": stack_specs(_layer_specs(cfg)),
         "final_norm": rmsnorm_specs(),
     }
+    if cfg.family == MOE_HYBRID:
+        specs["ssm"] = stack_specs(ssm_mod.ssm_specs(cfg.conv_bias))
+        specs["attn"] = stack_specs(attn_mod.attention_specs(cfg))
     if cfg.family == HYBRID:
         specs["shared"] = {
             "norm1": rmsnorm_specs(), "attn": attn_mod.attention_specs(cfg),
@@ -168,7 +191,7 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.family == SSM:
         return ssm_mod.ssm_state_specs(layer_stacked=True)
     kv = attn_mod.kv_cache_specs(layer_stacked=True, cfg=cfg)
-    if cfg.family == HYBRID:
+    if cfg.family in (HYBRID, MOE_HYBRID):
         return {**ssm_mod.ssm_state_specs(layer_stacked=True), **kv}
     return kv
 
@@ -277,6 +300,25 @@ def _apply_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
+def _apply_moe_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                      views: List[Dict[str, Any]], mix: Callable,
+                      counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """granite-4.0-h's stack: layer ``i`` is ``x + r·mixer(rmsnorm(x))``,
+    then ``x + r·moe(rmsnorm(x))``, ``r`` the residual multiplier.
+    ``mix(kind, j, p, h)`` is the mode's mixer of kind ``"mamba"`` or
+    ``"attention"``, the ``j``-th of its kind, with weights ``p``;
+    ``counts`` the MoE blocks' counters (``moe.moe_block``)."""
+    mixer_views = {"mamba": layer_views(params, "ssm"),
+                   "attention": layer_views(params, "attn")}
+    r = cfg.residual_multiplier
+    for lp, (kind, j) in zip(views, cfg.mixers):
+        h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        x = x + mix(kind, j, mixer_views[kind][j], h) * r
+        h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + moe_mod.moe_block(lp["moe"], h, cfg, counts) * r
+    return x
+
+
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
     if cfg.family == SSM:      # attention-free: no rotary tables
         return None
@@ -334,6 +376,12 @@ def _apply_layers(params: Params, x: torch.Tensor, cfg: ModelConfig,
                   rope, remat: bool = False) -> torch.Tensor:
     """The whole-sequence layer stack (no cache); ``remat`` wraps each
     non-hybrid layer body in ``_maybe_remat``."""
+    if cfg.family == MOE_HYBRID:
+        def mix(kind, j, p, h):
+            if kind == "attention":
+                return attn_mod.attention_block(p, h, cfg, rope=rope)
+            return ssm_mod.ssm_block(p, h, cfg)
+        return _apply_moe_hybrid(params, x, cfg, layer_views(params), mix)
     if cfg.family == HYBRID:
         return _apply_hybrid(
             params, x, cfg, layer_views(params),
@@ -390,9 +438,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     unused). A hybrid's is both in one flat dict: the SSM leaves stacked
     over its layers, ``"k"``/``"v"`` ``(sites, batch, max_len, KV, hd)``
     over its shared-block sites (the reference keeps per-layer and
-    per-site lists); every leaf has the batch on axis 1."""
+    per-site lists); a moe_hybrid's the same, over its Mamba-2 layers and
+    its attention layers. Every leaf has the batch on axis 1."""
     require_ported(cfg)
     device = resolve_device(device)
+    if cfg.family == MOE_HYBRID:
+        cache = ssm_mod.init_ssm_state(cfg, batch,
+                                       n_layers=cfg.n_mixers("mamba"),
+                                       device=device)
+        cache.update(attn_mod.init_kv_cache(
+            cfg, batch, max_len, n_layers=cfg.n_mixers("attention"),
+            device=device))
+        return cache
     if cfg.family in (SSM, HYBRID):
         cache = ssm_mod.init_ssm_state(cfg, batch, n_layers=cfg.n_layers,
                                        device=device)
@@ -406,15 +463,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
-               cfg: ModelConfig, cache: Dict[str, torch.Tensor]
+               cfg: ModelConfig, cache: Dict[str, torch.Tensor],
+               counts: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the prompt; returns (last-position logits (B, 1, V), the
     cache primed in place). A VLM's cache holds its ``n_patches`` patch
-    rows ahead of the prompt, so its decode starts at ``n_patches + S``."""
+    rows ahead of the prompt, so its decode starts at ``n_patches + S``.
+    A moe_hybrid's MoE blocks add to ``counts`` (``moe.moe_block``)."""
     require_ported(cfg)
     x = _embed_inputs(params, batch, cfg)
     rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None])
-    if cfg.family == HYBRID:
+    if cfg.family == MOE_HYBRID:
+        def mix(kind, j, p, h):
+            if kind == "attention":
+                return attn_mod.prefill_attention(
+                    p, h, cfg, _layer_cache(cache, j, _KV_LEAVES), rope)[0]
+            y, state = ssm_mod.ssm_block(p, h, cfg, return_state=True)
+            layer = _layer_cache(cache, j, _SSM_LEAVES)
+            for name, t in state.items():
+                layer[name].copy_(t)
+            return y
+        x = _apply_moe_hybrid(params, x, cfg, layer_views(params), mix,
+                              counts)
+    elif cfg.family == HYBRID:
         x = _apply_hybrid(
             params, x, cfg, layer_views(params),
             lambda ap, h, site: attn_mod.prefill_attention(
@@ -434,16 +505,18 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
 
 def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
                    cache: Dict[str, torch.Tensor], pos: Any,
-                   layers: Optional[List[Dict[str, Any]]] = None
+                   layers: Optional[List[Dict[str, Any]]] = None,
+                   counts: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode ``token`` (B, S1) at absolute positions ``pos ..`` against a
     dense cache, written in place; ``pos`` is an int for every row or a
     ``(B,)`` tensor of per-row positions (dense-mode serve slots), never
     read back on the host. The SSM family decodes one token (B, 1) per row
     from its state and reads no position; a hybrid decodes one token per
-    row, its shared-block sites at ``pos``. ``layers`` may pass
+    row, its shared-block sites at ``pos``, and a moe_hybrid its attention
+    layers at ``pos``. ``layers`` may pass
     ``layer_views(params)`` computed once by a caller that steps many
-    times."""
+    times; a moe_hybrid's MoE blocks add to ``counts``."""
     require_ported(cfg)
     x = embed_tokens(params["embed"], token, cfg)
     views = layers if layers is not None else layer_views(params)
@@ -458,7 +531,16 @@ def lm_decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
     pos = attn_mod.row_positions(pos, B, x.device)
     rope = _rope(cfg, pos[:, None] + torch.arange(S1, device=x.device))
     pages = attn_mod.dense_pages(cfg, B, L, pos, S1, x.device)
-    if cfg.family == HYBRID:
+    if cfg.family == MOE_HYBRID:
+        def mix(kind, j, p, h):
+            if kind == "attention":
+                return attn_mod.decode_attention(
+                    p, h, cfg, _layer_cache(cache, j, _KV_LEAVES), pos, rope,
+                    pages)[0]
+            return ssm_mod.ssm_decode_step(
+                p, h, cfg, _layer_cache(cache, j, _SSM_LEAVES))[0]
+        x = _apply_moe_hybrid(params, x, cfg, views, mix, counts)
+    elif cfg.family == HYBRID:
         x = _apply_hybrid(
             params, x, cfg, views,
             lambda ap, h, site: attn_mod.decode_attention(
@@ -490,7 +572,7 @@ def lm_paged_decode(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     that steps many times. Returns ``(logits (S, W, vocab), pool)``.
     """
     require_ported(cfg)
-    if cfg.family in (SSM, HYBRID):
+    if cfg.family in (SSM, HYBRID, MOE_HYBRID):
         raise NotImplementedError("paged decode requires KV attention")
     x = embed_tokens(params["embed"], tokens, cfg)
     W = tokens.shape[1]

@@ -1,11 +1,11 @@
-"""Mixture-of-Experts block: router, capacity-based dispatch, per-expert
-SwiGLU, combine, and the optional shared expert.
+"""Mixture-of-Experts block: router, dispatch, per-expert SwiGLU, combine,
+and the optional shared expert.
 
 Counterpart of ``repro/models/moe.py``, with both of its dispatch modes
 over one ``(expert, capacity)`` buffer:
 
 * ``"einsum"`` — GShard one-hot dispatch and combine products (what the
-  configurations use);
+  reference's configurations use);
 * ``"scatter"`` — the same buffer built by indexing, no dispatch products.
 
 A routing group is one of the input's leading ``B`` rows, as in the
@@ -14,17 +14,35 @@ it are dropped in (s, k) order. So the same tokens routed in other groups
 (a whole prompt, one decode token, a padded suffix window) may drop other
 assignments (ROADMAP C.8).
 
+The port's third mode, ``"dropless"`` (granite-4.0-h, which the
+reference lacks), drops nothing: the router runs in ``router_dtype`` and
+takes each token's gates as the softmax of its top-k logits; the T·k
+assignments are sorted by expert (a stable sort, so each expert's rows
+stay in (token, k) order) at a size fixed by the shapes; each expert's
+SwiGLU runs over its contiguous rows as three grouped products
+(``grouped_mm``: ``torch._grouped_mm`` on the card, bf16 only; a loop
+over the experts on the CPU); each token's k outputs are summed by its gates in
+one fixed-order product, so the result is deterministic.
+
 The reference computes the block with einsums outside any Pallas kernel;
 here they are batched matmuls. Nothing reads back to the host or allocates
 by data: the one-hots are comparisons with an ``arange`` and the positions
-an exclusive cumsum, so the block runs inside a captured decode graph.
+an exclusive cumsum; the dropless sort, its offsets (a ``searchsorted``)
+and the grouped products are sized by T·k alone. So the block runs inside
+a captured decode graph.
+
+A dropless block given ``counts``, a ``(3,)`` int64 tensor on its
+device, adds its call, its rows (assignments) and the experts that
+received a row to it, with no readback, so a captured step's replays
+count too (``obs.events.MOE_COUNTERS``).
+
 ``moe_specs`` is the weights' logical-axis tree (experts over the model
 axis); the reference's ``constrain`` sites are kept, each on the
 reference's layout of its tensor (``_constrain_as``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -193,13 +211,74 @@ def _combine(out: torch.Tensor, how: Any, cfg: ModelConfig) -> torch.Tensor:
     return (gate.view(B, S, 1, k) @ picked.view(B, S, k, d))[:, :, 0]
 
 
-def moe_block(params: Params, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+# ------------------------------------------------------------- dropless
+def grouped_mm(a: torch.Tensor, w: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """``a (M, K)`` rows sorted by group, ``w (E, K, N)``, ``ends (E,)``
+    int32 each group's end row → ``(M, N)``: rows ``ends[e-1]..ends[e]``
+    times ``w[e]``. On the card, ``torch._grouped_mm`` on the device
+    offsets (nothing read back), in bf16 only: another dtype raises rather
+    than fall back to a loop that reads ``ends`` back. On the CPU, a loop
+    over the groups."""
+    if a.is_cuda:
+        if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+            raise TypeError(f"grouped_mm on the card takes bf16, not "
+                            f"{a.dtype} x {w.dtype}")
+        return torch._grouped_mm(a, w, offs=ends)
+    out = a.new_empty((a.shape[0], w.shape[-1]))
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        out[start:end] = a[start:end] @ w[e]
+        start = end
+    return out
+
+
+def _dropless(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """Every assignment of ``x (B, S, d)``'s tokens through its expert,
+    summed by the gates: ``(B, S, d)``, without the shared expert; the
+    call, its rows and the experts hit added to ``counts`` where given."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, k, E = B * S, m.top_k, m.n_experts
+    xf = x.reshape(T, d)
+    logits = xf.to(m.router_dtype) @ params["router"].to(m.router_dtype)
+    top, idx = torch.topk(logits, k, dim=-1)                  # (T, k)
+    gate = torch.softmax(top, dim=-1)
+    experts, order = torch.sort(idx.reshape(-1), stable=True)
+    ends = torch.searchsorted(
+        experts, torch.arange(E, device=x.device, dtype=experts.dtype),
+        right=True).to(torch.int32)
+    if counts is not None:
+        # the call, its rows, and the experts hit: 1 + where the sorted
+        # ids change (five small launches, no readback)
+        counts[0::2] += 1
+        counts[1] += T * k
+        counts[2] += (experts[1:] != experts[:-1]).sum()
+    dt = cfg.dtype
+    rows = xf[order // k]                                      # (T·k, d)
+    h = grouped_mm(rows, params["wi"].to(dt), ends)
+    g = grouped_mm(rows, params["wg"].to(dt), ends)
+    out = grouped_mm(F.silu(g) * h, params["wo"].to(dt), ends)
+    # back to (t, k) order by a gather of rows (a scatter of whole rows
+    # writes slower): where each assignment went in the sort
+    where = torch.empty_like(order)
+    where[order] = torch.arange(T * k, device=x.device)
+    return torch.bmm(gate.to(dt).view(T, 1, k),
+                     out[where].view(T, k, d)).view(B, S, d)
+
+
+def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x (B, S, d)`` → ``(B, S, d)``; each of the B rows is one routing
     group of S tokens: dispatch, the experts, combine, plus the shared
-    expert where there is one."""
-    expert_in, how = _dispatch(params, x, cfg)
-    y = _combine(_experts_apply(params, expert_in, cfg), how, cfg)
+    expert where there is one. Dropless, all B·S tokens route as one, and
+    ``counts`` (if given) counts the call."""
+    if cfg.moe.dispatch == "dropless":
+        y = _dropless(params, x, cfg, counts)
+    else:
+        expert_in, how = _dispatch(params, x, cfg)
+        y = _combine(_experts_apply(params, expert_in, cfg), how, cfg)
     y = constrain(y, "batch", None, None)
     if cfg.moe.shared_d_ff:
         y = y + mlp(params["shared"], x, cfg.gather_weights)

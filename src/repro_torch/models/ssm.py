@@ -2,7 +2,11 @@
 RMSNorm, plus the single-token decode recurrence.
 
 Counterpart of ``repro/models/ssm.py`` with the reference's parameter
-layouts (``wz``/``wx`` ``(d, inner)``, ``conv_x`` ``(W, inner)``, ...).
+layouts (``wz``/``wx`` ``(d, inner)``, ``conv_x`` ``(W, inner)``, ...). A
+config with ``conv_bias`` (granite-4.0-h; the reference has none) adds a
+bias a conv channel, ``conv_bias_x`` ``(inner,)``, ``conv_bias_B`` and
+``conv_bias_C`` ``(G·N,)``, to the conv's output in prefill and in the
+decode step; without it nothing changes.
 The full-sequence block runs the SSD kernel (``kernels.ssd_scan``) on both
 of its branches: the kernel returns the final state on request, so serving
 prefill needs no plain version. The decode step is plain PyTorch, as the
@@ -40,7 +44,8 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
     """Layer-stacked SSM weights ``(n_layers, ...)``: the reference's
     leaves, dtypes and scales (dense weights normal * fan_in^-1/2, conv
     weights normal * 0.1; ``A_log``, ``D``, ``dt_bias`` and
-    ``norm_scale`` fp32), drawn from ``gen``."""
+    ``norm_scale`` fp32), drawn from ``gen``; with ``cfg.conv_bias`` the
+    conv biases (normal * 0.1) are drawn after them."""
     s = cfg.ssm
     L, d, di = n_layers, cfg.d_model, cfg.ssm_inner
     H, N, G, W = cfg.ssm_heads, s.state_dim, s.n_groups, s.conv_width
@@ -59,7 +64,7 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
                    + math.log(s.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))        # inverse softplus
     a_log = torch.log(torch.linspace(1.0, 16.0, H, **f32))
-    return {
+    p = {
         "wz": dense((d, di)), "wx": dense((d, di)),
         "wB": dense((d, G * N)), "wC": dense((d, G * N)),
         "wdt": dense((d, H)),
@@ -72,16 +77,25 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
         "norm_scale": torch.ones((L, di), **f32),
         "wo": dense((di, d)),
     }
+    if cfg.conv_bias:
+        p.update(conv_bias_x=normal((di,), 0.1),
+                 conv_bias_B=normal((G * N,), 0.1),
+                 conv_bias_C=normal((G * N,), 0.1))
+    return p
 
 
-def ssm_specs() -> Dict[str, Any]:
-    return {
+def ssm_specs(conv_bias: bool = False) -> Dict[str, Any]:
+    p = {
         "wz": ("fsdp", "tp"), "wx": ("fsdp", "tp"),
         "wB": ("fsdp", None), "wC": ("fsdp", None), "wdt": ("fsdp", "tp"),
         "conv_x": (None, "tp"), "conv_B": (None, None), "conv_C": (None, None),
         "A_log": ("tp",), "D": ("tp",), "dt_bias": ("tp",),
         "norm_scale": ("tp",), "wo": ("tp", "fsdp"),
     }
+    if conv_bias:
+        p.update(conv_bias_x=("tp",), conv_bias_B=(None,),
+                 conv_bias_C=(None,))
+    return p
 
 
 def ssm_state_specs(layer_stacked: bool) -> Dict[str, Any]:
@@ -143,6 +157,17 @@ def _sharded_conv(x, w):
     return _shards.wrap(out.to(xl.dtype), x, x.shape)
 
 
+def _conv_branch(params: Params, branch: str, raw: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The causal conv of one input branch (``x``, ``B`` or ``C``) over the
+    whole sequence, with its bias where the config has one."""
+    dtype = cfg.dtype
+    out = _causal_depthwise_conv(raw, params["conv_" + branch].to(dtype))
+    if cfg.conv_bias:
+        out = out + params["conv_bias_" + branch].to(dtype)
+    return out
+
+
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                    eps: float) -> torch.Tensor:
     yf = y.float() * F.silu(z.float())
@@ -173,9 +198,9 @@ def ssm_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     Bs_raw = x @ gathered(params["wB"], None, None, gather=gw).to(dtype)
     Cs_raw = x @ gathered(params["wC"], None, None, gather=gw).to(dtype)
     dt = x @ gathered(params["wdt"], None, "tp", gather=gw).to(dtype)
-    xs = F.silu(_causal_depthwise_conv(xs_raw, params["conv_x"].to(dtype)))
-    Bs = F.silu(_causal_depthwise_conv(Bs_raw, params["conv_B"].to(dtype)))
-    Cs = F.silu(_causal_depthwise_conv(Cs_raw, params["conv_C"].to(dtype)))
+    xs = F.silu(_conv_branch(params, "x", xs_raw, cfg))
+    Bs = F.silu(_conv_branch(params, "B", Bs_raw, cfg))
+    Cs = F.silu(_conv_branch(params, "C", Cs_raw, cfg))
     xs = constrain(xs, "batch", None, "tp")
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
@@ -224,13 +249,14 @@ def init_ssm_state(cfg: ModelConfig, batch: int,
             "conv_C": zeros(batch, W - 1, G * N)}
 
 
-def _conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor
-               ) -> torch.Tensor:
-    """state (B, W-1, C), xt (B, C) → conv output (B, C); the state is
-    shifted by one row in place."""
+def _conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """state (B, W-1, C), xt (B, C) → conv output (B, C), plus ``bias``
+    (C,) where given; the state is shifted by one row in place."""
     full = torch.cat([state, xt[:, None, :]], dim=1)     # (B, W, C)
     state.copy_(full[:, 1:, :])
-    return (full * w).sum(dim=1)
+    out = (full * w).sum(dim=1)
+    return out if bias is None else out + bias
 
 
 def ssm_decode_step(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -244,12 +270,14 @@ def ssm_decode_step(params: Params, x: torch.Tensor, cfg: ModelConfig,
     dtype = cfg.dtype
     xt = x[:, 0, :]
     z = xt @ params["wz"].to(dtype)
-    xs = _conv_step(state["conv_x"], xt @ params["wx"].to(dtype),
-                    params["conv_x"].to(dtype))
-    Bs = _conv_step(state["conv_B"], xt @ params["wB"].to(dtype),
-                    params["conv_B"].to(dtype))
-    Cs = _conv_step(state["conv_C"], xt @ params["wC"].to(dtype),
-                    params["conv_C"].to(dtype))
+
+    def conv(branch):
+        bias = params["conv_bias_" + branch].to(dtype) if cfg.conv_bias \
+            else None
+        return _conv_step(state["conv_" + branch],
+                          xt @ params["w" + branch].to(dtype),
+                          params["conv_" + branch].to(dtype), bias)
+    xs, Bs, Cs = conv("x"), conv("B"), conv("C")
     dt = xt @ params["wdt"].to(dtype)
     xs, Bs, Cs = F.silu(xs), F.silu(Bs), F.silu(Cs)
     dt = F.softplus(dt.float() + params["dt_bias"])      # (B, H)

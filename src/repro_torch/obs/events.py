@@ -19,6 +19,10 @@ Two families:
   and the router's shadow-replay link (``req.link`` lets the exporter
   merge a shadow's events onto the original request's track).
 
+Beside the events, the names of the MoE block's counters
+(``moe.{decode,prefill}.*``), which the serve engine keeps in its
+``stats``.
+
 Beside them, spans of the serve loop and the trainer that say what the
 host was doing (``engine.*``, ``data.wait``, ``train.dispatch``: host
 seconds), and ``dev.*``, whose ``ts`` is the host's dispatch stamp and
@@ -63,6 +67,23 @@ ENGINE_DISPATCH = "engine.dispatch"  # span: a decode/verify step's enqueue
 # device time (ts = host dispatch stamp, dur = DEVICE seconds)
 DEV_STEP = "dev.step"              # a decode/verify graph replay; meta=live
 DEV_PREFILL = "dev.prefill"        # a prefill on the stream; meta=plen
+
+# the MoE block's counters (``ServeEngine.stats`` keys, not trace events):
+# kept on the device by the block (``models.moe.moe_block``'s ``counts``),
+# inside the captured decode step too, and copied to the host behind each
+# decode step with its tokens. A row is one (token, expert) assignment; an
+# expert is hit by a call that gives it at least one row. Each tuple is one
+# row of the engine's ``(2, 3)`` counter tensor: decode steps, then
+# prefills
+MOE_DECODE_CALLS = "moe.decode.calls"
+MOE_DECODE_ROWS = "moe.decode.rows"
+MOE_DECODE_EXPERTS_HIT = "moe.decode.experts_hit"
+MOE_PREFILL_CALLS = "moe.prefill.calls"
+MOE_PREFILL_ROWS = "moe.prefill.rows"
+MOE_PREFILL_EXPERTS_HIT = "moe.prefill.experts_hit"
+MOE_COUNTERS = ((MOE_DECODE_CALLS, MOE_DECODE_ROWS, MOE_DECODE_EXPERTS_HIT),
+                (MOE_PREFILL_CALLS, MOE_PREFILL_ROWS,
+                 MOE_PREFILL_EXPERTS_HIT))
 
 # trainer (host spans, rid = -1)
 DATA_WAIT = "data.wait"            # span: get_next waited for its batch

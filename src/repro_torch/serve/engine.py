@@ -9,13 +9,14 @@ Counterpart of ``repro/serve/engine.py`` in its two memory modes:
   view for the dense decode, the written pages copied back, the verify
   step's write targets built on the host by ``PagePool.write_table``);
 * *dense* (``paged=False``, and automatically where paged caching is not
-  supported: the SSM and hybrid families and sliding-window configs) — a
-  layer-stacked per-slot cache with the slots as its batch: the SSM state
-  of constant size (mamba2), a KV cache of ``max_cache_len`` positions per
-  slot, a ring of ``window`` slots for a sliding-window config whose
-  ``max_cache_len`` reaches the window (h2o-danube3), or a hybrid's SSM
-  state beside its shared-block sites' KV (zamba2). Each slot decodes at
-  its own position, read from a static device buffer.
+  supported: the SSM, hybrid and moe_hybrid families and sliding-window
+  configs) — a layer-stacked per-slot cache with the slots as its batch:
+  the SSM state of constant size (mamba2), a KV cache of ``max_cache_len``
+  positions per slot, a ring of ``window`` slots for a sliding-window
+  config whose ``max_cache_len`` reaches the window (h2o-danube3), or a
+  hybrid's SSM state beside its attention KV (zamba2's shared-block
+  sites, granite's attention layers). Each slot decodes at its own
+  position, read from a static device buffer.
 
 The decode loop keeps a fixed set of *slots*, each holding one in-flight
 sequence:
@@ -60,6 +61,13 @@ What keeps the loop from blocking, in PyTorch terms:
   op's event is recorded; continuations read only that host copy, never
   a CUDA tensor (``int()``/``.item()``/``.cpu()`` there would sync the
   stream behind the next step already queued).
+
+A dense engine over a dropless MoE (granite-4.0-h) keeps the MoE blocks'
+counters on the device (``models.moe.moe_block``'s ``counts``: one row
+for decode steps, which the captured step adds to, one for prefills),
+copies them to the host behind each decode step with its tokens, and puts
+them in ``stats`` in the step's continuation
+(``obs.events.MOE_COUNTERS``).
 
 The engine refuses the audio enc-dec (whisper) and the VLM (internvl2)
 at construction, as the reference's refuses the first: both serve
@@ -229,6 +237,9 @@ class ServeEngine:
         self._dense_kv = False
         self._decode_graph: Optional[StepGraph] = None
         self._verify_graph: Optional[StepGraph] = None
+        # a dense engine's dropless MoE counters: (decode, prefill) x
+        # (calls, rows, experts hit), on the device
+        self._moe_counts: Optional[torch.Tensor] = None
         if self.paged:
             self.page_size = int(page_size)
             self.max_seq_len = int(max_seq_len or max_cache_len)
@@ -284,6 +295,9 @@ class ServeEngine:
             # whole sliding window (a ring that never runs out)
             self._cache = lm.init_cache(cfg, S, self.max_cache_len,
                                         device=self.device)
+            if cfg.moe is not None and cfg.moe.dispatch == "dropless":
+                self._moe_counts = torch.zeros((2, 3), dtype=torch.int64,
+                                               device=self.device)
             self._dense_kv = "k" in self._cache
             if self._dense_kv:
                 cache_len = self._cache["k"].shape[2]
@@ -291,6 +305,8 @@ class ServeEngine:
                     self._dense_bound = cache_len
             self._decode_fn = make_batched_decode_step(cfg, self._layers)
             self._decode_graph = StepGraph(self._dense_step, self.device)
+            if self._moe_counts is not None:
+                self._moe_counts.zero_()      # the capture's warm-up ran
 
         # -- slot state (loop thread only) --
         self._slots: List[Optional[Request]] = [None] * S
@@ -317,6 +333,9 @@ class ServeEngine:
                       # host seconds spent enqueueing decode (or verify)
                       # steps
                       "dispatch_s": 0.0}
+        if self._moe_counts is not None:
+            for names in _obs_events.MOE_COUNTERS:
+                self.stats.update(dict.fromkeys(names, 0))
 
     # ------------------------------------------------------------- clients
     def submit(self, request: Request) -> Request:
@@ -397,7 +416,7 @@ class ServeEngine:
         none); the next tokens become the next inputs in place."""
         positions = self._meta[:self.max_batch] if self._dense_kv else None
         nxt, _ = self._decode_fn(self.params, self._cache, self._tokens,
-                                 positions)
+                                 positions, self._moe_row(0))
         self._tokens.copy_(nxt[..., None])
         return nxt
 
@@ -419,6 +438,18 @@ class ServeEngine:
                      torch.clamp(n_valid - 1, min=0))
         emitted, accepts, _ = self._verify_fn(*args)
         return emitted, accepts
+
+    def _moe_row(self, kind: int) -> Optional[torch.Tensor]:
+        """The MoE counters' row ``kind`` (0 decode, 1 prefill), where the
+        engine keeps counters."""
+        return None if self._moe_counts is None else self._moe_counts[kind]
+
+    def _moe_stats(self, counts: Optional[torch.Tensor]) -> None:
+        """``stats`` from a host copy of the MoE counters."""
+        if counts is None:
+            return
+        for names, row in zip(_obs_events.MOE_COUNTERS, counts.tolist()):
+            self.stats.update(zip(names, row))
 
     # ---------------------------------------------------------- slot state
     def _free_slots(self) -> List[int]:
@@ -471,7 +502,8 @@ class ServeEngine:
         slot = None
         if retire_now:
             logits, _ = make_prefill_step(self.cfg, plen)(
-                self.params, {"tokens": self._upload(prompt_np)})
+                self.params, {"tokens": self._upload(prompt_np)},
+                self._moe_row(1))
             first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         elif self.paged:
             first = self._prefill_paged(req, prompt_np)
@@ -556,7 +588,8 @@ class ServeEngine:
         device."""
         views = {name: t[:, slot:slot + 1] for name, t in self._cache.items()}
         logits, _ = lm.lm_prefill(
-            self.params, {"tokens": self._upload(prompt_np)}, self.cfg, views)
+            self.params, {"tokens": self._upload(prompt_np)}, self.cfg, views,
+            self._moe_row(1))
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     def _prefill_paged(self, req: Request,
@@ -731,6 +764,8 @@ class ServeEngine:
         if dev is not None:
             dev.end.record()
         host = self._download(nxt)
+        moe_host = None if self._moe_counts is None \
+            else self._download(self._moe_counts)
         stepped: List[Tuple[int, Request, bool]] = []
         prio = 0
         for i, r in live:
@@ -748,7 +783,8 @@ class ServeEngine:
         self.stats["max_active"] = max(self.stats["max_active"], len(live))
         t0 = tr.now() if tr is not None else None
         self.engine.continue_when(TensorOp(nxt, payload=host),
-                                  self._on_step_done, (stepped, host, t0, dev),
+                                  self._on_step_done,
+                                  (stepped, host, t0, dev, moe_host),
                                   cr=self.cr_steps, flags=_step_flags(prio))
         return True
 
@@ -757,10 +793,11 @@ class ServeEngine:
         finished on the device: deliver each slot's token, then retire
         slots that finished — by budget, stop sequence or deadline —
         releasing their pages in this same continuation."""
-        stepped, host, t0, dev = meta
+        stepped, host, t0, dev, moe_host = meta
         self._inflight -= 1
         if dev is not None:
             self._device_span(_obs_events.DEV_STEP, -1, dev)
+        self._moe_stats(moe_host)
         arr = host.numpy()
         now = time.monotonic()
         tr = _obs.TRACE

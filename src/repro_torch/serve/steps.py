@@ -55,13 +55,13 @@ def make_prefill_step(cfg: ModelConfig, max_cache_len: int) -> Callable:
             return encdec.encdec_decode_step(params, bos, cfg, state, 0)
         return prefill
 
-    def prefill(params, batch):
+    def prefill(params, batch, counts=None):
         tokens = batch["tokens"]
         cache = lm.init_cache(cfg, tokens.shape[0], max_cache_len,
                               device=tokens.device)
         # under a mesh the fresh cache is placed by its logical axes
         cache = place_by_specs(cache, lm.cache_specs(cfg))
-        return lm.lm_prefill(params, batch, cfg, cache)
+        return lm.lm_prefill(params, batch, cfg, cache, counts)
     return prefill
 
 
@@ -88,12 +88,14 @@ def make_batched_decode_step(cfg: ModelConfig,
     slots; here one batch of S rows decodes at once, row ``s`` at
     ``positions[s]`` (a device tensor, never read on the host; the SSM
     family reads none). ``layers`` are ``lm.layer_views(params)`` computed
-    once by the caller."""
+    once by the caller; ``counts``, a dropless MoE's counters
+    (``moe.moe_block``)."""
     lm.require_ported(cfg)
 
-    def step(params, caches, tokens, positions):
+    def step(params, caches, tokens, positions, counts=None):
         logits, caches = lm.lm_decode_step(params, tokens[:, 0, :], cfg,
-                                           caches, positions, layers=layers)
+                                           caches, positions, layers=layers,
+                                           counts=counts)
         nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
         return nxt, caches
     return step
